@@ -1,0 +1,30 @@
+"""PyTorch/CUDA port of ``matternet_rs_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package beside it is the reference; this package mirrors its module
+names so each counterpart is easy to find. It imports ``torch`` and
+``numpy`` only. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card and no explicit CPU request they raise.
+
+Ported so far (the main path): the eigen build
+(:class:`ArrowSpaceBuilder`) and the exact λ-aware batched search
+(:meth:`ArrowSpace.search_batch`), with hand-written CUDA kernels for the
+taumode λ, the fused score + sub-tile maxima producer and the sub-tile
+gather (``csrc/``). ROADMAP.md lists what waits.
+"""
+
+from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder
+from matternet_rs_tpu_torch.core import (
+    ArrowSpace,
+    TauMode,
+    UndecidableQueryError,
+)
+from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
+
+__all__ = [
+    "ArrowSpace",
+    "ArrowSpaceBuilder",
+    "GraphLaplacian",
+    "GraphParams",
+    "TauMode",
+    "UndecidableQueryError",
+]

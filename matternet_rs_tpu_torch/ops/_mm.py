@@ -1,0 +1,27 @@
+"""Matmul precision policy (twin of ``matternet_rs_tpu/ops/_mm.py``).
+
+The reference runs parity-critical products at ``Precision.HIGHEST`` (full
+f32 accumulation). On the card a float32 product may otherwise go through
+TF32 (about three decimal digits), so the policy is set explicitly, for
+both cuBLAS and cuDNN, when this module is imported and again by
+:func:`full_f32`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def full_f32() -> None:
+    """TF32 off everywhere; float32 products at ``highest`` precision."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+full_f32()
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full-f32 matmul (the exact tier's product)."""
+    return torch.matmul(a, b)
