@@ -20,17 +20,34 @@ Phases, one output line each (JSON):
    per batch (host clock), device-busy ms (the union of the traced
    kernels' intervals), the idle share 1 − busy/wall, and the kernels
    with the most device time.
-3. wide — a build at N = 40,000, F = 768, so the wide-F λ route (the
+3. rescored — on the same 1M index, the quantised tiers
+   ``bf16x3_rescored``, ``int8_rescored``, ``bf16_rescored``, ``int8``
+   with ``approx=True`` and ``auto``, each over the same warm-up batch and
+   three timed batches (after the int8 sketch and the bf16 copy are made,
+   timed once). Per tier: median ms per batch, recall@10 against phase 2's
+   exact ids, launches, and phase 2's profiler pass over the timed
+   batches. Checks: every returned score is the exact f32
+   blended score of its id (≤ 1e-5), ids are distinct, bf16x3_rescored
+   finds each query's own row (or an equal score) and has recall@10 ≥
+   0.98, and the maxima-first tiers launched kernels D and E. Kernel route
+   against plain route: the same ``fused_scan_rescored`` through the plain
+   versions must give the same ids under the same-k rule
+   (``utils/parity.same_k_mismatches``, 1e-5) wherever both routes chose
+   the same slabs; a row whose slabs differ is allowed only where the
+   plain route's c-th and (c+1)-th sub-tile maxima are within 1e-5.
+4. wide — a build at N = 40,000, F = 768, so the wide-F λ route (the
    TPU's F-tiled kernel range) runs through the builder.
-   Launch counts are set to 0 just before phases 2 and 3 and read just
-   after each; every kernel of a phase must have launched.
-4. kernels — each kernel against its plain PyTorch version on the inputs
+   Launch counts are set to 0 just before phase 2, each tier of phase 3
+   and phase 4, and read just after each; every kernel of a path must
+   have launched.
+5. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
-   ≤ 1e-5 abs; gather: bit for bit), timed with CUDA events over cold-L2
-   launches beside its plain version, the one PyTorch call that computes
-   the same thing where there is one, and the card's least time for the
-   work (the larger of bytes over 3.35 TB/s and f32 FLOP over 67 TFLOP/s,
-   H100 SXM data sheet).
+   ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖), timed
+   with CUDA events over cold-L2 launches beside its plain version, the
+   one PyTorch call that computes the same thing where there is one, and
+   the card's least time for the work: the larger of bytes over 3.35 TB/s
+   and operations over the peak of their type (f32 FFMA 67 TFLOP/s, bf16
+   tensor cores 989 TFLOP/s; H100 SXM data sheet).
 
 Then the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
@@ -50,9 +67,19 @@ N_MAIN, F_MAIN, SEED_MAIN = 1_000_000, 128, 44
 N_WIDE, F_WIDE, SEED_WIDE = 40_000, 768, 45
 BATCH, K, ALPHA, N_BATCHES = 256, 10, 0.7, 3
 TOL_LAMBDA, TOL_SCORE = 1e-5, 1e-5
+# The quantised tiers of phase 3: (tier, extra search_batch arguments).
+TIERS = (
+    ("bf16x3_rescored", {}),
+    ("int8_rescored", {}),
+    ("bf16_rescored", {"allow_low_recall": True}),
+    ("int8", {"approx": True}),
+    ("auto", {}),
+)
+MIN_RECALL_BF16X3 = 0.98
 
-# H100 SXM data sheet (dense): HBM3 3.35 TB/s, f32 FFMA 67 TFLOP/s.
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+# H100 SXM data sheet (dense): HBM3 3.35 TB/s, f32 FFMA 67 TFLOP/s, bf16
+# tensor cores 989 TFLOP/s.
+PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 TOP_KERNELS = 10
 
 
@@ -77,8 +104,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -113,10 +140,11 @@ def main() -> int:
     from matternet_rs_tpu_torch.ops import search as so
     from matternet_rs_tpu_torch.ops import taumode as tmo
     from matternet_rs_tpu_torch.ops.kernels import _cuda
+    from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
     from matternet_rs_tpu_torch.ops.kernels import taumode as tk
     from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
     from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
-    from matternet_rs_tpu_torch.utils.parity import topk_mismatches
+    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -172,18 +200,24 @@ def main() -> int:
     mn = torch.tensor(aspace.min_lambdas, device=dev)
     rng_ = torch.tensor(aspace.range_lambdas, device=dev)
     alphas = torch.full((BATCH,), ALPHA, dtype=torch.float32, device=dev)
+
+    def queries_of(r, raw):
+        """The batch's queries and normalised λ, as search_batch forms them."""
+        rt = torch.from_numpy(r).to(dev)
+        return rt, Xt[rt], torch.clamp((torch.from_numpy(raw).to(dev) - mn) / rng_, 0.0, 1.0)
+
+    def exact_scores(Q, ql, ids):
+        """f32 blended scores of rows ``ids [B, k]`` for each query."""
+        dots = torch.sum(Xt[ids] * Q[:, None, :], dim=-1)
+        qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+        return tmk.blend(dots, norms[ids] * qn[:, None], lams[ids], ql[:, None], ALPHA)
+
     plain_mismatch, self_fail = [], []
     for r, idx, sc, raw in results:
         check(idx.shape == (BATCH, K) and np.all(np.isfinite(sc)), "bad search output")
-        rt = torch.from_numpy(r).to(dev)
-        Q = Xt[rt]
-        ql = torch.clamp((torch.from_numpy(raw).to(dev) - mn) / rng_, 0.0, 1.0)
-        # Each query's blended score against its own row, as the scan scores it.
-        denom = norms[rt] * torch.sqrt(torch.sum(Q * Q, dim=-1))
-        cos = torch.where(denom > 1e-12, torch.sum(Q * Q, dim=-1) / torch.clamp(denom, min=1e-12),
-                          torch.zeros_like(denom))
-        lam_sim = 1.0 - torch.clamp(torch.abs(lams[rt] - ql), max=1.0)
-        own = (ALPHA * cos + (1.0 - ALPHA) * lam_sim).cpu().numpy()
+        rt, Q, ql = queries_of(r, raw)
+        # Each query's blended score against its own row.
+        own = exact_scores(Q, ql, rt[:, None])[:, 0].cpu().numpy()
         for b in range(BATCH):
             if r[b] not in idx[b] or sc[b, 0] < own[b] - TOL_SCORE:
                 self_fail.append(int(r[b]))
@@ -205,31 +239,122 @@ def main() -> int:
     for kname in ("taumode", "scores_tilemax", "gather_subtiles"):
         check(main_counts[kname] > 0, f"kernel {kname} not launched on the main path")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    def traced(search):
+        """Run ``search(r)`` over the timed batches under ``torch.profiler``:
+        wall ms per batch (host clock), device-busy ms per batch (the union
+        of the traced kernels' intervals), idle share, top kernels."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for r in batches[1:]:
-            aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / N_BATCHES
-    dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / N_BATCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in batches[1:]:
+                search(r)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / N_BATCHES
+        dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / N_BATCHES
 
-    def dev_ms(a):
-        return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
+        def dev_ms(a):
+            return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
 
-    traced = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-    top = sorted(traced, key=dev_ms, reverse=True)[:TOP_KERNELS]
-    emit(phase="profile", card=card, batches=N_BATCHES, wall_ms_per_batch=wall_ms,
-         device_busy_ms_per_batch=dev_busy,
-         idle_share=1.0 - dev_busy / wall_ms if wall_ms > 0 else None,
-         top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / N_BATCHES,
-                       "device_ms_per_batch": dev_ms(a) / 1e3 / N_BATCHES}
-                      for a in top if dev_ms(a) > 0])
+        kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+        top = sorted(kern, key=dev_ms, reverse=True)[:TOP_KERNELS]
+        return dict(batches=N_BATCHES, wall_ms_per_batch=wall_ms,
+                    device_busy_ms_per_batch=dev_busy,
+                    idle_share=1.0 - dev_busy / wall_ms if wall_ms > 0 else None,
+                    top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / N_BATCHES,
+                                  "device_ms_per_batch": dev_ms(a) / 1e3 / N_BATCHES}
+                                 for a in top if dev_ms(a) > 0])
 
-    # -- 3. wide-F build -----------------------------------------------
+    emit(phase="profile", card=card,
+         **traced(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)))
+
+    # -- 3. rescored tiers --------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aspace.enable_int8_scan()
+    torch.cuda.synchronize()
+    int8_sketch_s = time.perf_counter() - t0
+    aspace.enable_quantized_scan()
+    torch.cuda.synchronize()
+    bf16_copy_s = time.perf_counter() - t0 - int8_sketch_s
+    X8, mult = aspace._ensure_int8()
+    Xb = aspace._scan_corpus(True)
+    scan_of ={"bf16x3_rescored": (Xt, None), "int8_rescored": (X8, mult),
+               "bf16_rescored": (Xb, None)}
+    cand = aspace._int8_cand(K, None)
+    ts_r = so.DEFAULT_TILE // so.RESCORE_SUBS
+    ns_r = (N_MAIN // so.DEFAULT_TILE) * so.RESCORE_SUBS
+    c_r = min(ns_r, max(K + so.SELECT_MARGIN, -(-cand // ts_r)))
+    tier_counts = {}
+    for tier, kw in TIERS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs, ms = [], []
+        for r in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            idx, sc, raw = aspace.search_batch(X[r], gl, k=K, alpha=ALPHA, quantized=tier,
+                                               return_raw=True, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            outs.append((r, idx, sc, raw))
+        counts = tier_counts[tier] = kernels.launch_counts()
+        score_err, dup_rows, self_found, hits = 0.0, 0, 0, 0
+        plain_bad, sel_differs, sel_unexplained = [], 0, []
+        for (r, idx, sc, raw), (_, eidx, _, _) in zip(outs, results):
+            check(idx.shape == (BATCH, K) and np.all(np.isfinite(sc)), f"{tier}: bad output")
+            rt, Q, ql = queries_of(r, raw)
+            ids = torch.from_numpy(idx).to(dev)
+            ex = exact_scores(Q, ql, ids)
+            score_err = max(score_err, float((torch.from_numpy(sc).to(dev) - ex).abs().max()))
+            own = exact_scores(Q, ql, rt[:, None])[:, 0].cpu().numpy()
+            for b in range(BATCH):
+                dup_rows += len(set(idx[b].tolist())) != K
+                self_found += bool(r[b] in idx[b] or np.any(np.abs(sc[b] - own[b]) <= TOL_SCORE))
+                hits += len(set(idx[b].tolist()) & set(eidx[b].tolist()))
+            if tier not in scan_of:
+                continue
+            Xs, rn = scan_of[tier]
+            a = torch.full((BATCH,), ALPHA, dtype=torch.float32, device=dev)
+            pidx, ptop = so.fused_scan_rescored(
+                Xs, Xt, norms, lams, Q, ql, K, cand, a, scan_rn=rn,
+                producer=rsk.tilemax_only_plain, slab_reader=rsk.slab_dots_plain,
+            )
+            mk = rsk.tilemax_only(Xs, norms, lams, Q, ql, a, subs=so.RESCORE_SUBS, rn=rn)
+            mp = rsk.tilemax_only_plain(Xs, norms, lams, Q, ql, a, subs=so.RESCORE_SUBS, rn=rn)
+            sel_k = torch.sort(so.topk_stable(mk, c_r)[1], dim=1).values
+            top_p, sel_p = so.topk_stable(mp, c_r + 1)
+            sel_p = torch.sort(sel_p[:, :c_r], dim=1).values
+            same = torch.all(sel_k == sel_p, dim=1).cpu().numpy()
+            gap = (top_p[:, c_r - 1] - top_p[:, c_r]).abs().cpu().numpy()
+            sel_differs += int((~same).sum())
+            sel_unexplained += [int(r[b]) for b in np.nonzero(~same & (gap > TOL_SCORE))[0]]
+            plain_bad += same_k_mismatches(pidx.cpu().numpy()[same], ptop.cpu().numpy()[same],
+                                           idx[same], sc[same], TOL_SCORE)
+        recall = hits / (K * BATCH * len(outs))
+        profile_ = traced(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA,
+                                                        quantized=tier, **kw))
+        emit(phase="rescored", tier=tier, args=kw, card=card, warmup_ms=ms[0],
+             search_ms_per_batch_median=statistics.median(ms[1:]), search_ms_per_batch=ms[1:],
+             recall_at_10=recall, launches=counts, max_score_err=score_err,
+             self_found=self_found, queries=BATCH * len(outs),
+             slab_selection_differs_rows=sel_differs, plain_route_mismatches=plain_bad[:5],
+             int8_sketch_seconds=int8_sketch_s, bf16_copy_seconds=bf16_copy_s,
+             profile=profile_)
+        check(score_err <= TOL_SCORE, f"{tier}: returned scores off the exact ones by {score_err}")
+        check(dup_rows == 0, f"{tier}: {dup_rows} rows repeat an id")
+        check(not plain_bad, f"{tier}: kernel vs plain route: {plain_bad[:3]}")
+        check(not sel_unexplained, f"{tier}: slab selection differs without a near tie: {sel_unexplained[:5]}")
+        if tier in scan_of:
+            for kname in ("tilemax_only", "slab_dots"):
+                check(counts[kname] > 0, f"kernel {kname} not launched on tier {tier}")
+        if tier == "bf16x3_rescored":
+            check(self_found == BATCH * len(outs), f"{tier}: {BATCH * len(outs) - self_found} queries miss their own row")
+            check(recall >= MIN_RECALL_BF16X3, f"{tier}: recall@10 {recall} < {MIN_RECALL_BF16X3}")
+
+    # -- 4. wide-F build -----------------------------------------------
     Xw = make_energy_test_dataset(N_WIDE, F_WIDE, seed=SEED_WIDE).astype(np.float32)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -243,7 +368,7 @@ def main() -> int:
     check(wide_counts["taumode"] > 0, "kernel taumode not launched on the wide build")
     check(np.all(np.isfinite(waspace.lambdas.cpu().numpy())), "non-finite wide λ")
 
-    # -- 4. kernels against their plain versions -----------------------
+    # -- 5. kernels against their plain versions -----------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
 
     def cuda_ms(fn, reps=5):
@@ -329,6 +454,66 @@ def main() -> int:
         shape=f"B={BATCH} c={c} ts={ts}",
     ))
     check(bool(torch.equal(g_k, g_p)), f"gather_subtiles: kernel vs plain {err_c}")
+    del s_k, s_p, g_k, g_p, s3
+
+    # Kernel D in its three modes, on the tiers' own inputs; the bf16x3 and
+    # int8 maxima also give kernel E's slab selections.
+    ns_r = (N_MAIN // tile) * so.RESCORE_SUBS
+    Qb = Q.to(torch.bfloat16)
+    sels = {}
+    for label, tier, Xs, rn, passes, library in (
+        ("tilemax_only_bf16", "bf16_rescored", Xb, None, 1, lambda: torch.matmul(Qb, Xb[:n0].T)),
+        ("tilemax_only_int8", "int8_rescored", X8, mult, 1, lambda: torch.matmul(Qb, Xb[:n0].T)),
+        ("tilemax_only_bf16x3", "bf16x3_rescored", Xt, None, 3, lambda: torch.matmul(Q, Xn0.T)),
+    ):
+        def run_d(fn, Xs=Xs, rn=rn):
+            return fn(Xs, norms, lams, Q, ql, alphas, tile=tile, subs=so.RESCORE_SUBS, rn=rn)
+
+        md, mp = run_d(rsk.tilemax_only), run_d(rsk.tilemax_only_plain)
+        err_d = float((md - mp).abs().max())
+        sels[tier] = torch.sort(so.topk_stable(md, c_r)[1], dim=1).values
+        bms, by = bound(n0 * F_MAIN * Xs.element_size() + 8 * n0 + 4 * BATCH * F_MAIN
+                        + 4 * BATCH * ns_r, passes * 2 * BATCH * n0 * F_MAIN, PEAK_BF16_FLOP_S)
+        rows_out.append(dict(
+            name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
+            replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
+            launches=tier_counts[tier]["tilemax_only"], max_abs_err=err_d,
+            ms=cuda_ms(lambda: run_d(rsk.tilemax_only)),
+            plain_ms=cuda_ms(lambda: run_d(rsk.tilemax_only_plain), reps=3),
+            bound_ms=bms, bound_by=by, library_ms=cuda_ms(library),
+            shape=f"B={BATCH} N={N_MAIN} F={F_MAIN} subs={so.RESCORE_SUBS} {Xs.dtype}",
+        ))
+        check(err_d <= TOL_SCORE, f"{label}: kernel vs plain maxima {err_d}")
+
+    # Kernel E in both row modes. The maxima-first tiers read f32 rows; the
+    # int8-row mode serves the sketch callers of a later slice, so its row
+    # carries the wrapper's count and its own mode's count (0) beside it.
+    e_launches = sum(tier_counts[t]["slab_dots"] for t in scan_of)
+    qnorm = torch.linalg.norm(Q, dim=1)
+    for label, Xr, sel_e, peak, mode_launches in (
+        ("slab_dots_f32", Xt, sels["bf16x3_rescored"], PEAK_F32_FLOP_S, e_launches),
+        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, 0),
+    ):
+        de, dp = rsk.slab_dots(Xr, Q, sel_e, ts_r), rsk.slab_dots_plain(Xr, Q, sel_e, ts_r)
+        rows_e = sel_e[:, :, None] * ts_r + torch.arange(ts_r, device=dev)
+        scale = qnorm[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows_e]
+        err_e = float(((de - dp).abs() / torch.clamp(scale, min=1e-30)).max())
+        distinct = int(torch.unique(sel_e).numel())
+        bms, by = bound(distinct * ts_r * F_MAIN * Xr.element_size() + 4 * BATCH * F_MAIN
+                        + 4 * BATCH * c_r * ts_r + 8 * BATCH * c_r,
+                        2 * BATCH * c_r * ts_r * F_MAIN, peak)
+        rows_out.append(dict(
+            name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
+            replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:417",
+            launches=e_launches, max_abs_err=err_e,
+            ms=cuda_ms(lambda: rsk.slab_dots(Xr, Q, sel_e, ts_r), reps=20),
+            plain_ms=cuda_ms(lambda: rsk.slab_dots_plain(Xr, Q, sel_e, ts_r), reps=5),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"B={BATCH} c={c_r} ts={ts_r} F={F_MAIN} {Xr.dtype} distinct_slabs={distinct}",
+            mode_launches=mode_launches,
+            err_scale="cosine (|Δd|/(‖q‖·‖x‖))",
+        ))
+        check(err_e <= TOL_SCORE, f"{label}: kernel vs plain dots {err_e} on the cosine scale")
     emit(phase="kernels", card=card, rows=len(rows_out))
 
     print(json.dumps({"kernels": rows_out}))

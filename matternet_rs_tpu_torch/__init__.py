@@ -6,10 +6,11 @@ names so each counterpart is easy to find. It imports ``torch`` and
 ``device="cpu"``; with no card and no explicit CPU request they raise.
 
 Ported so far (the main path): the eigen build
-(:class:`ArrowSpaceBuilder`) and the exact λ-aware batched search
-(:meth:`ArrowSpace.search_batch`), with hand-written CUDA kernels for the
-taumode λ, the fused score + sub-tile maxima producer and the sub-tile
-gather (``csrc/``). ROADMAP.md lists what waits.
+(:class:`ArrowSpaceBuilder`) and the λ-aware batched search
+(:meth:`ArrowSpace.search_batch`) with its exact and quantised tiers, with
+hand-written CUDA kernels for the taumode λ, the fused score + sub-tile
+maxima producer, the sub-tile gather, the maxima-first scan and the slab
+rescore (``csrc/``). ROADMAP.md lists what waits.
 """
 
 from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder

@@ -8,7 +8,10 @@ nowhere else, so a run can show its path went through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0}
+LAUNCHES: dict[str, int] = {
+    "taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0,
+    "tilemax_only": 0, "slab_dots": 0,
+}
 
 
 def reset_launches() -> None:

@@ -40,6 +40,14 @@ SIGNATURES = {
         # scores, sel, out, b, c, ts, n0, stream
         "mrs_gather_subtiles": [_P, _P, _P, _I, _I, _I, _I64, _P],
     },
+    "rescored": {
+        # X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, n0, f, b, ts,
+        # mode, out, stream
+        "mrs_tilemax_only": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
+                             _I, _P, _P],
+        # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, stream
+        "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

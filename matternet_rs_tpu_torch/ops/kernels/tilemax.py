@@ -26,16 +26,23 @@ SUBS = 8
 KERNEL_TS = 256
 
 
-def blended_scores(dots, norms, lambdas, qn, query_lambdas, alphas):
-    """Guarded cosine + λ blend on ``dots [B, n]`` — THE scoring epilogue
-    (the reference's ``_guarded_cosine`` and ``_blend``)."""
-    denom = norms[None, :] * qn[:, None]
+def blend(dots, denom, lambdas, query_lambdas, alphas):
+    """THE scoring epilogue (the reference's ``_guarded_cosine`` and
+    ``_blend``) on operands that already broadcast against ``dots``:
+    ``α·cos + (1-α)·(1 - min(|λ - λq|, 1))`` with ``cos = dots/denom``, 0
+    where ``denom ≤ 1e-12``."""
     cos = torch.where(
         denom > 1e-12, dots / torch.clamp(denom, min=1e-12), torch.zeros_like(dots)
     )
-    a = alphas[:, None]
-    lam_sim = 1.0 - torch.clamp(torch.abs(lambdas[None, :] - query_lambdas[:, None]), max=1.0)
-    return a * cos + (1.0 - a) * lam_sim
+    lam_sim = 1.0 - torch.clamp(torch.abs(lambdas - query_lambdas), max=1.0)
+    return alphas * cos + (1.0 - alphas) * lam_sim
+
+
+def blended_scores(dots, norms, lambdas, qn, query_lambdas, alphas):
+    """:func:`blend` on ``dots [B, n]`` with per-row ``norms``/``lambdas``
+    ``[n]`` and per-query ``qn``/``query_lambdas``/``alphas`` ``[B]``."""
+    return blend(dots, norms[None, :] * qn[:, None], lambdas[None, :],
+                 query_lambdas[:, None], alphas[:, None])
 
 
 def scores_and_tilemax_plain(X, norms, lambdas, queries, query_lambdas, alphas,

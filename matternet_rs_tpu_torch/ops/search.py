@@ -1,8 +1,8 @@
-"""λ-aware exact search (twin of the reference's ``ops/search.py`` exact
-routes).
+"""λ-aware search (twin of the reference's ``ops/search.py``): the exact
+routes and the rescored (maxima-first) route.
 
 Score = α·cos + (1-α)·(1 - min(|λ - λq|, 1)) with the zero-norm-guarded
-cosine. Routes, with the reference's thresholds:
+cosine. Exact routes, with the reference's thresholds:
 
 * flat — all ``[B, N]`` scores, then top-k;
 * tile-max (``N >= TILEMAX_MIN_N``) — per-tile maxima prune the top-k to a
@@ -11,7 +11,18 @@ cosine. Routes, with the reference's thresholds:
   kernel B writes the scores and the sub-tile maxima in one pass, kernel C
   gathers the selected sub-tiles (:func:`fused_tilemax`).
 
+Rescored route (:func:`fused_scan_rescored`, where
+:func:`fused_rescored_path` holds): kernel D scans at reduced precision and
+keeps only 128-row sub-tile maxima, kernel E dots every row of the selected
+slabs at full precision, and the final top-k ranks exact scores only.
+
 On the CPU the same routes run with the kernels' plain versions.
+
+``approx=True``: the reference selects with ``lax.approx_max_k``, a TPU
+operation. The port selects exactly instead (a stable top-k, or
+:func:`tilemax_topk` where the reference's exact branch would), which is
+what XLA itself does off the TPU: on the CPU ``approx_max_k`` returns
+``lax.top_k``'s ids, ties lowest index first.
 
 Tie order: ``lax.top_k`` returns ties lowest index first and the selection
 relies on it; ``torch.topk`` promises no tie order, so every top-k here is
@@ -22,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from matternet_rs_tpu_torch.ops._mm import mm
+from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
+from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
 
 TILEMAX_MIN_N = 65_536
@@ -33,11 +45,10 @@ MIN_FUSED_B = 2
 MAX_FUSED_B = 1024
 MAX_FUSED_F = 2048
 SELECT_MARGIN = 4
-
-APPROX_NOT_PORTED = (
-    "approx=True (lax.approx_max_k) has no documented substitute on the GPU "
-    "yet: ROADMAP.md Queue 1 item 3"
-)
+# Selection granularity of the rescored tiers (128-row slabs at the
+# default tile) and their slab-count cap, as in the reference.
+RESCORE_SUBS = 16
+MAX_RESCORE_SLABS = 64
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -78,19 +89,27 @@ def _alphas(alphas, b: int, device) -> torch.Tensor:
     return a.expand(b).contiguous() if a.ndim == 0 else a
 
 
+def _scan_dots_batch(X, queries) -> torch.Tensor:
+    """Corpus dots ``[B, N]``: one bf16 pass for a bf16 corpus (the
+    ``quantized=True`` copy), full f32 otherwise."""
+    if X.dtype == torch.bfloat16:
+        return mm_bf16(queries, X.T)
+    return mm(queries, X.T)
+
+
 def _batched_scores(X, norms, lambdas, queries, query_lambdas, alphas) -> torch.Tensor:
     """Blended score matrix ``[B, N]``; ``alphas`` scalar or ``[B]``."""
     qn = torch.sqrt(torch.sum(queries * queries, dim=-1))
     a = _alphas(alphas, queries.shape[0], queries.device)
-    return tmk.blended_scores(mm(queries, X.T), norms, lambdas, qn, query_lambdas, a)
+    return tmk.blended_scores(_scan_dots_batch(X, queries), norms, lambdas, qn,
+                              query_lambdas, a)
 
 
 def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
                         alphas=0.7, approx: bool = False):
     """Flat exact top-k. ``queries [B, F]`` (or one ``[F]`` query with a
-    scalar λ). Returns ``(indices, scores)``, ``[B, k]`` or ``[k]``."""
-    if approx:
-        raise NotImplementedError(APPROX_NOT_PORTED)
+    scalar λ). ``approx`` selects exactly (module docstring). Returns
+    ``(indices, scores)``, ``[B, k]`` or ``[k]``."""
     single = queries.ndim == 1
     Q = queries[None, :] if single else queries
     ql = torch.as_tensor(query_lambdas, dtype=torch.float32, device=Q.device).reshape(-1)
@@ -184,3 +203,84 @@ def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
         smain.view(b, ns, ts), submax, tail, n, kk, SELECT_MARGIN,
         gather=lambda sel: gather(smain, sel, ts),
     )
+
+
+def tilemax_only_supported(n: int, f: int, b: int, tile: int, subs: int = tmk.SUBS) -> bool:
+    """Envelope of the maxima-first producer: at least one tile, the
+    reference's B and F limits, sub-tiles of whole 128-row chunks. The
+    reference's VMEM budget and TPU-platform clauses have no counterpart:
+    kernel D stages 32 features and 64 queries at a time, so its shared
+    memory does not grow with F or B."""
+    return (
+        n >= tile and f <= MAX_FUSED_F
+        and MIN_FUSED_B <= b <= MAX_FUSED_B
+        and tile % (subs * rsk.KERNEL_CHUNK) == 0
+    )
+
+
+def fused_rescored_path(n: int, f: int, b: int, kk: int, cand: int,
+                        tile: int = DEFAULT_TILE) -> bool:
+    """Routing predicate for :func:`fused_scan_rescored`: the producer's
+    envelope, a corpus large enough for sub-tile pruning to pay, a
+    non-degenerate selection, and a slab rescore that stays a small part
+    of the corpus (a huge ``candidates`` takes the pool-cut fallback). The
+    reference's ``b % 8 == 0`` and ``f % 128 == 0`` clauses were Mosaic
+    rules (the slab ring's 8-query blocks, the DMA's 128-lane slices);
+    kernels D and E take any B and F, so they are dropped."""
+    ts = tile // RESCORE_SUBS
+    c = max(kk + SELECT_MARGIN, -(-cand // ts))
+    return (
+        n >= FUSED_TILEMAX_MIN_N
+        and not _tilemax_degenerate(n, kk, tile)
+        and tilemax_only_supported(n, f, b, tile, subs=RESCORE_SUBS)
+        and c <= MAX_RESCORE_SLABS
+        and c * ts * 8 <= n
+    )
+
+
+def fused_scan_rescored(Xscan, X, norms, lambdas, queries, query_lambdas, k: int,
+                        cand: int, alphas, t: int = DEFAULT_TILE, scan_rn=None,
+                        mask_from: int | None = None,
+                        producer=rsk.tilemax_only, slab_reader=rsk.slab_dots):
+    """Maxima-first reduced-precision scan + exact slab rescore.
+
+    Stage 1: ``producer`` (kernel D) scans ``Xscan`` — bf16, int8 (with
+    ``scan_rn`` its dequant multiplier) or f32 (bf16x3) — and returns only
+    the per-sub-tile maxima ``[B, ns]`` of ``ts = t // RESCORE_SUBS``-row
+    sub-tiles. Stage 2: the ``c = max(k + 4, ⌈cand/ts⌉)`` sub-tiles with
+    the largest maxima, sorted into id order, go to ``slab_reader``
+    (kernel E) for full-f32 dots of every row of the f32 corpus ``X``; the
+    ragged tail is scored exactly by :func:`_batched_scores`; the final
+    stable top-k ranks exact scores only, ties lowest index first. Rows ≥
+    ``mask_from`` score -inf at both stages. Passing the plain versions as
+    ``producer``/``slab_reader`` runs the same path without the kernels.
+    Caller checks :func:`fused_rescored_path`. Returns ``(idx [B, kk],
+    scores [B, kk])``."""
+    b, n = queries.shape[0], X.shape[0]
+    kk = min(k, n)
+    nt0 = n // t
+    n0 = nt0 * t
+    ts = t // RESCORE_SUBS
+    ns = nt0 * RESCORE_SUBS
+    a = _alphas(alphas, b, queries.device)
+    submax = producer(Xscan, norms, lambdas, queries, query_lambdas, a, tile=t,
+                      subs=RESCORE_SUBS, mask_from=mask_from, rn=scan_rn)
+    c = min(ns, max(kk + SELECT_MARGIN, -(-cand // ts)))
+    _, sel = topk_stable(submax, c)
+    sel = torch.sort(sel, dim=1).values
+
+    d = slab_reader(X, queries, sel, ts)                         # [B, c, ts]
+    qn = torch.sqrt(torch.sum(queries * queries, dim=-1))
+    nrm_s = norms[:n0].view(ns, ts)[sel]
+    lam_s = lambdas[:n0].view(ns, ts)[sel]
+    s = tmk.blend(d, nrm_s * qn[:, None, None], lam_s, query_lambdas[:, None, None],
+                  a[:, None, None]).reshape(b, c * ts)
+    gidx = (sel[:, :, None] * ts + torch.arange(ts, device=sel.device)).reshape(b, c * ts)
+    if n0 < n:
+        tail = _batched_scores(X[n0:], norms[n0:], lambdas[n0:], queries, query_lambdas, a)
+        s = torch.cat([s, tail], dim=1)
+        gidx = torch.cat([gidx, torch.arange(n0, n, device=sel.device).expand(b, n - n0)], dim=1)
+    if mask_from is not None:
+        s = torch.where(gidx < mask_from, s, torch.full_like(s, -float("inf")))
+    top, pos = topk_stable(s, kk)
+    return torch.gather(gidx, 1, pos), top

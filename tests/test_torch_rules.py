@@ -15,11 +15,15 @@ from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder
 from matternet_rs_tpu_torch.core import ArrowSpace
 from matternet_rs_tpu_torch.ops import kernels
 from matternet_rs_tpu_torch.ops.kernels import _cuda
+from matternet_rs_tpu_torch.ops.kernels import rescored as trsk
 from matternet_rs_tpu_torch.ops.kernels import taumode as ttk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as ttmk
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted(pathlib.Path(matternet_rs_tpu_torch.__file__).parent.rglob("*.py"))
+PORT_DIR = pathlib.Path(matternet_rs_tpu_torch.__file__).parent
+# _build/ is git-ignored build output (it may hold an unpacked checkout).
+PORT_FILES = sorted(p for p in PORT_DIR.rglob("*.py")
+                    if "_build" not in p.relative_to(PORT_DIR).parts)
 
 
 def _imported_roots(path):
@@ -86,6 +90,17 @@ def test_kernel_wrappers_raise_for_non_cpu_tensors_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttmk.gather_subtiles(torch.empty(4, 1024, **m),
                              torch.zeros(4, 2, dtype=torch.int64, device="meta"), 256)
+    for dtype in (torch.bfloat16, torch.int8, torch.float32):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trsk.tilemax_only(
+                torch.empty(4096, 8, device="meta", dtype=dtype), torch.empty(4096, **m),
+                torch.empty(4096, **m), torch.empty(4, 8, **m), torch.empty(4, **m),
+                torch.empty(4, **m), subs=16,
+            )
+    for dtype in (torch.float32, torch.int8):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trsk.slab_dots(torch.empty(1024, 8, device="meta", dtype=dtype), torch.empty(4, 8, **m),
+                           torch.zeros(4, 2, dtype=torch.int64, device="meta"), 128)
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 

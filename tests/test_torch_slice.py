@@ -139,17 +139,23 @@ def test_query_error_paths_match_reference(built):
 
 
 def test_tier_names_validate_then_unported_tiers_raise(built):
+    """Tier names validate as in the reference (an unknown name and the
+    ungated low-recall tier raise); every tier, and ``approx=True``, now
+    runs and returns ``[B, k]`` (held against the reference in
+    test_torch_rescored.py)."""
     _, Q, ja, jgl, ta, tgl = built
     for tier in ("bogus", "bf16x3"):
         with pytest.raises(ValueError, match="unknown quantized tier"):
             ta.search_batch(Q, tgl, K, quantized=tier)
     with pytest.raises(ValueError, match="allow_low_recall"):
         ta.search_batch(Q, tgl, K, quantized="bf16_rescored")
-    for tier in ("int8", "int8_rescored", "bf16x3_rescored", "auto", True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ta.search_batch(Q, tgl, K, quantized=tier)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ta.search_batch(Q, tgl, K, approx=True)
+    for kw in (dict(quantized="int8"), dict(quantized="int8_rescored"),
+               dict(quantized="bf16x3_rescored"), dict(quantized="auto"),
+               dict(quantized="int8_auto"), dict(quantized=True),
+               dict(quantized="bf16_rescored", allow_low_recall=True), dict(approx=True)):
+        idx, sc = ta.search_batch(Q, tgl, K, **kw)
+        assert idx.shape == sc.shape == (len(Q), K), kw
+        assert np.all(np.isfinite(sc)), kw
 
 
 def test_unported_builder_options_raise():
