@@ -37,12 +37,32 @@ Phases, one output line each (JSON):
    plain route's c-th and (c+1)-th sub-tile maxima are within 1e-5.
 4. wide — a build at N = 40,000, F = 768, so the wide-F λ route (the
    TPU's F-tiled kernel range) runs through the builder.
-   Launch counts are set to 0 just before phase 2, each tier of phase 3
-   and phase 4, and read just after each; every kernel of a path must
-   have launched.
-5. kernels — each kernel against its plain PyTorch version on the inputs
+   Launch counts are set to 0 just before phase 2, each tier of phase 3,
+   phase 4, each LOBPCG call of phase 5 and phase 6, and read just after
+   each; every kernel of a path must have launched.
+5. largef — the large-F sparse path at the reference benchmark's shapes,
+   (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
+   seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
+   k=6, topk=4)``. ``build_laplacian_from_k_cluster`` (dense, then the
+   exact ELL extraction, at 4096; the direct ELL build at 16,384, which
+   must be ELL-backed and drop no reverse edge), ``compute_taumode``
+   (sparse λ, all finite), ``search_batch`` of 256 corpus rows (flat
+   route; every query finds its own row), ``lobpcg_smallest(gl.ell(), 5,
+   iters=40)`` through kernel F (41 launches per call; eigenvalues
+   ascending and ≥ −1e-4, residuals ‖Lv − θv‖ ≤ 0.05; at F = 4096 within
+   1e-3 of the same solve on the dense matrix). ``L@1 ≈ 0`` through kernel
+   F; at F = 4096 λ of 512 rows within 1e-5 of the dense closed form.
+   Prints stage seconds, the ELL's width and bytes, and LOBPCG's time
+   beside what its kernel F, ``qr`` and ``eigh`` calls cost on their own.
+6. streamed — on phase 2's index, ``search_fused`` (kernel G: no [B, N]
+   scores) over row-normalised data and the same batches, against the
+   exact tier's ids under the near-tie rule (1e-5); ids distinct, scores
+   descending; ms per batch beside the exact tier's.
+7. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
-   ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖), timed
+   ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
+   product: ≤ 1e-5·Σ|w|·|x|; the streamed top-k's lists: scores ≤ 1e-5,
+   the merge bit for bit), timed
    with CUDA events over cold-L2 launches beside its plain version, the
    one PyTorch call that computes the same thing where there is one, and
    the card's least time for the work: the larger of bytes over 3.35 TB/s
@@ -76,6 +96,11 @@ TIERS = (
     ("auto", {}),
 )
 MIN_RECALL_BF16X3 = 0.98
+# Phase largef: (F, N) of the reference benchmark's large-F rows.
+LARGEF_SHAPES = ((4096, 20_000), (16_384, 10_000))
+LARGEF_CENTROIDS, LARGEF_ROWS_PER_CENTROID, LARGEF_SEED = 200, 20, 3
+LOBPCG_K, LOBPCG_ITERS = 5, 40
+TOL_EIG_NEG, TOL_EIG_DENSE, TOL_RESIDUAL, TOL_ROWSUM = 1e-4, 1e-3, 0.05, 1e-4
 
 # H100 SXM data sheet (dense): HBM3 3.35 TB/s, f32 FFMA 67 TFLOP/s, bf16
 # tensor cores 989 TFLOP/s.
@@ -135,12 +160,18 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from matternet_rs_tpu_torch import ArrowSpaceBuilder, buildcache, native
+    import logging
+
+    from matternet_rs_tpu_torch import ArrowSpace, ArrowSpaceBuilder, GraphParams, buildcache, native
+    from matternet_rs_tpu_torch.ops import eigensolver as eig
     from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops import laplacian as lap
     from matternet_rs_tpu_torch.ops import search as so
     from matternet_rs_tpu_torch.ops import taumode as tmo
     from matternet_rs_tpu_torch.ops.kernels import _cuda
     from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
+    from matternet_rs_tpu_torch.ops.kernels import search_fused as sfk
+    from matternet_rs_tpu_torch.ops.kernels import spmv_ell as fk
     from matternet_rs_tpu_torch.ops.kernels import taumode as tk
     from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
     from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
@@ -368,7 +399,157 @@ def main() -> int:
     check(wide_counts["taumode"] > 0, "kernel taumode not launched on the wide build")
     check(np.all(np.isfinite(waspace.lambdas.cpu().numpy())), "non-finite wide λ")
 
-    # -- 5. kernels against their plain versions -----------------------
+    # -- 5. the large-F sparse path ------------------------------------
+    def host_ms(fn, reps=5):
+        """Median host-clock ms of ``fn`` with the device drained."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    lap_log = logging.getLogger(lap.__name__)
+    largef_counts, ell_big, rng_lf = {}, None, np.random.default_rng(LARGEF_SEED)
+    for F, N in LARGEF_SHAPES:
+        Xl = rng_lf.normal(size=(N, F)).astype(np.float32)
+        cents = np.stack([Xl[rng_lf.choice(N, LARGEF_ROWS_PER_CENTROID, replace=False)].mean(0)
+                          for _ in range(LARGEF_CENTROIDS)])
+        params = GraphParams(eps=1.0, k=6, topk=4, sparsity_check=False)
+        records, level = Records(), lap_log.level
+        lap_log.addHandler(records)
+        lap_log.setLevel(logging.INFO)
+        stage = {}
+
+        def staged(key, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stage[key] = time.perf_counter() - t
+            return out
+
+        try:
+            kernels.reset_launches()
+            lgl = staged("graph", lambda: lap.build_laplacian_from_k_cluster(
+                torch.from_numpy(cents).to(dev), params, n_items=N))
+        finally:
+            lap_log.removeHandler(records)
+            lap_log.setLevel(level)
+        ell = staged("ell_extraction", lambda: lgl.ell().check())
+        dropped = [m for m in records.messages if "dropped" in m]
+        laspace = staged("upload", lambda: ArrowSpace.from_items(Xl))
+        staged("lambda", lambda: laspace.compute_taumode(lgl))
+        lam_finite = bool(torch.all(torch.isfinite(laspace.lambdas)))
+        rows_l = rng_lf.choice(N, BATCH * (N_BATCHES + 1), replace=False).reshape(-1, BATCH)
+        lf_ms, missed = [], 0
+        for r in rows_l:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            idx, sc = laspace.search_batch(Xl[r], lgl, k=K, alpha=ALPHA)
+            torch.cuda.synchronize()
+            lf_ms.append((time.perf_counter() - t1) * 1e3)
+            missed += sum(int(r[b] not in idx[b]) for b in range(BATCH))
+        ones = torch.ones(F, device=dev)
+        rowsum = float(ell.matvec(ones).abs().max())
+        if lgl.is_ell_backed:                  # the graph's own product takes the same route
+            rowsum = max(rowsum, float(lgl.multiply_vector(ones).abs().max()))
+        path_counts = kernels.launch_counts()
+
+        # The first solve also pays the process's first cuSOLVER calls; the
+        # second is the one timed. Each must launch kernel F iters + 1 times.
+        lobpcg_launches = []
+        for solve in ("lobpcg_first_call", "lobpcg"):
+            kernels.reset_launches()
+            vals, vecs = staged(solve, lambda: eig.lobpcg_smallest(ell, LOBPCG_K, iters=LOBPCG_ITERS))
+            lobpcg_launches.append(kernels.launch_counts()["spmv_ell"])
+        Vt, th = torch.from_numpy(vecs).to(dev), torch.from_numpy(vals).to(dev)
+        resid = torch.linalg.norm(ell.matvec(Vt) - Vt * th[None, :], dim=0).cpu().tolist()
+        S = torch.randn((F, 3 * LOBPCG_K), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(F))
+        G15 = S.T @ S
+        split = dict(
+            spmv_ell_ms=host_ms(lambda: ell.matvec(S)) * (LOBPCG_ITERS + 1),
+            qr_ms=host_ms(lambda: torch.linalg.qr(S[:, :LOBPCG_K])) * (LOBPCG_ITERS + 1),
+            eigh_ms=host_ms(lambda: torch.linalg.eigh(G15)) * 2 * LOBPCG_ITERS,
+        )
+        split["rest_ms"] = stage["lobpcg"] * 1e3 - sum(split.values())
+        dense_gap = lam_gap = None
+        if not lgl.is_ell_backed:
+            dvals, _ = eig.lobpcg_smallest(lgl.matrix, LOBPCG_K, iters=LOBPCG_ITERS)
+            dense_gap = float(np.abs(dvals - vals).max())
+            sub = laspace.data[:512]
+            lam_gap = float((tmo.taumode_lambdas_ell(sub, ell) - tmo.taumode_lambdas(sub, lgl.matrix))
+                            .abs().max())
+        else:
+            ell_big = ell
+        largef_counts[F] = dict(path=path_counts["spmv_ell"], lobpcg=sum(lobpcg_launches))
+        emit(phase="largef", f=F, n=N, card=card, ell_backed=lgl.is_ell_backed,
+             ell_k=ell.max_degree, ell_bytes=ell.nbytes(), stage_seconds=stage,
+             search_ms_per_batch_median=statistics.median(lf_ms[1:]), search_ms_per_batch=lf_ms[1:],
+             search_warmup_ms=lf_ms[0], self_query_failures=missed, lambda_finite=lam_finite,
+             laplacian_rowsum_max=rowsum, degree_max=float(ell.diag.max()),
+             lobpcg=dict(k=LOBPCG_K, iters=LOBPCG_ITERS, eigenvalues=vals.tolist(), residuals=resid,
+                         spmv_ell_launches=lobpcg_launches, vs_dense_operator=dense_gap,
+                         seconds=stage["lobpcg"], parts_timed_alone_ms=split),
+             lambda_vs_dense_512_rows=lam_gap, launches=path_counts,
+             build_log=records.messages, dropped_edge_warnings=dropped)
+        check(lam_finite, f"largef F={F}: non-finite λ")
+        check(missed == 0, f"largef F={F}: {missed} queries miss their own row")
+        check(lgl.is_ell_backed == (F >= lap.DIRECT_ELL_N), f"largef F={F}: wrong graph backing")
+        check(not dropped, f"largef F={F}: reverse edges dropped under rk=auto: {dropped}")
+        check(rowsum <= TOL_ROWSUM * max(1.0, float(ell.diag.max())), f"largef F={F}: L@1 = {rowsum}")
+        check(path_counts["spmv_ell"] == 1 + int(lgl.is_ell_backed),
+              f"largef F={F}: L@1 launched kernel F {path_counts['spmv_ell']} times")
+        check(lobpcg_launches == [LOBPCG_ITERS + 1] * 2,
+              f"largef F={F}: kernel F launched {lobpcg_launches} times per LOBPCG call, not {LOBPCG_ITERS + 1}")
+        check(bool(np.all(np.diff(vals) >= -1e-6)) and float(vals.min()) >= -TOL_EIG_NEG,
+              f"largef F={F}: eigenvalues {vals.tolist()}")
+        check(max(resid) <= TOL_RESIDUAL, f"largef F={F}: residuals {resid}")
+        if dense_gap is not None:
+            check(dense_gap <= TOL_EIG_DENSE, f"largef F={F}: ELL vs dense operator {dense_gap}")
+            check(lam_gap <= TOL_LAMBDA, f"largef F={F}: sparse vs dense λ {lam_gap}")
+        del Xl, laspace, lgl
+
+    # -- 6. streamed exact top-k (kernel G) ------------------------------
+    Xn = Xt / torch.clamp(norms, min=1e-12)[:, None]
+    exact_k1 = [aspace.search_batch(X[r], gl, k=K + 1, alpha=ALPHA) for r, _, _, _ in results]
+    kernels.reset_launches()
+    st_ms, st_bad, st_dups, st_unsorted = [], [], 0, 0
+    for (r, _, _, raw), (eidx, esc) in zip(results, exact_k1):
+        rt, _, ql = queries_of(r, raw)
+        Qn = Xn[rt].contiguous()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fidx, fsc = sfk.search_fused(Xn, lams, Qn, ql, K, ALPHA)
+        fidx, fsc = fidx.cpu().numpy(), fsc.cpu().numpy()
+        st_ms.append((time.perf_counter() - t1) * 1e3)
+        st_bad += topk_mismatches(eidx, esc, fidx, fsc, TOL_SCORE)
+        st_dups += sum(len(set(row.tolist())) != K for row in fidx)
+        st_unsorted += int(np.any(np.diff(fsc, axis=1) > 0))
+    st_counts = kernels.launch_counts()
+    emit(phase="streamed", n=N_MAIN, f=F_MAIN, batch=BATCH, k=K, card=card,
+         splits=sfk.default_splits(N_MAIN, BATCH, dev), warmup_ms=st_ms[0],
+         search_ms_per_batch_median=statistics.median(st_ms[1:]), search_ms_per_batch=st_ms[1:],
+         exact_tier_ms_per_batch_median=statistics.median(batch_ms[1:]),
+         launches=st_counts, mismatches_vs_exact_tier=st_bad[:10])
+    check(not st_bad, f"streamed: ids depart from the exact tier's: {st_bad[:3]}")
+    check(st_dups == 0 and st_unsorted == 0, "streamed: repeated ids or unsorted scores")
+    for kname in ("search_fused", "search_fused_merge"):
+        check(st_counts[kname] == len(results), f"kernel {kname} launched {st_counts[kname]} times")
+
+    # -- 7. kernels against their plain versions -----------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
 
     def cuda_ms(fn, reps=5):
@@ -514,12 +695,93 @@ def main() -> int:
             err_scale="cosine (|Δd|/(‖q‖·‖x‖))",
         ))
         check(err_e <= TOL_SCORE, f"{label}: kernel vs plain dots {err_e} on the cosine scale")
+
+    # Kernel F on the direct-ELL graph of phase largef (n = 16384): the
+    # Laplacian form LOBPCG applies to its [n, 3k] block, and one vector.
+    n_e, k_e = ell_big.indices.shape
+    live = ell_big.weights != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([live.nonzero()[:, 0], ell_big.indices[live].long()]),
+        ell_big.weights[live], (n_e, n_e))
+    Wcsr = coo.coalesce().to_sparse_csr()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for label, m, launches in (
+        ("spmv_ell_block", 3 * LOBPCG_K, largef_counts[n_e]["lobpcg"]),
+        ("spmv_ell_vector", 1, largef_counts[n_e]["path"]),
+    ):
+        V = torch.randn((n_e, m), device=dev, generator=gen)
+        args = (ell_big.indices, ell_big.weights, V, ell_big.diag)
+        got, ref = fk.spmv_ell(*args, checked=True), fk.spmv_ell_plain(*args)
+        scale = (ell_big.weights.abs()[:, :, None]
+                 * V[torch.where(live, ell_big.indices, 0).long()].abs()).sum(dim=1) \
+            + ell_big.diag[:, None] * V.abs()
+        err_f = float((got - ref).abs().max())
+        ok_f = bool(torch.all((got - ref).abs() <= TOL_SCORE * scale))
+        bms, by = bound(n_e * k_e * 8 + n_e * 4 + 2 * n_e * m * 4, 2 * int(live.sum()) * m + 2 * n_e * m)
+        rows_out.append(dict(
+            name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/spmv_ell.cu",
+            replaces="matternet_rs_tpu/ops/pallas/spmv_ell.py:36", launches=launches,
+            max_abs_err=err_f,
+            ms=cuda_ms(lambda: fk.spmv_ell(*args, checked=True), reps=20),
+            plain_ms=cuda_ms(lambda: fk.spmv_ell_plain(*args), reps=5),
+            bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(lambda: torch.sparse.mm(Wcsr, V), reps=20),
+            shape=f"n={n_e} k={k_e} m={m} live_slots={int(live.sum())}",
+            library="torch.sparse.mm(W as CSR, X): the product alone, without d∘X −",
+        ))
+        check(ok_f, f"{label}: kernel vs plain {err_f}")
+
+    # Kernel G on the streamed phase's inputs: the scan (per-range lists)
+    # and the merge, each against its plain version.
+    r1, raw1 = results[1][0], results[1][3]
+    rt1, _, ql1 = queries_of(r1, raw1)
+    Qn = Xn[rt1].contiguous()
+    splits = sfk.default_splits(N_MAIN, BATCH, dev)
+    pv, pi = sfk.scan_partials(Xn, lams, Qn, ql1, K, ALPHA, splits)
+    pv_p, pi_p = sfk.scan_partials_plain(Xn, lams, Qn, ql1, K, ALPHA, splits)
+    filled = torch.isfinite(pv_p[:, :, :K])       # a range past the corpus end leaves −inf
+    err_g = float((pv[:, :, :K] - pv_p[:, :, :K])[filled].abs().max())
+    check(bool(torch.equal(filled, torch.isfinite(pv[:, :, :K]))),
+          "search_fused_scan: kernel and plain lists fill different entries")
+    bms, by = bound(4 * (N_MAIN * F_MAIN + BATCH * F_MAIN + N_MAIN + BATCH) + 8 * pv.numel(),
+                    2 * BATCH * N_MAIN * F_MAIN)
+    rows_out.append(dict(
+        name="search_fused_scan", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
+        replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
+        launches=st_counts["search_fused"], max_abs_err=err_g,
+        ms=cuda_ms(lambda: sfk.scan_partials(Xn, lams, Qn, ql1, K, ALPHA, splits)),
+        plain_ms=cuda_ms(lambda: sfk.scan_partials_plain(Xn, lams, Qn, ql1, K, ALPHA, splits), reps=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.matmul(Qn, Xn.T)),
+        matmul_then_topk_ms=cuda_ms(lambda: torch.topk(torch.matmul(Qn, Xn.T), K, dim=1)),
+        shape=f"B={BATCH} N={N_MAIN} F={F_MAIN} k={K} splits={splits}",
+        library="torch.matmul(Qn, Xn.T): the product alone; matmul_then_topk_ms adds torch.topk (two calls)",
+    ))
+    check(err_g <= TOL_SCORE, f"search_fused_scan: kernel vs plain list scores {err_g}")
+    del pv_p, pi_p
+    mi, mv = sfk.merge_partials(pv, pi, K)
+    mi_p, mv_p = sfk.merge_partials_plain(pv, pi, K)
+    flat_v = pv.view(BATCH, -1)
+    bms, by = bound(8 * pv.numel() + 8 * BATCH * K, 0)
+    rows_out.append(dict(
+        name="search_fused_merge", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
+        replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
+        launches=st_counts["search_fused_merge"], max_abs_err=float((mv - mv_p).abs().max()),
+        ms=cuda_ms(lambda: sfk.merge_partials(pv, pi, K), reps=20),
+        plain_ms=cuda_ms(lambda: sfk.merge_partials_plain(pv, pi, K), reps=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.topk(flat_v, K, dim=1), reps=20),
+        shape=f"B={BATCH} candidates={flat_v.shape[1]} k={K}",
+        library="torch.topk over the flattened lists (no id tie-break)",
+    ))
+    check(bool(torch.equal(mi, mi_p) and torch.equal(mv, mv_p)), "search_fused_merge: kernel vs plain")
     emit(phase="kernels", card=card, rows=len(rows_out))
 
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -2,7 +2,8 @@
 ``builder.py``).
 
 ``build`` runs: incremental clustering (host C++) → feature-space
-Laplacian from the centroids → taumode λ (kernel A from 32768 rows) →
+Laplacian from the centroids (ELL-backed from 8192 features) → taumode λ
+(kernel A from 32768 rows; the sparse ELL route beyond 2048 features) →
 normalisation → sorted-λ index, all on the builder's device.
 
 Not ported yet, and raising ``NotImplementedError``: the optimal-k

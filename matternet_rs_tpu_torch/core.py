@@ -23,11 +23,12 @@ import numpy as np
 import torch
 
 from matternet_rs_tpu_torch.backend import resolve_device
-from matternet_rs_tpu_torch.graph import ELL_NOT_PORTED, GraphLaplacian
+from matternet_rs_tpu_torch.graph import GraphLaplacian
 from matternet_rs_tpu_torch.index.sorted import SortedLambdas
 from matternet_rs_tpu_torch.ops import search as search_ops
 from matternet_rs_tpu_torch.ops import taumode as taumode_ops
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
+from matternet_rs_tpu_torch.ops.csr import ell_from_dense_laplacian
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
 
 log = logging.getLogger(__name__)
@@ -218,6 +219,9 @@ class ArrowSpace:
     cluster_radius: float = 0.0
 
     _norms: Optional[torch.Tensor] = None
+    # ELL form of ``signals`` beyond SPARSE_F_THRESHOLD, with the signals
+    # tensor it was extracted from (a replaced ``signals`` re-extracts).
+    _signals_ell: Optional[tuple] = None
     # bf16 corpus copy for the quantized=True and bf16_rescored scans.
     _data_bf16: Optional[torch.Tensor] = None
     # (int8 sketch [N, F], dequant multiplier [N]) as one attribute, so a
@@ -262,12 +266,24 @@ class ArrowSpace:
         return self._norms
 
     # -- λ computation / normalisation --------------------------------
-    def graph_for_taumode(self, gl: GraphLaplacian) -> torch.Tensor:
-        """Precomputed signals when present, else the dense Laplacian."""
-        graph = self.signals if self.signals is not None else gl.dense()
-        if graph.shape[0] > taumode_ops.SPARSE_F_THRESHOLD:
-            raise NotImplementedError(ELL_NOT_PORTED)
-        return graph.to(self.device)
+    def graph_for_taumode(self, gl: GraphLaplacian):
+        """Precomputed signals when present, else the Laplacian. Beyond
+        ``SPARSE_F_THRESHOLD`` features, or for an ELL-backed graph, the
+        graph is served in exact ELL form, cached: extraction makes a full
+        ``[F, F]`` pass and reads a scalar back from the device, which per
+        query would dominate serving."""
+        if self.signals is not None:
+            if self.signals.shape[0] > taumode_ops.SPARSE_F_THRESHOLD:
+                cached = self._signals_ell
+                if cached is None or cached[0] is not self.signals:
+                    cached = (self.signals,
+                              ell_from_dense_laplacian(self.signals.to(self.device)))
+                    self._signals_ell = cached
+                return cached[1]
+            return self.signals.to(self.device)
+        if gl.is_ell_backed or gl.matrix.shape[0] > taumode_ops.SPARSE_F_THRESHOLD:
+            return gl.ell()
+        return gl.matrix.to(self.device)
 
     def compute_taumode(self, gl: GraphLaplacian) -> None:
         """Raw λ for all items, then min-max normalisation."""

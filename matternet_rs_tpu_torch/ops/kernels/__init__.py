@@ -11,6 +11,7 @@ from __future__ import annotations
 LAUNCHES: dict[str, int] = {
     "taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0,
     "tilemax_only": 0, "slab_dots": 0,
+    "spmv_ell": 0, "search_fused": 0, "search_fused_merge": 0,
 }
 
 

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # library → {C function: argument types}; every function returns an int.
 SIGNATURES = {
     "taumode": {
@@ -47,6 +47,16 @@ SIGNATURES = {
                              _I, _P, _P],
         # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, stream
         "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P],
+    },
+    "spmv_ell": {
+        # idx, w, X, d (or null), out, n, k, m, stream
+        "mrs_spmv_ell": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    },
+    "search_fused": {
+        # X, lams, Q, ql, alpha, beta, n, f, b, k, splits, pvals, pids, stream
+        "mrs_search_fused_scan": [_P, _P, _P, _P, _F, _F, _I64, _I, _I, _I, _I, _P, _P, _P],
+        # pvals, pids, b, cand, k, vals, ids, stream
+        "mrs_search_fused_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
 }
 

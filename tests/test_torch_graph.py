@@ -78,8 +78,15 @@ def test_sparsity_check_and_ell_size_raise():
             torch.from_numpy(_nodes(60, 8, seed=5)),
             GraphParams(eps=1e-4, k=2, topk=2, sparsity_check=True),
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlap.build_laplacian_matrix(torch.zeros(tlap.DIRECT_ELL_N, 2), GraphParams())
+    # From DIRECT_ELL_N nodes the build no longer refuses: it returns an
+    # ELL-backed graph and never forms [n, n].
+    nodes = np.random.default_rng(5).normal(size=(tlap.DIRECT_ELL_N, 4)).astype(np.float32)
+    gl = tlap.build_laplacian_matrix(
+        torch.from_numpy(nodes), GraphParams(eps=0.2, k=3, topk=3, sparsity_check=False))
+    assert gl.is_ell_backed and gl.matrix is None
+    assert gl.shape == (tlap.DIRECT_ELL_N, tlap.DIRECT_ELL_N)
+    assert gl.ell().max_degree < 64
+    assert float(gl.multiply_vector(torch.ones(tlap.DIRECT_ELL_N)).abs().max()) <= 1e-5
 
 
 def _clustering_data():

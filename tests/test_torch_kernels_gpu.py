@@ -7,7 +7,9 @@ one. This file imports no JAX, so it also runs where JAX is absent:
 Tolerances: λ |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima ≤ 1e-5 abs (the
 kernels sum the dot products in another order than cuBLAS); the gather
 bit for bit; slab dots ≤ 1e-5·‖q‖·‖x‖; routed results under the same-k
-rule of ``utils/parity.same_k_mismatches``.
+rule of ``utils/parity.same_k_mismatches``; the ELL product ≤
+1e-5·Σ_s|w|·|x| (it sums in the plain version's order, so it is in fact
+equal); the streamed top-k's ids under the near-tie rule, scores ≤ 1e-5.
 """
 
 import numpy as np
@@ -20,7 +22,11 @@ from matternet_rs_tpu_torch.ops import kernels
 from matternet_rs_tpu_torch.ops import laplacian as tlap
 from matternet_rs_tpu_torch.ops import search as tso
 from matternet_rs_tpu_torch.ops import taumode as ttm
+from matternet_rs_tpu_torch.ops import csr as tcsr
+from matternet_rs_tpu_torch.ops import eigensolver as teig
 from matternet_rs_tpu_torch.ops.kernels import rescored as trsk
+from matternet_rs_tpu_torch.ops.kernels import search_fused as tsf
+from matternet_rs_tpu_torch.ops.kernels import spmv_ell as tfk
 from matternet_rs_tpu_torch.ops.kernels import taumode as ttk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as ttmk
 from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
@@ -157,3 +163,138 @@ def test_rescored_route_on_card_matches_plain_route(cuda_device):
         producer=trsk.tilemax_only_plain, slab_reader=trsk.slab_dots_plain,
     )
     assert not same_k_mismatches(pidx.cpu(), ptop.cpu(), idx.cpu(), top.cpu())
+
+
+def _ell_arrays(n, k, seed, device):
+    """A random ELL graph whose empty slots carry index −1 (as the direct
+    build writes them) or an arbitrary in-range id."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    w = rng.random((n, k)).astype(np.float32)
+    empty = rng.random((n, k)) < 0.3
+    w[empty] = 0.0
+    idx[empty & (rng.random((n, k)) < 0.5)] = -1
+    return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
+@pytest.mark.parametrize("with_diag", [False, True])
+@pytest.mark.parametrize("n,k,m", [(16384, 12, 15), (16384, 12, 1), (1000, 40, 256),
+                                   (137, 3, 300), (5, 1, 2)])
+def test_spmv_ell_kernel_matches_plain(cuda_device, n, k, m, with_diag):
+    idx, w = _ell_arrays(n, k, 11, cuda_device)
+    X = torch.from_numpy(
+        np.random.default_rng(12).normal(size=(n, m)).astype(np.float32)).to(cuda_device)
+    d = torch.sum(w, dim=1) if with_diag else None
+    before = kernels.launch_counts()["spmv_ell"]
+    got = tfk.spmv_ell(idx, w, X, d)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["spmv_ell"] == before + 1
+    ref = tfk.spmv_ell_plain(idx, w, X, d)
+    live = torch.where(w != 0, idx, 0).long()
+    scale = (w.abs()[:, :, None] * X[live].abs()).sum(dim=1)
+    if d is not None:
+        scale = scale + d[:, None] * X.abs()
+    assert bool(torch.all((got - ref).abs() <= 1e-5 * scale))
+
+
+def test_spmv_ell_kernel_skips_empty_slots_and_rejects_bad_live_ones(cuda_device):
+    n = 300
+    idx, w = _ell_arrays(n, 6, 13, cuda_device)
+    live = w != 0
+    idx = torch.where(live, idx.clamp(max=n - 2), idx)      # no live slot names row n-1
+    X = torch.randn(n, 7, device=cuda_device)
+    ref = tfk.spmv_ell(idx, w, X)
+    # Empty slots at −1, or naming a non-finite row, contribute nothing.
+    X_inf = X.clone()
+    X_inf[n - 1] = float("inf")
+    for fill in (-1, n - 1, 10**6):
+        got = tfk.spmv_ell(torch.where(live, idx, fill).to(torch.int32), w, X_inf)
+        assert torch.equal(got, ref)
+    bad = idx.clone()
+    r, c = live.nonzero()[0].tolist()
+    for value in (n, -1):
+        bad[r, c] = value
+        with pytest.raises(ValueError, match="outside"):
+            tfk.spmv_ell(bad, w, X)
+    with pytest.raises(ValueError, match="int32"):
+        tfk.spmv_ell(idx.long(), w, X)
+
+
+def test_csr_products_and_lobpcg_go_through_kernel_f(cuda_device):
+    nodes = torch.from_numpy(
+        np.random.default_rng(14).normal(size=(400, 30)).astype(np.float32)).to(cuda_device)
+    params = GraphParams(eps=1.0, k=6, topk=4, sparsity_check=False)
+    gl = tlap.build_laplacian_ell(nodes, params, row_tile=128)
+    dense = tlap.build_laplacian_matrix(nodes, params)
+    assert float((gl.dense() - dense.matrix).abs().max()) <= 1e-6
+    ell = gl.ell()
+    ones = torch.ones(400, device=cuda_device)
+    assert float(gl.multiply_vector(ones).abs().max()) <= 1e-5
+    V = torch.randn(400, 9, device=cuda_device)
+    assert float((tcsr.laplacian_spmv_ell(ell.indices, ell.weights, V)
+                  - dense.matrix @ V).abs().max()) <= 1e-4
+    before = kernels.launch_counts()["spmv_ell"]
+    vals, vecs = teig.lobpcg_smallest(ell, 4, iters=50)
+    assert kernels.launch_counts()["spmv_ell"] == before + 51
+    true = np.linalg.eigvalsh(dense.matrix.double().cpu().numpy())[:4]
+    assert np.allclose(vals, true, atol=1e-3)
+
+
+def _search_fused_fixture(n, f, b, seed, device, ties=False):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    if ties:
+        X[100:140] = X[7]                 # exact score ties, broken by id
+    Xn = X / np.linalg.norm(X, axis=1, keepdims=True)
+    lam = rng.random(n).astype(np.float32)
+    if ties:
+        lam[100:140] = lam[7]
+        lam[55] = 2.0                     # a masked (padded-row) λ
+    arrs = [Xn, lam, Xn[:b].copy(), rng.random(b).astype(np.float32)]
+    return [torch.from_numpy(a).to(device) for a in arrs]
+
+
+@pytest.mark.parametrize("n,f,b,k,ties", [(3000, 64, 8, 10, False), (2777, 100, 70, 16, True),
+                                          (40_000, 128, 256, 10, False), (12, 8, 3, 16, False)])
+def test_search_fused_kernel_matches_plain_for_any_split_count(cuda_device, n, f, b, k, ties):
+    arrs = _search_fused_fixture(n, f, b, 15, cuda_device, ties)
+    pidx, pval = tsf.search_fused_plain(arrs[0], arrs[1], arrs[2], arrs[3], k)
+    kk = pidx.shape[1]
+    ref_idx, ref_val = None, None
+    for splits in (1, 7):
+        before = kernels.launch_counts()
+        idx, val = tsf.search_fused(*arrs, k, splits=splits)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["search_fused"] == before["search_fused"] + 1
+        assert after["search_fused_merge"] == before["search_fused_merge"] + 1
+        assert idx.dtype == torch.int32 and idx.shape == (b, kk)
+        assert float((val - pval).abs().max()) <= 1e-5
+        assert bool(torch.all(val[:, 1:] <= val[:, :-1]))
+        if ref_idx is None:
+            ref_idx, ref_val = idx, val
+        else:                             # a total order: the split count changes nothing
+            assert torch.equal(idx, ref_idx) and torch.equal(val, ref_val)
+    if kk < n:
+        p1 = tsf.search_fused_plain(arrs[0], arrs[1], arrs[2], arrs[3], min(kk + 1, 16))
+        if p1[0].shape[1] == kk + 1:
+            assert not topk_mismatches(p1[0].cpu(), p1[1].cpu(), ref_idx.cpu(), ref_val.cpu())
+    else:
+        assert torch.equal(torch.sort(ref_idx, dim=1).values,
+                           torch.arange(n, dtype=torch.int32, device=cuda_device).expand(b, n))
+    if ties:                              # equal scores come lowest id first
+        same = (ref_val[:, 1:] == ref_val[:, :-1])
+        assert bool(torch.all(ref_idx[:, 1:][same] > ref_idx[:, :-1][same]))
+        assert not bool((ref_idx == 55).any())
+    with pytest.raises(ValueError, match="K_PAD"):
+        tsf.search_fused(*arrs, 17)
+
+
+def test_search_fused_partials_and_merge_match_plain(cuda_device):
+    arrs = _search_fused_fixture(9000, 64, 20, 16, cuda_device)
+    vals, ids = tsf.scan_partials(*arrs, 10, 0.7, 5)
+    pvals, pids = tsf.scan_partials_plain(*arrs, 10, 0.7, 5)
+    assert float((vals[:, :, :10] - pvals[:, :, :10]).abs().max()) <= 1e-5
+    i_k, v_k = tsf.merge_partials(vals, ids, 10)
+    i_p, v_p = tsf.merge_partials_plain(vals, ids, 10)
+    assert torch.equal(i_k, i_p) and torch.equal(v_k, v_p)

@@ -15,7 +15,11 @@ from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder
 from matternet_rs_tpu_torch.core import ArrowSpace
 from matternet_rs_tpu_torch.ops import kernels
 from matternet_rs_tpu_torch.ops.kernels import _cuda
+from matternet_rs_tpu_torch.ops import csr as tcsr
+from matternet_rs_tpu_torch.ops import eigensolver as teig
 from matternet_rs_tpu_torch.ops.kernels import rescored as trsk
+from matternet_rs_tpu_torch.ops.kernels import search_fused as tsf
+from matternet_rs_tpu_torch.ops.kernels import spmv_ell as tfk
 from matternet_rs_tpu_torch.ops.kernels import taumode as ttk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as ttmk
 
@@ -59,6 +63,16 @@ def test_entry_points_raise_without_cuda_and_without_cpu_request():
         ArrowSpace.from_items(X)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.arrowspace_from_arrays(X, np.zeros(8), np.eye(4), normalized=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.graph_from_arrays(np.eye(4, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.ell_from_arrays(np.zeros((4, 1), np.int32), np.zeros((4, 1)), np.zeros(4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcsr.SparseGraph.from_edges([(0, 1, 1.0)], 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcsr.SparseGraph.from_dense(np.eye(4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teig.lobpcg_smallest(np.eye(4, dtype=np.float32), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         backend.resolve_device("cuda")
     assert backend.resolve_device("cpu").type == "cpu"
@@ -101,6 +115,21 @@ def test_kernel_wrappers_raise_for_non_cpu_tensors_without_a_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trsk.slab_dots(torch.empty(1024, 8, device="meta", dtype=dtype), torch.empty(4, 8, **m),
                            torch.zeros(4, 2, dtype=torch.int64, device="meta"), 128)
+    idx = torch.zeros(64, 3, dtype=torch.int32, device="meta")
+    for d in (None, torch.empty(64, **m)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tfk.spmv_ell(idx, torch.empty(64, 3, **m), torch.empty(64, 5, **m), d, checked=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcsr.spmv_ell_scan(idx, torch.empty(64, 3, **m), torch.empty(64, 5, **m), checked=True)
+    fused = (torch.empty(600, 8, **m), torch.empty(600, **m), torch.empty(4, 8, **m),
+             torch.empty(4, **m))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsf.search_fused(*fused, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsf.scan_partials(*fused, 10, 0.7, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsf.merge_partials(torch.empty(4, 2, 16, **m),
+                           torch.zeros(4, 2, 16, dtype=torch.int32, device="meta"), 10)
     assert kernels.launch_counts() == {k: 0 for k in kernels.LAUNCHES}
 
 

@@ -60,5 +60,8 @@ def test_graph_laplacian_helpers_match_reference():
     assert np.allclose(np.asarray(ref.multiply_vector(jnp.asarray(v))),
                        got.multiply_vector(torch.from_numpy(v)).numpy(), atol=1e-5)
     assert not got.is_ell_backed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        got.ell()
+    ell, ref_ell = got.ell(), ref.ell()            # the exact ELL form, extracted once
+    assert got.ell() is ell
+    assert np.array_equal(np.asarray(ref_ell.indices), ell.indices.numpy())
+    assert np.allclose(np.asarray(ref_ell.weights), ell.weights.numpy(), atol=1e-6)
+    assert np.allclose(np.asarray(ref_ell.diag), ell.diag.numpy(), atol=1e-6)

@@ -124,5 +124,17 @@ def test_auto_routes_large_n_through_kernel_plain_on_cpu():
 
 
 def test_auto_raises_for_the_unported_sparse_route():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttm.taumode_lambdas_auto(torch.zeros(2, 2049), torch.zeros(2049, 2049))
+    """The sparse route beyond ``SPARSE_F_THRESHOLD`` is ported: where this
+    call once raised ``NotImplementedError`` it now returns λ (a zero row
+    against a zero graph scores 0; a ring graph matches the closed form)."""
+    assert torch.equal(ttm.taumode_lambdas_auto(torch.zeros(2, 2049), torch.zeros(2049, 2049)),
+                       torch.zeros(2))
+    f = ttm.SPARSE_F_THRESHOLD + 1
+    ring = torch.arange(f)
+    W = torch.zeros(f, f)
+    W[ring, (ring + 1) % f] = 0.5
+    W = torch.maximum(W, W.T)
+    L = torch.diag(W.sum(dim=1)) - W
+    X = torch.from_numpy(np.random.default_rng(3).normal(size=(5, f)).astype(np.float32))
+    assert np.allclose(ttm.taumode_lambdas_auto(X, L).numpy(), ttm.taumode_lambdas(X, L).numpy(),
+                       atol=1e-6)
