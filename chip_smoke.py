@@ -67,7 +67,16 @@ Phases, one output line each (JSON):
    one PyTorch call that computes the same thing where there is one, and
    the card's least time for the work: the larger of bytes over 3.35 TB/s
    and operations over the peak of their type (f32 FFMA 67 TFLOP/s, bf16
-   tensor cores 989 TFLOP/s; H100 SXM data sheet).
+   tensor cores 989 TFLOP/s; H100 SXM data sheet). Kernel D's ``ms`` times
+   its wrapper, a dozen small PyTorch calls included (the per-row and
+   per-query terms, the bf16 queries); ``launch_ms`` times the kernel's
+   launch alone on the same operands, which is what ``library_ms`` (one
+   ``torch.matmul``) compares with. The rows of kernels B and D also carry the time of the kernel they replaced (``ms_before``,
+   from PERF.md) and the compiler's registers, shared memory and spills.
+   Kernels B and D are then held against their plain versions at edge
+   shapes (≤ 1e-5): 3 and 300 queries, F = 100 and 768, sub-tiles of 128
+   and 256 rows, ``mask_from`` inside a sub-tile, a corpus whose address is
+   not a multiple of 16 bytes.
 
 Then the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
@@ -78,6 +87,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +116,14 @@ TOL_EIG_NEG, TOL_EIG_DENSE, TOL_RESIDUAL, TOL_ROWSUM = 1e-4, 1e-3, 0.05, 1e-4
 # tensor cores 989 TFLOP/s.
 PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 TOP_KERNELS = 10
+# ms of the kernels that kernels B and D replaced, at the same shape on the
+# same card model and power limit (PERF.md §6: their first port's rows).
+MS_BEFORE = {"scores_tilemax": 4.88, "tilemax_only_bf16": 1.810,
+             "tilemax_only_int8": 2.060, "tilemax_only_bf16x3": 2.720}
+# Edge shapes of phase kernels: (queries, F, sub-tiles per 2048-row tile).
+EDGE_N, EDGE_MASK_FROM = 4500, 3000
+EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
+EDGE_SHAPES_B = ((3, 100), (3, 768), (300, 768))
 
 
 class SmokeFailure(RuntimeError):
@@ -132,6 +150,24 @@ def card_line() -> str:
 def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak_flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_resources(log: str, entry: str) -> dict | None:
+    """Registers, static shared memory and spill bytes that ``ptxas -v``
+    reported for the kernel whose mangled name contains ``entry``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            res = {}
+            for follow in lines[i + 1:i + 4]:
+                for key, pat in (("registers", r"Used (\d+) registers"), ("smem_static", r"(\d+) bytes smem"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    m = re.search(pat, follow)
+                    if m:
+                        res[key] = int(m.group(1))
+            return res
+    return None
 
 
 def busy_ms(events, device_type) -> float:
@@ -162,7 +198,7 @@ def main() -> int:
 
     import logging
 
-    from matternet_rs_tpu_torch import ArrowSpace, ArrowSpaceBuilder, GraphParams, buildcache, native
+    from matternet_rs_tpu_torch import ArrowSpace, ArrowSpaceBuilder, GraphParams, buildcache, core, native
     from matternet_rs_tpu_torch.ops import eigensolver as eig
     from matternet_rs_tpu_torch.ops import kernels
     from matternet_rs_tpu_torch.ops import laplacian as lap
@@ -612,8 +648,12 @@ def main() -> int:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.matmul(Q, Xn0.T)),
         shape=f"B={BATCH} N={N_MAIN} F={F_MAIN}",
+        ms_before=MS_BEFORE["scores_tilemax"],
+        ptxas=ptxas_resources(buildcache.BUILD_LOG["tilemax"], "scores_tilemax_kernel"),
+        plan=tmk.scores_tilemax_plan(BATCH, F_MAIN),
     ))
     check(err_b <= TOL_SCORE, f"scores_tilemax: kernel vs plain {err_b}")
+    check(rows_out[-1]["ptxas"] is not None, "scores_tilemax: no ptxas report in the build log")
 
     c = min(ns, K + so.SELECT_MARGIN)
     ts = tile // tmk.SUBS
@@ -651,6 +691,7 @@ def main() -> int:
             return fn(Xs, norms, lams, Q, ql, alphas, tile=tile, subs=so.RESCORE_SUBS, rn=rn)
 
         md, mp = run_d(rsk.tilemax_only), run_d(rsk.tilemax_only_plain)
+        ops_d = run_d(rsk.tilemax_only_operands)   # the wrapper's own small PyTorch calls, made once
         err_d = float((md - mp).abs().max())
         sels[tier] = torch.sort(so.topk_stable(md, c_r)[1], dim=1).values
         bms, by = bound(n0 * F_MAIN * Xs.element_size() + 8 * n0 + 4 * BATCH * F_MAIN
@@ -660,11 +701,19 @@ def main() -> int:
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
             launches=tier_counts[tier]["tilemax_only"], max_abs_err=err_d,
             ms=cuda_ms(lambda: run_d(rsk.tilemax_only)),
+            launch_ms=cuda_ms(lambda: rsk.tilemax_only_launch(ops_d), reps=20),
             plain_ms=cuda_ms(lambda: run_d(rsk.tilemax_only_plain), reps=3),
             bound_ms=bms, bound_by=by, library_ms=cuda_ms(library),
             shape=f"B={BATCH} N={N_MAIN} F={F_MAIN} subs={so.RESCORE_SUBS} {Xs.dtype}",
+            ms_before=MS_BEFORE[label], plan=(plan := rsk.tilemax_only_plan(BATCH, F_MAIN, Xs.dtype)),
+            ptxas=ptxas_resources(
+                buildcache.BUILD_LOG["rescored"],
+                f"tilemax_only_kernelILi{rsk._SCAN_MODES[Xs.dtype]}ELi{plan['queries_per_block']}E"),
         ))
         check(err_d <= TOL_SCORE, f"{label}: kernel vs plain maxima {err_d}")
+        check(plan["path"] == "fast" and plan["queries_per_block"] == BATCH,
+              f"{label}: the main path's shape does not take the fast path: {plan}")
+        check(rows_out[-1]["ptxas"] is not None, f"{label}: no ptxas report in the build log")
 
     # Kernel E in both row modes. The maxima-first tiers read f32 rows; the
     # int8-row mode serves the sketch callers of a later slice, so its row
@@ -775,7 +824,53 @@ def main() -> int:
         library="torch.topk over the flattened lists (no id tie-break)",
     ))
     check(bool(torch.equal(mi, mi_p) and torch.equal(mv, mv_p)), "search_fused_merge: kernel vs plain")
-    emit(phase="kernels", card=card, rows=len(rows_out))
+    # Kernels B and D at edge shapes, each against its plain version.
+    def edge_arrays(f, b, seed):
+        rng = np.random.default_rng(seed)
+        Xe = rng.standard_normal((EDGE_N, f), dtype=np.float32)
+        Xe[3] = 0.0
+        arrs = [Xe, np.sqrt(np.sum(Xe * Xe, axis=1)).astype(np.float32),
+                rng.random(EDGE_N, dtype=np.float32), rng.standard_normal((b, f), dtype=np.float32),
+                rng.random(b, dtype=np.float32), rng.uniform(0.3, 0.9, b).astype(np.float32)]
+        return [torch.from_numpy(a).to(dev) for a in arrs]
+
+    def misaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def max_gap(got, ref, what):
+        fin = torch.isfinite(ref)
+        check(bool(torch.equal(fin, torch.isfinite(got))), f"{what}: -inf entries differ")
+        return float((got[fin] - ref[fin]).abs().max())
+
+    edge = []
+    for b_e, f_e, subs_e in EDGE_SHAPES_D:
+        arrs = edge_arrays(f_e, b_e, seed=f_e + b_e)
+        for dtype in (torch.bfloat16, torch.int8, torch.float32):
+            Xs, rn = core.quantize_rows(arrs[0]) if dtype is torch.int8 else (arrs[0].to(dtype), None)
+            for Xv in (Xs, misaligned(Xs)):
+                plan = rsk.tilemax_only_plan(b_e, f_e, dtype, aligned=Xv.data_ptr() % 16 == 0)
+                kw = dict(tile=so.DEFAULT_TILE, subs=subs_e, mask_from=EDGE_MASK_FROM, rn=rn)
+                what = f"tilemax_only B={b_e} F={f_e} subs={subs_e} {dtype} {plan['path']}"
+                gap = max_gap(rsk.tilemax_only(Xv, *arrs[1:], **kw),
+                              rsk.tilemax_only_plain(Xv, *arrs[1:], **kw), what)
+                edge.append(dict(case=what, max_abs_err=gap))
+                check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap}")
+                check(plan["path"] == ("fast" if Xv is Xs and (f_e * Xs.element_size()) % 16 == 0
+                                       else "generic"), f"{what}: unexpected path")
+    for b_e, f_e in EDGE_SHAPES_B:
+        arrs = edge_arrays(f_e, b_e, seed=2 * f_e + b_e)
+        for Xv in (arrs[0], misaligned(arrs[0])):
+            what = f"scores_tilemax B={b_e} F={f_e} aligned={Xv is arrs[0]}"
+            got = tmk.scores_and_tilemax(Xv, *arrs[1:], mask_from=EDGE_MASK_FROM)
+            ref = tmk.scores_and_tilemax_plain(Xv, *arrs[1:], mask_from=EDGE_MASK_FROM)
+            gap = max(max_gap(got[0], ref[0], what), max_gap(got[1], ref[1], what))
+            edge.append(dict(case=what, max_abs_err=gap))
+            check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap}")
+    torch.cuda.synchronize()
+    emit(phase="kernels", card=card, rows=len(rows_out), edge_cases=edge)
 
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -2,7 +2,9 @@
 
 Each library is compiled at first use into ``_build/`` beside this file
 (listed in ``.gitignore``), named by a hash of its compiler command and
-source bytes, so an edited source is rebuilt and an unchanged one is not.
+the bytes of its sources and of the headers they include (``deps``: hashed,
+never handed to the compiler), so an edited file is rebuilt and an
+unchanged one is not.
 Several libraries build at once (one compiler process each). The output is
 written to a per-process temporary name and renamed into place, so two
 processes building the same library never see a half-written file.
@@ -19,8 +21,9 @@ import subprocess
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 BUILD_TIMEOUT_S = 600.0       # per compiler process
 
-# Compiler output (e.g. ``-Xptxas -v`` register/shared-memory reports) of
-# the builds this process ran, by library name.
+# Compiler output (e.g. ``-Xptxas -v`` register/shared-memory reports) by
+# library name: of the builds this process ran, or, for a library found
+# built, what its build left in the ``.log`` file beside it.
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -29,10 +32,11 @@ class Spec:
     name: str
     sources: tuple[pathlib.Path, ...]
     cmd: tuple[str, ...]          # compiler and flags, without -o / sources
+    deps: tuple[pathlib.Path, ...] = ()   # included headers: hashed, not compiled
 
     def target(self) -> pathlib.Path:
         h = hashlib.sha256("\0".join(self.cmd).encode())
-        for src in self.sources:
+        for src in (*self.sources, *self.deps):
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -45,6 +49,9 @@ def build(specs: list[Spec]) -> list[pathlib.Path]:
     running = []
     for spec, out in zip(specs, targets):
         if out.exists():
+            log_file = out.with_suffix(".log")
+            if spec.name not in BUILD_LOG and log_file.exists():
+                BUILD_LOG[spec.name] = log_file.read_text()
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
@@ -63,6 +70,7 @@ def build(specs: list[Spec]) -> list[pathlib.Path]:
             log += f"\n(build timed out after {BUILD_TIMEOUT_S:.0f}s)"
         BUILD_LOG[spec.name] = log
         if proc.returncode == 0 and tmp.exists():
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         else:
             tmp.unlink(missing_ok=True)

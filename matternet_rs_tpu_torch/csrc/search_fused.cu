@@ -21,10 +21,11 @@
 //   the batch beats its threshold. Blocks on this card run in any order and
 //   carry nothing, so the work is cut twice: a block owns 64 queries and
 //   one contiguous range of N (grid = query blocks × splits), streams its
-//   range in 256-row tiles through the register-tiled full-f32 product of
-//   csrc/tilemax.cu (8 queries × 8 rows of accumulators per thread, Q and X
-//   staged through shared memory 16 features at a time, exact FFMA, no
-//   TF32), and keeps each query's running top-16 in registers: warp w owns
+//   range in 256-row tiles through the full-f32 tile product of
+//   csrc/f32_tile_product.cuh, shared with kernel B (8 queries × 8 rows of
+//   accumulators per thread, Q and X brought 32 features at a time by
+//   16-byte cp.async into a 3-stage ring, exact FFMA, no TF32), and keeps
+//   each query's running top-16 in registers: warp w owns
 //   queries 8w..8w+7 — the same queries whose accumulators its lanes hold —
 //   and lane l < 16 holds entry l of each list. After a tile's product a
 //   lane tests its 64 scores against its queries' own thresholds θ_b (the
@@ -43,13 +44,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_tile_product.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // queries per block
-constexpr int BN = 256;       // corpus rows per tile
-constexpr int BK = 16;        // F chunk staged per step
-constexpr int THREADS = 256;  // 8 warps; warp w owns queries w*8 .. w*8+7
-constexpr int PAD = 4;        // shared-memory row padding (bank spread)
+constexpr int BM = 64;                               // queries per block
+constexpr int BN = f32tile::BN;                      // corpus rows per tile
+constexpr int THREADS = f32tile::Tile<BM, 1>::THREADS;  // 8 warps; warp w owns queries w*8 .. w*8+7
+constexpr int SMEM_BYTES = f32tile::Tile<BM, 1>::SMEM_BYTES;
 constexpr int KP = 16;        // list width (the reference's K_PAD)
 constexpr float MASKED = -3.0e38f;
 constexpr float PAD_LAMBDA_CUT = 1.5f;
@@ -75,10 +77,9 @@ __global__ void __launch_bounds__(THREADS)
 search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ lams,
                          const float* __restrict__ Q, const float* __restrict__ ql,
                          float alpha, float beta, int64_t n, int f, int b, int k,
-                         int splits, int64_t tiles_per_split,
+                         int splits, int64_t tiles_per_split, int vec,
                          float* __restrict__ pvals, int* __restrict__ pids) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
+  extern __shared__ __align__(16) float ring[];
 
   const int split = blockIdx.x % splits;
   const int q0 = (blockIdx.x / splits) * BM;
@@ -100,41 +101,14 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
     qlb[i] = bq < b ? ql[bq] : 0.f;
   }
 
+  if (t_begin < t_end)
+    f32tile::tile_prefetch<BM, 1>(Q, X, q0, b, t_begin * BN, n, f, vec != 0, ring);
   for (int64_t tile = t_begin; tile < t_end; ++tile) {
     const int64_t c0 = tile * BN;
     float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < f; k0 += BK) {
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int m = e / BK, kk = e - m * BK;
-        const int gq = q0 + m, gk = k0 + kk;
-        As[kk][m] = (gq < b && gk < f) ? Q[(int64_t)gq * f + gk] : 0.f;
-      }
-      for (int e = tid; e < BN * BK; e += THREADS) {
-        const int nn = e / BK, kk = e - nn * BK;
-        const int gk = k0 + kk;
-        Bs[kk][nn] = (gk < f && c0 + nn < n) ? X[(c0 + nn) * f + gk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * 8]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][tr * 8 + 4]);
-        const float4 x0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-        const float4 x1 = *reinterpret_cast<const float4*>(&Bs[kk][128 + tc * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    f32tile::tile_product<BM, 1>(Q, X, q0, b, c0, n, f, vec != 0, ring, acc);
+    if (tile + 1 < t_end)                       // its first chunks fly during the selection
+      f32tile::tile_prefetch<BM, 1>(Q, X, q0, b, c0 + BN, n, f, vec != 0, ring);
 
     float lm[8];                              // λ of this lane's 8 columns
 #pragma unroll
@@ -226,7 +200,9 @@ extern "C" {
 const char* mrs_cuda_strerror(int rc) { return cudaGetErrorString((cudaError_t)rc); }
 
 // X [n, f], lams [n], Q [b, f], ql [b] float32 contiguous; 1 ≤ k ≤ 16;
-// n < 2^31. Writes each block's lists to pvals/pids [b, splits, 16]
+// n < 2^31. 16-byte copies when f is a multiple of 4 and X and Q are
+// 16-byte aligned, the element-wise loader otherwise. Writes each block's
+// lists to pvals/pids [b, splits, 16]
 // (unfilled entries: −inf, id 2^31−1). Returns cudaGetLastError().
 int mrs_search_fused_scan(const float* X, const float* lams, const float* Q,
                           const float* ql, float alpha, float beta, int64_t n, int f,
@@ -237,8 +213,13 @@ int mrs_search_fused_scan(const float* X, const float* lams, const float* Q,
   const int64_t ntiles = (n + BN - 1) / BN;
   const int64_t tiles_per_split = (ntiles + splits - 1) / splits;
   const int64_t blocks = (int64_t)((b + BM - 1) / BM) * splits;
-  search_fused_scan_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      X, lams, Q, ql, alpha, beta, n, f, b, k, splits, tiles_per_split, pvals, pids);
+  const int vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  cudaError_t rc = cudaFuncSetAttribute(search_fused_scan_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (rc != cudaSuccess) return (int)rc;
+  search_fused_scan_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      X, lams, Q, ql, alpha, beta, n, f, b, k, splits, tiles_per_split, vec, pvals, pids);
   return (int)cudaGetLastError();
 }
 

@@ -60,6 +60,14 @@ SIGNATURES = {
     },
 }
 
+# library → headers under csrc/ that its source includes (they enter the
+# build's hash; nvcc is given the .cu alone).
+HEADERS = {
+    "tilemax": ("f32_tile_product.cuh",),
+    "search_fused": ("f32_tile_product.cuh",),
+    "rescored": ("wgmma_bf16_rs.cuh",),
+}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -69,7 +77,8 @@ def specs() -> list[buildcache.Spec]:
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return [
-        buildcache.Spec(name, (CSRC / f"{name}.cu",), (nvcc, *NVCC_FLAGS))
+        buildcache.Spec(name, (CSRC / f"{name}.cu",), (nvcc, *NVCC_FLAGS),
+                        tuple(CSRC / h for h in HEADERS.get(name, ())))
         for name in SIGNATURES
     ]
 

@@ -28,6 +28,42 @@ from matternet_rs_tpu_torch.ops.kernels.tilemax import SUBS
 KERNEL_CHUNK = 128
 _SCAN_MODES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
+# The fast path of kernel D, as ``csrc/rescored.cu`` lays its dynamic
+# shared memory out: query slabs of 64 features × 128 bytes a query (hi, and
+# lo for f32 rows), two warpgroups' rings of four 64-row × 128-byte stages,
+# the warps' partial maxima and the per-query terms, 1024 bytes of
+# alignment slack.
+MAX_DYNAMIC_SMEM = 232_448            # bytes a block may ask for on the H100
+_STAGE_BYTES, _RING, _WARPGROUPS, _SMEM_ALIGN = 64 * 128, 4, 2, 1024
+_QUERY_WIDTHS = (256, 64, 16)         # queries per block the kernel is built for
+
+
+def _fast_smem_bytes(f: int, esz: int, nq: int) -> int:
+    kstage = 128 // esz                                   # features per stage
+    kq = -(-(-(-f // kstage) * kstage) // 64) * 64        # whole stages, whole slabs
+    slabs = (kq // 64) * nq * 128 * (2 if esz == 4 else 1)
+    return (_SMEM_ALIGN + slabs + _WARPGROUPS * _RING * _STAGE_BYTES
+            + (_WARPGROUPS * 4 + 3) * nq * 4)
+
+
+def tilemax_only_plan(b: int, f: int, dtype: torch.dtype, aligned: bool = True) -> dict:
+    """What the C entry point of kernel D chooses for a batch of ``b``
+    queries over ``f`` features of corpus type ``dtype``, ``aligned`` saying
+    whether the corpus address is a multiple of 16 bytes: ``path`` ``"fast"``
+    (16-byte copies, wgmma) with ``queries_per_block`` (the narrowest of 16,
+    64, 256 that holds the batch, stepped down until the slabs fit) and the
+    ``smem_bytes`` it asks for, or ``"generic"`` (element-wise staging, static
+    shared memory only) when the row pitch or the address is not a multiple
+    of 16 bytes or not even 16 queries fit."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    if aligned and (f * esz) % 16 == 0:
+        for i, nq in enumerate(_QUERY_WIDTHS):
+            needed = i == len(_QUERY_WIDTHS) - 1 or b > _QUERY_WIDTHS[i + 1]
+            if needed and _fast_smem_bytes(f, esz, nq) <= MAX_DYNAMIC_SMEM:
+                return dict(path="fast", queries_per_block=nq,
+                            smem_bytes=_fast_smem_bytes(f, esz, nq))
+    return dict(path="generic", queries_per_block=64, smem_bytes=0)
+
 
 def _epilogue_terms(norms, queries, alphas, rn):
     """``(rn, aqrn, beta)`` of the cheap epilogue, as ``tilemax_only``
@@ -74,22 +110,15 @@ def tilemax_only_plain(X, norms, lambdas, queries, query_lambdas, alphas,
     return s.view(b, n0 // ts, ts).amax(dim=2)
 
 
-def tilemax_only(X, norms, lambdas, queries, query_lambdas, alphas,
-                 tile: int = 2048, subs: int = SUBS,
-                 mask_from: int | None = None, rn=None):
-    """Returns ``submax [B, nt0·subs]``: sub-tile ``j`` covers corpus rows
-    ``[j·ts, (j+1)·ts)``, ``ts = tile // subs``. ``rn`` overrides the
-    per-row cosine factor (default guarded ``1/norms``; the int8 tier
-    passes its dequant multiplier). Rows ≥ ``mask_from`` score -inf. CPU
-    tensors take the plain version; CUDA tensors launch kernel D (any B
-    and F; ``ts`` a multiple of 128)."""
-    if X.device.type == "cpu":
-        return tilemax_only_plain(X, norms, lambdas, queries, query_lambdas, alphas,
-                                  tile, subs, mask_from, rn)
-    lib = _cuda.library("rescored")
+def tilemax_only_operands(X, norms, lambdas, queries, query_lambdas, alphas,
+                          tile: int = 2048, subs: int = SUBS,
+                          mask_from: int | None = None, rn=None) -> dict:
+    """Check the arguments of :func:`tilemax_only` for kernel D and form what
+    its launch reads beside them: the per-row factor, the per-query terms and
+    the queries as bf16 hi (and lo for f32 rows). Small PyTorch calls, no
+    kernel of this package; :func:`tilemax_only_launch` takes the result."""
     n, f = X.shape
     b = queries.shape[0]
-    nt0 = n // tile
     ts = tile // subs
     if tile % subs or ts % KERNEL_CHUNK:
         raise ValueError(f"tilemax_only kernel: sub-tile {tile}/{subs} must be a multiple of {KERNEL_CHUNK} rows")
@@ -105,21 +134,49 @@ def tilemax_only(X, norms, lambdas, queries, query_lambdas, alphas,
     rn, aqrn, beta = _epilogue_terms(norms, queries, alphas, rn)
     qhi = queries.to(torch.bfloat16)
     qlo = (queries - qhi.float()).to(torch.bfloat16) if X.dtype == torch.float32 else qhi
-    dev = _cuda.require_cuda("tilemax_only kernel", X=X, rn=rn, lambdas=lambdas, qhi=qhi,
-                             qlo=qlo, aqrn=aqrn, beta=beta, query_lambdas=query_lambdas)
-    out = torch.empty((b, nt0 * subs), dtype=torch.float32, device=dev)
-    if nt0 == 0 or b == 0:
+    n0 = (n // tile) * tile
+    return dict(X=X, rn=rn, lambdas=lambdas, qhi=qhi, qlo=qlo, aqrn=aqrn, beta=beta,
+                query_lambdas=query_lambdas, n0=n0, ts=ts,
+                mask_from=n0 if mask_from is None else int(mask_from))
+
+
+def tilemax_only_launch(ops: dict):
+    """Launch kernel D on the operands of :func:`tilemax_only_operands` →
+    ``submax [B, n0 // ts]``."""
+    lib = _cuda.library("rescored")
+    tensors = {k: v for k, v in ops.items() if isinstance(v, torch.Tensor)}
+    dev = _cuda.require_cuda("tilemax_only kernel", **tensors)
+    X, n0, ts = ops["X"], ops["n0"], ops["ts"]
+    b, f = ops["qhi"].shape
+    out = torch.empty((b, n0 // ts), dtype=torch.float32, device=dev)
+    if n0 == 0 or b == 0:
         return out
-    n0 = nt0 * tile
     rc = lib.mrs_tilemax_only(
-        X.data_ptr(), rn.data_ptr(), lambdas.data_ptr(), qhi.data_ptr(), qlo.data_ptr(),
-        aqrn.data_ptr(), beta.data_ptr(), query_lambdas.data_ptr(),
-        n0 if mask_from is None else int(mask_from), n0, f, b, ts, _SCAN_MODES[X.dtype],
+        X.data_ptr(), ops["rn"].data_ptr(), ops["lambdas"].data_ptr(), ops["qhi"].data_ptr(),
+        ops["qlo"].data_ptr(), ops["aqrn"].data_ptr(), ops["beta"].data_ptr(),
+        ops["query_lambdas"].data_ptr(), ops["mask_from"], n0, f, b, ts, _SCAN_MODES[X.dtype],
         out.data_ptr(), _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "tilemax_only kernel")
     kernels.LAUNCHES["tilemax_only"] += 1
     return out
+
+
+def tilemax_only(X, norms, lambdas, queries, query_lambdas, alphas,
+                 tile: int = 2048, subs: int = SUBS,
+                 mask_from: int | None = None, rn=None):
+    """Returns ``submax [B, nt0·subs]``: sub-tile ``j`` covers corpus rows
+    ``[j·ts, (j+1)·ts)``, ``ts = tile // subs``. ``rn`` overrides the
+    per-row cosine factor (default guarded ``1/norms``; the int8 tier
+    passes its dequant multiplier). Rows ≥ ``mask_from`` score -inf. CPU
+    tensors take the plain version; CUDA tensors launch kernel D (any B
+    and F; ``ts`` a multiple of 128)."""
+    if X.device.type == "cpu":
+        return tilemax_only_plain(X, norms, lambdas, queries, query_lambdas, alphas,
+                                  tile, subs, mask_from, rn)
+    _cuda.library("rescored")                 # without a card: raise before anything is computed
+    return tilemax_only_launch(tilemax_only_operands(
+        X, norms, lambdas, queries, query_lambdas, alphas, tile, subs, mask_from, rn))
 
 
 def slab_dots_plain(X, queries, sel, ts: int):

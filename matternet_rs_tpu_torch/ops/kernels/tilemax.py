@@ -24,6 +24,23 @@ SUBS = 8
 # Kernel B's limit: a block owns one sub-tile of exactly KERNEL_TS corpus
 # rows, so it serves tile = SUBS * KERNEL_TS = 2048 (the default tile).
 KERNEL_TS = 256
+# Kernel B's block: 64 queries × 256 corpus rows, 32 features a chunk, a
+# ring of 3 chunks in dynamic shared memory (``csrc/f32_tile_product.cuh``).
+_BLOCK_QUERIES, _CHUNK_FEATURES, _RING = 64, 32, 3
+
+
+def scores_tilemax_plan(b: int, f: int, aligned: bool = True) -> dict:
+    """What the C entry point of kernel B chooses: ``loader`` ``"cp.async"``
+    (16-byte copies) when ``f`` is a multiple of 4 floats and both the corpus
+    and the query address are multiples of 16 bytes (``aligned``), else
+    ``"elementwise"``; the ``smem_bytes`` it asks for (the same for any
+    ``b`` and ``f``) and the ``blocks_per_tile``: query blocks that read each
+    tile of 256 corpus rows (the first from device memory, the others from L2)."""
+    return dict(
+        loader="cp.async" if aligned and f % 4 == 0 else "elementwise",
+        smem_bytes=_RING * (_BLOCK_QUERIES + KERNEL_TS) * _CHUNK_FEATURES * 4,
+        blocks_per_tile=-(-b // _BLOCK_QUERIES),
+    )
 
 
 def blend(dots, denom, lambdas, query_lambdas, alphas):

@@ -77,10 +77,29 @@ def _fixture(n, f, b, seed, device):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose address is one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# mask_from = 5000 falls inside a sub-tile of 256 rows and of 128.
 @pytest.mark.parametrize("mask_from", [None, 5000])
-@pytest.mark.parametrize("n,f,b", [(6200, 128, 256), (4100, 100, 3)])
-def test_tilemax_kernels_match_plain(cuda_device, n, f, b, mask_from):
+@pytest.mark.parametrize("n,f,b,misalign", [
+    (6200, 128, 256, False), (4100, 100, 3, False), (4100, 768, 3, False),
+    (6200, 100, 300, False), (4100, 768, 300, False), (4100, 99, 5, False),
+    (6200, 128, 256, True),
+])
+def test_tilemax_kernels_match_plain(cuda_device, n, f, b, misalign, mask_from):
     arrs = _fixture(n, f, b, 1, cuda_device)
+    if misalign:
+        arrs[0] = _misaligned(arrs[0])
+    plan = ttmk.scores_tilemax_plan(b, f, aligned=not misalign)
+    assert plan["loader"] == ("cp.async" if f % 4 == 0 and not misalign else "elementwise")
     before = kernels.launch_counts()
     s, m = ttmk.scores_and_tilemax(*arrs, tile=2048, mask_from=mask_from)
     ps, pm = ttmk.scores_and_tilemax_plain(*arrs, tile=2048, mask_from=mask_from)
@@ -116,18 +135,31 @@ def _scan_corpus(X, dtype):
     return X.to(dtype), None
 
 
+# (n, f, b, subs, misaligned corpus): sub-tiles of 128 rows (subs 16) and 256
+# (subs 8); F = 100 sends bf16 and int8 rows to the generic path (their row
+# pitch is no multiple of 16 bytes), F = 768 narrows the query block, a
+# misaligned corpus takes the generic path whatever F is.
 @pytest.mark.parametrize("mask_from", [None, 5000])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
-@pytest.mark.parametrize("n,f,b", [(6200, 128, 256), (4100, 100, 3)])
-def test_tilemax_only_kernel_matches_plain(cuda_device, n, f, b, dtype, mask_from):
+@pytest.mark.parametrize("n,f,b,subs,misalign", [
+    (6200, 128, 256, 16, False), (4100, 100, 3, 16, False), (6200, 128, 256, 8, False),
+    (6200, 100, 300, 16, False), (4100, 768, 3, 8, False), (4100, 768, 300, 16, False),
+    (6200, 128, 40, 16, False), (6200, 128, 256, 16, True),
+])
+def test_tilemax_only_kernel_matches_plain(cuda_device, n, f, b, subs, misalign, dtype, mask_from):
     arrs = _fixture(n, f, b, 3, cuda_device)
     Xs, rn = _scan_corpus(arrs[0], dtype)
+    if misalign:
+        Xs = _misaligned(Xs)
+    plan = trsk.tilemax_only_plan(b, f, dtype, aligned=Xs.data_ptr() % 16 == 0)
+    pitch_ok = (f * Xs.element_size()) % 16 == 0
+    assert plan["path"] == ("fast" if pitch_ok and not misalign else "generic")
     before = kernels.launch_counts()["tilemax_only"]
-    m = trsk.tilemax_only(Xs, *arrs[1:], tile=2048, subs=16, mask_from=mask_from, rn=rn)
+    m = trsk.tilemax_only(Xs, *arrs[1:], tile=2048, subs=subs, mask_from=mask_from, rn=rn)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["tilemax_only"] == before + 1
-    pm = trsk.tilemax_only_plain(Xs, *arrs[1:], tile=2048, subs=16, mask_from=mask_from, rn=rn)
-    assert m.shape == pm.shape == (b, (n // 2048) * 16)
+    pm = trsk.tilemax_only_plain(Xs, *arrs[1:], tile=2048, subs=subs, mask_from=mask_from, rn=rn)
+    assert m.shape == pm.shape == (b, (n // 2048) * subs)
     fin = torch.isfinite(pm)
     assert torch.equal(fin, torch.isfinite(m))
     assert float((m[fin] - pm[fin]).abs().max()) <= 1e-5
