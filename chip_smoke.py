@@ -71,12 +71,15 @@ Phases, one output line each (JSON):
    its wrapper, a dozen small PyTorch calls included (the per-row and
    per-query terms, the bf16 queries); ``launch_ms`` times the kernel's
    launch alone on the same operands, which is what ``library_ms`` (one
-   ``torch.matmul``) compares with. The rows of kernels B and D also carry the time of the kernel they replaced (``ms_before``,
-   from PERF.md) and the compiler's registers, shared memory and spills.
+   ``torch.matmul``) compares with. For kernels B and D the phase's own
+   line (not the ``kernels`` line) carries the launch plan (loader, queries
+   per block, dynamic shared memory), which the Python mirror and the built
+   library must report alike, and, when this process ran the build, the
+   compiler's registers, static shared memory and spills.
    Kernels B and D are then held against their plain versions at edge
    shapes (≤ 1e-5): 3 and 300 queries, F = 100 and 768, sub-tiles of 128
    and 256 rows, ``mask_from`` inside a sub-tile, a corpus whose address is
-   not a multiple of 16 bytes.
+   not a multiple of 16 bytes (the element-wise loaders).
 
 Then the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
@@ -116,10 +119,6 @@ TOL_EIG_NEG, TOL_EIG_DENSE, TOL_RESIDUAL, TOL_ROWSUM = 1e-4, 1e-3, 0.05, 1e-4
 # tensor cores 989 TFLOP/s.
 PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 TOP_KERNELS = 10
-# ms of the kernels that kernels B and D replaced, at the same shape on the
-# same card model and power limit (PERF.md §6: their first port's rows).
-MS_BEFORE = {"scores_tilemax": 4.88, "tilemax_only_bf16": 1.810,
-             "tilemax_only_int8": 2.060, "tilemax_only_bf16x3": 2.720}
 # Edge shapes of phase kernels: (queries, F, sub-tiles per 2048-row tile).
 EDGE_N, EDGE_MASK_FROM = 4500, 3000
 EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
@@ -152,10 +151,11 @@ def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_F32_FLOP_S) -> 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ptxas_resources(log: str, entry: str) -> dict | None:
+def ptxas_resources(log: str | None, entry: str) -> dict | None:
     """Registers, static shared memory and spill bytes that ``ptxas -v``
-    reported for the kernel whose mangled name contains ``entry``."""
-    lines = log.splitlines()
+    reported for the kernel whose mangled name contains ``entry``; None
+    without a log (the library was found built) or without the kernel."""
+    lines = (log or "").splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and entry in line:
             res = {}
@@ -602,6 +602,17 @@ def main() -> int:
         return statistics.median(times)
 
     rows_out = []
+    resources = {}        # kernels B and D: launch plan and compiler report, by row name
+
+    def record_resources(label, lib_name, entry, plan, chosen):
+        """Hold the Python mirror of a launch plan against what the built
+        library reports, and keep it with the compiler's report (of a build
+        this process ran) for the phase's line."""
+        check(plan == chosen, f"{label}: plan {plan} is not what the library chooses: {chosen}")
+        log = buildcache.BUILD_LOG.get(lib_name)
+        resources[label] = dict(plan=plan, ptxas=ptxas_resources(log, entry))
+        check(log is None or resources[label]["ptxas"] is not None,
+              f"{label}: no ptxas report for {entry} in the build log")
 
     def lam_row(label, replaces, Xk, L, launches):
         n, f = Xk.shape
@@ -648,12 +659,10 @@ def main() -> int:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.matmul(Q, Xn0.T)),
         shape=f"B={BATCH} N={N_MAIN} F={F_MAIN}",
-        ms_before=MS_BEFORE["scores_tilemax"],
-        ptxas=ptxas_resources(buildcache.BUILD_LOG["tilemax"], "scores_tilemax_kernel"),
-        plan=tmk.scores_tilemax_plan(BATCH, F_MAIN),
     ))
     check(err_b <= TOL_SCORE, f"scores_tilemax: kernel vs plain {err_b}")
-    check(rows_out[-1]["ptxas"] is not None, "scores_tilemax: no ptxas report in the build log")
+    record_resources("scores_tilemax", "tilemax", "scores_tilemax_kernel",
+                     tmk.scores_tilemax_plan(BATCH, F_MAIN), tmk.scores_tilemax_plan_chosen(Xt, Q))
 
     c = min(ns, K + so.SELECT_MARGIN)
     ts = tile // tmk.SUBS
@@ -691,7 +700,7 @@ def main() -> int:
             return fn(Xs, norms, lams, Q, ql, alphas, tile=tile, subs=so.RESCORE_SUBS, rn=rn)
 
         md, mp = run_d(rsk.tilemax_only), run_d(rsk.tilemax_only_plain)
-        ops_d = run_d(rsk.tilemax_only_operands)   # the wrapper's own small PyTorch calls, made once
+        ops_d = run_d(rsk._tilemax_only_operands)  # the wrapper's own small PyTorch calls, made once
         err_d = float((md - mp).abs().max())
         sels[tier] = torch.sort(so.topk_stable(md, c_r)[1], dim=1).values
         bms, by = bound(n0 * F_MAIN * Xs.element_size() + 8 * n0 + 4 * BATCH * F_MAIN
@@ -701,19 +710,19 @@ def main() -> int:
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
             launches=tier_counts[tier]["tilemax_only"], max_abs_err=err_d,
             ms=cuda_ms(lambda: run_d(rsk.tilemax_only)),
-            launch_ms=cuda_ms(lambda: rsk.tilemax_only_launch(ops_d), reps=20),
+            launch_ms=cuda_ms(lambda: rsk._tilemax_only_launch(ops_d), reps=20),
             plain_ms=cuda_ms(lambda: run_d(rsk.tilemax_only_plain), reps=3),
             bound_ms=bms, bound_by=by, library_ms=cuda_ms(library),
             shape=f"B={BATCH} N={N_MAIN} F={F_MAIN} subs={so.RESCORE_SUBS} {Xs.dtype}",
-            ms_before=MS_BEFORE[label], plan=(plan := rsk.tilemax_only_plan(BATCH, F_MAIN, Xs.dtype)),
-            ptxas=ptxas_resources(
-                buildcache.BUILD_LOG["rescored"],
-                f"tilemax_only_kernelILi{rsk._SCAN_MODES[Xs.dtype]}ELi{plan['queries_per_block']}E"),
         ))
         check(err_d <= TOL_SCORE, f"{label}: kernel vs plain maxima {err_d}")
-        check(plan["path"] == "fast" and plan["queries_per_block"] == BATCH,
-              f"{label}: the main path's shape does not take the fast path: {plan}")
-        check(rows_out[-1]["ptxas"] is not None, f"{label}: no ptxas report in the build log")
+        plan = rsk.tilemax_only_plan(BATCH, F_MAIN, Xs.dtype)
+        check(plan["loader"] == "cp.async" and plan["queries_per_block"] == BATCH,
+              f"{label}: the main path's shape does not get 16-byte copies and one query block: {plan}")
+        record_resources(
+            label, "rescored",
+            f"tilemax_only_kernelILi{rsk._SCAN_MODES[Xs.dtype]}ELi{plan['queries_per_block']}ELb1E",
+            plan, rsk.tilemax_only_plan_chosen(Xs, BATCH))
 
     # Kernel E in both row modes. The maxima-first tiers read f32 rows; the
     # int8-row mode serves the sketch callers of a later slice, so its row
@@ -853,13 +862,14 @@ def main() -> int:
             for Xv in (Xs, misaligned(Xs)):
                 plan = rsk.tilemax_only_plan(b_e, f_e, dtype, aligned=Xv.data_ptr() % 16 == 0)
                 kw = dict(tile=so.DEFAULT_TILE, subs=subs_e, mask_from=EDGE_MASK_FROM, rn=rn)
-                what = f"tilemax_only B={b_e} F={f_e} subs={subs_e} {dtype} {plan['path']}"
+                what = f"tilemax_only B={b_e} F={f_e} subs={subs_e} {dtype} {plan['loader']}"
                 gap = max_gap(rsk.tilemax_only(Xv, *arrs[1:], **kw),
                               rsk.tilemax_only_plain(Xv, *arrs[1:], **kw), what)
                 edge.append(dict(case=what, max_abs_err=gap))
                 check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap}")
-                check(plan["path"] == ("fast" if Xv is Xs and (f_e * Xs.element_size()) % 16 == 0
-                                       else "generic"), f"{what}: unexpected path")
+                check(plan == rsk.tilemax_only_plan_chosen(Xv, b_e)
+                      and plan["loader"] == ("cp.async" if Xv is Xs and (f_e * Xs.element_size()) % 16 == 0
+                                             else "elementwise"), f"{what}: unexpected plan {plan}")
     for b_e, f_e in EDGE_SHAPES_B:
         arrs = edge_arrays(f_e, b_e, seed=2 * f_e + b_e)
         for Xv in (arrs[0], misaligned(arrs[0])):
@@ -869,8 +879,10 @@ def main() -> int:
             gap = max(max_gap(got[0], ref[0], what), max_gap(got[1], ref[1], what))
             edge.append(dict(case=what, max_abs_err=gap))
             check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap}")
+            check(tmk.scores_tilemax_plan(b_e, f_e, aligned=Xv is arrs[0])
+                  == tmk.scores_tilemax_plan_chosen(Xv, arrs[3]), f"{what}: unexpected plan")
     torch.cuda.synchronize()
-    emit(phase="kernels", card=card, rows=len(rows_out), edge_cases=edge)
+    emit(phase="kernels", card=card, rows=len(rows_out), resources=resources, edge_cases=edge)
 
     print(json.dumps({"kernels": rows_out}))
     print(card)

@@ -22,8 +22,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 BUILD_TIMEOUT_S = 600.0       # per compiler process
 
 # Compiler output (e.g. ``-Xptxas -v`` register/shared-memory reports) by
-# library name: of the builds this process ran, or, for a library found
-# built, what its build left in the ``.log`` file beside it.
+# library name, of the builds this process ran; a library found built has
+# no entry.
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -49,9 +49,6 @@ def build(specs: list[Spec]) -> list[pathlib.Path]:
     running = []
     for spec, out in zip(specs, targets):
         if out.exists():
-            log_file = out.with_suffix(".log")
-            if spec.name not in BUILD_LOG and log_file.exists():
-                BUILD_LOG[spec.name] = log_file.read_text()
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
@@ -70,7 +67,6 @@ def build(specs: list[Spec]) -> list[pathlib.Path]:
             log += f"\n(build timed out after {BUILD_TIMEOUT_S:.0f}s)"
         BUILD_LOG[spec.name] = log
         if proc.returncode == 0 and tmp.exists():
-            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         else:
             tmp.unlink(missing_ok=True)

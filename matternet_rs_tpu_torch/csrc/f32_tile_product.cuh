@@ -17,14 +17,14 @@
 //   brought by one cp.async straight into shared memory (no register
 //   staging, no transpose). A ring of STAGES = 3 chunks keeps two chunks'
 //   loads in flight while the third is multiplied; one __syncthreads() per
-//   chunk. A caller that walks several tiles issues the next tile's first
+//   chunk. A caller that walks several tiles starts the next tile's first
 //   chunks (tile_prefetch) before its own epilogue. The tile is kept
 //   untransposed, [row][32 floats], and the inner product reads along K: a
 //   thread takes one float4 (4 consecutive k) of each of its 8 rows and,
-//   query by query, one float4 of the query, and issues the 4 × 64 FMAs —
+//   query by query, one float4 of the query, and does the 4 × 64 FMAs —
 //   16 FMAs per 16-byte shared-memory read, which is what bounds this
 //   design: a 16-byte read returns 512 bytes to a warp, 4 cycles of the
-//   SM's 128 bytes a cycle, against 16 cycles of FMA issue for the warp.
+//   SM's 128 bytes a cycle, against 16 cycles of FMA dispatch for the warp.
 //
 //   Bank conflicts. Rows are 128 bytes apart, so the same unit of different
 //   rows falls into the same banks. Unit u of row r is therefore stored at
@@ -165,7 +165,7 @@ __device__ __forceinline__ void multiply_stage(const float* stage, int tr, int t
   }
 }
 
-// Start a tile: issue the copies of its first STAGES − 1 chunks. The ring
+// Begin a tile: start the copies of its first STAGES − 1 chunks. The ring
 // must be free (tile_product ends with a barrier), so a caller that walks
 // several tiles calls this for the next tile before its own epilogue, and the
 // copies fly while it runs.

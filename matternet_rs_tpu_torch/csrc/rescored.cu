@@ -26,7 +26,7 @@
 //   (2.3 G, ≈ 0.08 ms at the card's 128 lanes × 132 SMs), which no tiling
 //   removes because the λ penalty depends on the row and the query.
 //
-//   Design (tilemax_only_kernel, the fast path). Corpus rows are the M of
+//   Design (tilemax_only_kernel). Corpus rows are the M of
 //   the product (64 per warpgroup instruction), queries the N (NQ = 256,
 //   64 or 16: the narrowest that holds the batch, stepped down until shared
 //   memory holds the queries), F the K. This orientation lets one mainloop
@@ -52,7 +52,7 @@
 //     fragment wants features (2t, 2t+1, 2t+8, 2t+9) and the thread holds
 //     (4t .. 4t+3), the queries are staged with the features of every
 //     group of 16 permuted the same way: a dot product does not care.
-//     bf16x3 issues hi·qhi, lo·qhi and hi·qlo on one accumulator. Two sets
+//     bf16x3 sends hi·qhi, lo·qhi and hi·qlo on one accumulator. Two sets
 //     of fragment registers alternate, so a group's fragments are read
 //     while the group before multiplies; the stage loop of a tile touches
 //     the accumulators with wgmma alone, which lets the compiler keep the
@@ -69,11 +69,14 @@
 //   The loads were measured at ≤ 8% of a warpgroup's cycles, so the ring
 //   stayed on cp.async; TMA and a producer warp were not built.
 //
-//   The generic path (tilemax_only_generic_kernel: 64 queries × one
-//   sub-tile a block, element-wise staging, mma.sync m16n8k16) serves what
-//   16-byte copies cannot: a row pitch or base address that is not a
-//   multiple of 16 bytes, and F too wide for 16 resident queries. The C
-//   entry point chooses from F, the type and the alignment. Any B, any F.
+//   A row pitch or base address that is not a multiple of 16 bytes cannot
+//   be copied in 16-byte units: the kernel's VEC = false instances fill the
+//   same stages element by element with plain loads and stores (same layout,
+//   same products, no copies in flight: a correctness path, not a fast one).
+//   The C entry point chooses from F, the type and the address, never by
+//   catching a failure. Any B; F as far as 16 queries' slabs fit beside the
+//   rings (2560 features of f32 rows, 5120 of bf16 or int8 rows; the callers'
+//   fused range ends at 2048) — a wider F is refused, not streamed.
 //
 // Kernel E (slab_dots_kernel) replaces the TPU kernel tilemax_fused.py
 // `slab_dots_ring`: dots of each query against every row of its c
@@ -98,189 +101,14 @@
 
 namespace {
 
-// The generic path's tiling.
-constexpr int BM = 64;          // queries per block
-constexpr int BN = 128;         // corpus rows per chunk (4 warps × 32)
-constexpr int BK = 32;          // features staged per step
-constexpr int THREADS = 128;    // 4 warps
-constexpr int LD = BK + 8;      // shared row pitch in bf16 (80 B: conflict-free fragments)
-
 enum { SCAN_BF16 = 0, SCAN_INT8 = 1, SCAN_F32 = 2 };
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One corpus element as bf16 hi (and lo for f32 rows); 0 past the edge.
-template <int MODE>
-__device__ __forceinline__ void stage_x(const void* X, int64_t i, bool ok, __nv_bfloat16& hi,
-                                        __nv_bfloat16& lo) {
-  if constexpr (MODE == SCAN_BF16) {
-    hi = ok ? reinterpret_cast<const __nv_bfloat16*>(X)[i] : __float2bfloat16_rn(0.f);
-  } else if constexpr (MODE == SCAN_INT8) {
-    hi = __float2bfloat16_rn(ok ? (float)reinterpret_cast<const int8_t*>(X)[i] : 0.f);
-  } else {
-    const float v = ok ? reinterpret_cast<const float*>(X)[i] : 0.f;
-    hi = __float2bfloat16_rn(v);
-    lo = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
-  }
-}
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-tilemax_only_generic_kernel(const void* __restrict__ X, const float* __restrict__ rn,
-                            const float* __restrict__ lams,
-                            const __nv_bfloat16* __restrict__ qhi,
-                            const __nv_bfloat16* __restrict__ qlo,
-                            const float* __restrict__ aqrn, const float* __restrict__ beta,
-                            const float* __restrict__ ql, int64_t mask_from, int f, int b,
-                            int ts, int64_t ns, int qblocks, float* __restrict__ out) {
-  constexpr bool SPLIT = MODE == SCAN_F32;
-  __shared__ __align__(16) __nv_bfloat16 Xh[BN][LD];
-  __shared__ __align__(16) __nv_bfloat16 Xl[SPLIT ? BN : 1][LD];
-  __shared__ __align__(16) __nv_bfloat16 Qh[BM][LD];
-  __shared__ __align__(16) __nv_bfloat16 Ql[SPLIT ? BM : 1][LD];
-  __shared__ float red[THREADS / 32][BM];
-
-  const int qb = blockIdx.x % qblocks;
-  const int64_t sub = blockIdx.x / qblocks;
-  const int q0 = qb * BM;
-  const int tid = threadIdx.x;
-  const int w = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;     // mma fragment group / thread-in-group
-
-  // This thread's 8 query rows: mi*16 + g + 8*h, h = 0, 1.
-  float aq[4][2], be[4][2], qlb[4][2], run[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int q = q0 + mi * 16 + g + 8 * h;
-      const bool v = q < b;
-      aq[mi][h] = v ? aqrn[q] : 0.f;
-      be[mi][h] = v ? beta[q] : 0.f;
-      qlb[mi][h] = v ? ql[q] : 0.f;
-      run[mi][h] = -INFINITY;
-    }
-
-  for (int c0 = 0; c0 < ts; c0 += BN) {
-    const int64_t row0 = sub * ts + c0;
-    float acc[4][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    for (int k0 = 0; k0 < f; k0 += BK) {
-      for (int e = tid; e < BN * BK; e += THREADS) {
-        const int r = e / BK, kk = e % BK;
-        const int gk = k0 + kk;
-        __nv_bfloat16 hi, lo;
-        stage_x<MODE>(X, (row0 + r) * f + gk, gk < f, hi, lo);
-        Xh[r][kk] = hi;
-        if constexpr (SPLIT) Xl[r][kk] = lo;
-      }
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int m = e / BK, kk = e % BK;
-        const int gq = q0 + m, gk = k0 + kk;
-        const bool ok = gq < b && gk < f;
-        const int64_t i = (int64_t)gq * f + gk;
-        Qh[m][kk] = ok ? qhi[i] : __float2bfloat16_rn(0.f);
-        if constexpr (SPLIT) Ql[m][kk] = ok ? qlo[i] : __float2bfloat16_rn(0.f);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < BK; ks += 16) {
-        uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = w * 32 + ni * 8 + g;
-          bh[ni][0] = ld32(&Xh[n][ks + t * 2]);
-          bh[ni][1] = ld32(&Xh[n][ks + t * 2 + 8]);
-          if constexpr (SPLIT) {
-            bl[ni][0] = ld32(&Xl[n][ks + t * 2]);
-            bl[ni][1] = ld32(&Xl[n][ks + t * 2 + 8]);
-          }
-        }
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          const int m = mi * 16 + g;
-          const uint32_t a0 = ld32(&Qh[m][ks + t * 2]), a1 = ld32(&Qh[m + 8][ks + t * 2]);
-          const uint32_t a2 = ld32(&Qh[m][ks + t * 2 + 8]), a3 = ld32(&Qh[m + 8][ks + t * 2 + 8]);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a0, a1, a2, a3, bh[ni][0], bh[ni][1]);
-          if constexpr (SPLIT) {
-            const uint32_t l0 = ld32(&Ql[m][ks + t * 2]), l1 = ld32(&Ql[m + 8][ks + t * 2]);
-            const uint32_t l2 = ld32(&Ql[m][ks + t * 2 + 8]), l3 = ld32(&Ql[m + 8][ks + t * 2 + 8]);
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              mma_bf16(acc[mi][ni], a0, a1, a2, a3, bl[ni][0], bl[ni][1]);   // qhi·xlo
-              mma_bf16(acc[mi][ni], l0, l1, l2, l3, bh[ni][0], bh[ni][1]);   // qlo·xhi
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // Epilogue: accumulator e of tile (mi, ni) is query mi*16 + g + 8*(e/2),
-    // corpus row w*32 + ni*8 + t*2 + e%2 of the chunk.
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int64_t col = row0 + w * 32 + ni * 8 + t * 2 + j;
-        const float rnc = rn[col], lc = lams[col];
-        const bool masked = col >= mask_from;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float pen = fminf(fabsf(__fsub_rn(lc, qlb[mi][h])), 1.f);
-            float s = __fmul_rn(__fmul_rn(acc[mi][ni][2 * h + j], rnc), aq[mi][h]);
-            s = __fadd_rn(s, __fsub_rn(be[mi][h], __fmul_rn(be[mi][h], pen)));
-            run[mi][h] = fmaxf(run[mi][h], masked ? -INFINITY : s);
-          }
-      }
-  }
-
-  // Max over the 4 lanes sharing a query row, then over the 4 warps.
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float m = run[mi][h];
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      if (t == 0) red[w][mi * 16 + g + 8 * h] = m;
-    }
-  __syncthreads();
-  if (tid < BM && q0 + tid < b) {
-    float m = red[0][tid];
-#pragma unroll
-    for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i][tid]);
-    out[(int64_t)(q0 + tid) * ns + sub] = m;
-  }
-}
-
-// ---- the fast path ------------------------------------------------------
-
+constexpr int TS_UNIT = 128;                   // a sub-tile is a multiple of this many rows
 constexpr int WG_ROWS = 64;                    // corpus rows per wgmma tile
 constexpr int STAGE_BYTES = WG_ROWS * 128;     // a stage: 64 rows × 128 bytes of K
 constexpr int RING = 4;                        // stages per warpgroup
 constexpr int WGS = 2;                         // warpgroups per block
-constexpr int FAST_THREADS = WGS * 128;
+constexpr int THREADS = WGS * 128;
 constexpr int MAX_SMEM = 232448;               // dynamic shared memory a block may ask for
 constexpr int SMEM_ALIGN = 1024;               // the swizzled query slabs want it
 
@@ -299,9 +127,9 @@ __host__ __device__ inline int query_k(int f, int esz) {
   return (k + 63) / 64 * 64;
 }
 
-// Dynamic shared memory of the fast kernel: the query slabs (hi, and lo for
+// Dynamic shared memory of kernel D: the query slabs (hi, and lo for
 // f32 rows), the rings, the warps' partial maxima, the per-query terms.
-__host__ __device__ inline int64_t fast_smem_bytes(int f, int esz, int nq) {
+__host__ __device__ inline int64_t smem_bytes_of(int f, int esz, int nq) {
   const int64_t slabs = (int64_t)(query_k(f, esz) / 64) * nq * 128 * (esz == 4 ? 2 : 1);
   return SMEM_ALIGN + slabs + WGS * RING * STAGE_BYTES + (WGS * 4 + 3) * nq * 4;
 }
@@ -310,6 +138,25 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   const int bytes = valid ? 16 : 0;             // 0: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
+}
+// One 16-byte unit of a corpus row read element by element (any alignment);
+// bytes at or past the row's pitch are zero.
+template <int ESZ>
+__device__ __forceinline__ uint4 load_unit_elementwise(const unsigned char* row, int64_t kbyte,
+                                                       int64_t pitch) {
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 16 / ESZ; ++j) {
+    const int64_t o = kbyte + j * ESZ;
+    if (o < pitch) {
+      uint32_t v;
+      if constexpr (ESZ == 1) v = row[o];
+      else if constexpr (ESZ == 2) v = *reinterpret_cast<const uint16_t*>(row + o);
+      else v = *reinterpret_cast<const uint32_t*>(row + o);
+      w[(j * ESZ) >> 2] |= v << (8 * ((j * ESZ) & 3));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -437,8 +284,11 @@ struct Fold {
   }
 };
 
-template <int MODE, int NQ>
-__global__ void __launch_bounds__(FAST_THREADS, 1)
+// VEC: the corpus' row pitch and address are multiples of 16 bytes, so a
+// stage arrives by 16-byte cp.async; otherwise the same threads read the same
+// units element by element and store them into the same layout.
+template <int MODE, int NQ, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
 tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict__ rn,
                     const float* __restrict__ lams, const __nv_bfloat16* __restrict__ qhi,
                     const __nv_bfloat16* __restrict__ qlo, const float* __restrict__ aqrn,
@@ -469,7 +319,7 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
   // load where the query rows allow it.
   const bool q_vec = f % 8 == 0 && reinterpret_cast<uintptr_t>(qhi) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(qlo) % 16 == 0;
-  for (int e = tid; e < NQ * (kq / 8); e += FAST_THREADS) {
+  for (int e = tid; e < NQ * (kq / 8); e += THREADS) {
     const int n = e / (kq / 8), k8 = e % (kq / 8);   // features 8·k8 .. 8·k8 + 7
     const bool row_ok = q0 + n < b;
     const int64_t src = (int64_t)(q0 + n) * f + 8 * k8;
@@ -507,7 +357,7 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
       }
     }
   }
-  for (int n = tid; n < NQ; n += FAST_THREADS) {
+  for (int n = tid; n < NQ; n += THREADS) {
     const bool ok = q0 + n < b;
     par[n] = ok ? aqrn[q0 + n] : 0.f;
     par[NQ + n] = ok ? beta[q0 + n] : 0.f;
@@ -538,15 +388,20 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
   // i / nst, the tiles being the 64-row pieces of its sub-tiles in turn.
   int64_t load_row0 = me * ts;
   int load_ks = 0, load_tile = 0;
-  auto issue = [&](int slot) {
+  auto load_stage = [&](int slot) {
 #pragma unroll
     for (int it = 0; it < WG_ROWS * 8 / 128; ++it) {
       const int e = wtid + it * 128;
       const int r = e >> 3, u = e & 7;
       const int64_t kbyte = (int64_t)load_ks * 128 + u * 16;
-      const bool ok = kbyte < pitch;
-      cp_async16(ring_s + slot * STAGE_BYTES + r * 128 + ((u ^ unit_key<MODE>(r)) << 4),
-                 X + (load_row0 + r) * pitch + (ok ? kbyte : 0), ok);
+      const int at = slot * STAGE_BYTES + r * 128 + ((u ^ unit_key<MODE>(r)) << 4);
+      const unsigned char* row = X + (load_row0 + r) * pitch;
+      if constexpr (VEC) {
+        const bool ok = kbyte < pitch;
+        cp_async16(ring_s + at, row + (ok ? kbyte : 0), ok);
+      } else {
+        *reinterpret_cast<uint4*>(ring + at) = load_unit_elementwise<R::ESZ>(row, kbyte, pitch);
+      }
     }
     if (++load_ks == nst) {
       load_ks = 0;
@@ -556,7 +411,7 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
   };
 #pragma unroll
   for (int s = 0; s < RING - 1; ++s) {
-    if (s < total) issue(s);
+    if (s < total) load_stage(s);
     cp_async_commit();
   }
 
@@ -592,8 +447,8 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
     // the products alone, so they stay in flight from one stage to the next.
     for (int ks = 0; ks < nst; ++ks, ++i) {
       cp_async_wait<RING - 2>();                 // stage i has landed (this thread's copies)
-      wg_barrier(wg);                            // ... the warpgroup's; and stage i-1 is read out
-      if (i + RING - 1 < total) issue((int)((i + RING - 1) % RING));
+      wg_barrier(wg);                            // ... the warpgroup's (or is stored); and stage i-1 is read out
+      if (i + RING - 1 < total) load_stage((int)((i + RING - 1) % RING));
       cp_async_commit();
       const unsigned char* stage = ring + (i % RING) * STAGE_BYTES;
 #pragma unroll
@@ -624,7 +479,7 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
       }
     }
 
-    // The tile's products are issued: once done, blend, and fold into the
+    // The tile's products are under way: once done, blend, and fold into the
     // running maxima.
     wgmma::wait<0>();
 #pragma unroll
@@ -657,35 +512,47 @@ tilemax_only_kernel(const unsigned char* __restrict__ X, const float* __restrict
   }
 }
 
-template <int MODE, int NQ>
-int launch_fast(const void* X, const float* rn, const float* lams, const __nv_bfloat16* qhi,
-                const __nv_bfloat16* qlo, const float* aqrn, const float* beta, const float* ql,
-                int64_t mask_from, int f, int b, int ts, int64_t ns, int sms, float* out,
-                cudaStream_t st) {
-  const int smem = (int)fast_smem_bytes(f, Rows<MODE>::ESZ, NQ);
-  cudaError_t rc = cudaFuncSetAttribute(tilemax_only_kernel<MODE, NQ>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// What the entry point chooses for a launch: 16-byte copies or the
+// element-wise loader, the queries per block (the narrowest of 16, 64, 256
+// that holds the batch, 256 for more, stepped down while the slabs do not
+// fit; 0 if not even 16 queries fit: the launch is refused), and the dynamic
+// shared memory that asks for.
+struct Plan {
+  int vec, nq, smem;
+};
+
+inline Plan plan_of(const void* X, int f, int b, int esz) {
+  Plan p = {((int64_t)f * esz) % 16 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0, 0, 0};
+  const int widths[3] = {256, 64, 16};
+  for (int i = 0; i < 3 && p.nq == 0; ++i) {
+    const bool needed = i == 2 || b > widths[i + 1];
+    if (needed && smem_bytes_of(f, esz, widths[i]) <= MAX_SMEM) p.nq = widths[i];
+  }
+  if (p.nq) p.smem = (int)smem_bytes_of(f, esz, p.nq);
+  return p;
+}
+
+template <int MODE, int NQ, bool VEC>
+int launch_kernel(const void* X, const float* rn, const float* lams, const __nv_bfloat16* qhi,
+                  const __nv_bfloat16* qlo, const float* aqrn, const float* beta, const float* ql,
+                  int64_t mask_from, int f, int b, int ts, int64_t ns, int smem, float* out,
+                  cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(tilemax_only_kernel<MODE, NQ, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
   const int qblocks = (b + NQ - 1) / NQ;
   int64_t bx = sms / qblocks;                    // about one block per SM over the grid
   if (bx > (ns + WGS - 1) / WGS) bx = (ns + WGS - 1) / WGS;
   if (bx < 1) bx = 1;
-  tilemax_only_kernel<MODE, NQ><<<dim3((unsigned)bx, (unsigned)qblocks), FAST_THREADS, smem, st>>>(
-      reinterpret_cast<const unsigned char*>(X), rn, lams, qhi, qlo, aqrn, beta, ql, mask_from,
-      f, b, ts, ns, out);
+  tilemax_only_kernel<MODE, NQ, VEC>
+      <<<dim3((unsigned)bx, (unsigned)qblocks), THREADS, smem, st>>>(
+          reinterpret_cast<const unsigned char*>(X), rn, lams, qhi, qlo, aqrn, beta, ql, mask_from,
+          f, b, ts, ns, out);
   return (int)cudaGetLastError();
-}
-
-// Queries per block of the fast path: the narrowest of 16, 64, 256 that
-// holds the batch (256 for more), stepped down while the slabs do not fit;
-// 0 if not even 16 queries fit (the generic path takes the launch).
-inline int fast_queries_per_block(int f, int esz, int b) {
-  const int widths[3] = {256, 64, 16};
-  for (int i = 0; i < 3; ++i) {
-    const bool needed = i == 2 || b > widths[i + 1];
-    if (needed && fast_smem_bytes(f, esz, widths[i]) <= MAX_SMEM) return widths[i];
-  }
-  return 0;
 }
 
 template <int MODE>
@@ -693,23 +560,15 @@ int launch_mode(const void* X, const float* rn, const float* lams, const __nv_bf
                 const __nv_bfloat16* qlo, const float* aqrn, const float* beta, const float* ql,
                 int64_t mask_from, int f, int b, int ts, int64_t ns, float* out,
                 cudaStream_t st) {
-  constexpr int ESZ = Rows<MODE>::ESZ;
-  const bool aligned = ((int64_t)f * ESZ) % 16 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0;
-  const int nq = aligned ? fast_queries_per_block(f, ESZ, b) : 0;
-  if (nq == 0) {
-    const int qblocks = (b + BM - 1) / BM;
-    tilemax_only_generic_kernel<MODE><<<(unsigned)(ns * qblocks), THREADS, 0, st>>>(
-        X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, f, b, ts, ns, qblocks, out);
-    return (int)cudaGetLastError();
-  }
-  int dev = 0, sms = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc != cudaSuccess) return (int)rc;
-#define MRS_FAST(N) \
-  launch_fast<MODE, N>(X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, f, b, ts, ns, sms, out, st)
-  return nq == 256 ? MRS_FAST(256) : nq == 64 ? MRS_FAST(64) : MRS_FAST(16);
-#undef MRS_FAST
+  const Plan p = plan_of(X, f, b, Rows<MODE>::ESZ);
+  if (p.nq == 0) return (int)cudaErrorInvalidValue;
+#define MRS_LAUNCH(N, V)                                                                       \
+  launch_kernel<MODE, N, V>(X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, f, b, ts, ns, \
+                            p.smem, out, st)
+#define MRS_WIDTH(V) (p.nq == 256 ? MRS_LAUNCH(256, V) : p.nq == 64 ? MRS_LAUNCH(64, V) : MRS_LAUNCH(16, V))
+  return p.vec ? MRS_WIDTH(true) : MRS_WIDTH(false);
+#undef MRS_WIDTH
+#undef MRS_LAUNCH
 }
 
 template <bool INT8>
@@ -777,14 +636,16 @@ const char* mrs_cuda_strerror(int rc) { return cudaGetErrorString((cudaError_t)r
 // X [N, f] (bf16, int8 or f32 by `mode`; the first n0 rows are read),
 // rn/lams [N] f32, qhi/qlo [b, f] bf16 (qlo read for f32 rows only),
 // aqrn/beta/ql [b] f32 → out [b, n0/ts] f32; contiguous. ts % 128 == 0,
-// n0 % ts == 0. The fast kernel when X's row pitch and address are
-// multiples of 16 bytes and 16 queries' slabs fit in shared memory, the
-// generic kernel otherwise. Returns cudaGetLastError() after the launch.
+// n0 % ts == 0. 16-byte copies when X's row pitch and address are multiples
+// of 16 bytes, the element-wise loader otherwise; cudaErrorInvalidValue when
+// f is so wide that 16 queries' slabs do not fit in shared memory (past 2560
+// features of f32 rows, 5120 of bf16 or int8 rows). Returns
+// cudaGetLastError() after the launch.
 int mrs_tilemax_only(const void* X, const float* rn, const float* lams, const void* qhi,
                      const void* qlo, const float* aqrn, const float* beta, const float* ql,
                      int64_t mask_from, int64_t n0, int f, int b, int ts, int mode,
                      float* out, void* stream) {
-  if (ts <= 0 || ts % BN != 0 || n0 % ts != 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  if (ts <= 0 || ts % TS_UNIT != 0 || n0 % ts != 0 || f <= 0) return (int)cudaErrorInvalidValue;
   const int64_t ns = n0 / ts;
   if (ns == 0 || b <= 0) return 0;
   const auto* qh = reinterpret_cast<const __nv_bfloat16*>(qhi);
@@ -797,6 +658,19 @@ int mrs_tilemax_only(const void* X, const float* rn, const float* lams, const vo
   if (mode == SCAN_F32)
     return launch_mode<SCAN_F32>(X, rn, lams, qh, qo, aqrn, beta, ql, mask_from, f, b, ts, ns, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// What mrs_tilemax_only chooses for corpus address X, f features, b queries
+// and scan mode `mode`: *vec 1 for 16-byte copies, 0 for the element-wise
+// loader; *nq the queries per block; *smem the dynamic shared memory in
+// bytes. cudaErrorInvalidValue where mrs_tilemax_only refuses the launch.
+int mrs_tilemax_only_plan(const void* X, int f, int b, int mode, int* vec, int* nq, int* smem) {
+  if (mode < SCAN_BF16 || mode > SCAN_F32 || f <= 0 || b <= 0) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_of(X, f, b, mode == SCAN_BF16 ? 2 : mode == SCAN_INT8 ? 1 : 4);
+  *vec = p.vec;
+  *nq = p.nq;
+  *smem = p.smem;
+  return p.nq ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // X [N, f] f32 (int8_rows = 0) or int8 (int8_rows = 1), Q [b, f] f32 (the

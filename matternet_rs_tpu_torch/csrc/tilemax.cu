@@ -24,7 +24,7 @@
 //   untransposed under an XOR swizzle that makes both the copies and the
 //   float4 reads conflict-free, and each thread multiplies along K into
 //   8 queries × 8 rows of accumulators (exact FFMA, ascending k); the next
-//   item's first chunks are issued before the epilogue and fly while it
+//   item's first chunks are started before the epilogue and fly while it
 //   runs. A wider block (128 queries, 512 threads at 128 registers, or 16
 //   queries a thread) halves the corpus re-read but measured slower: the
 //   inner loop is bound by shared-memory reads per FMA, not by L2. The
@@ -170,6 +170,12 @@ __global__ void gather_subtiles_kernel(const float* __restrict__ scores,
   }
 }
 
+// 16-byte copies need f a multiple of 4 floats and both addresses aligned.
+inline int vec_copies(const float* X, const float* Q, int f) {
+  return f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,14 +200,24 @@ int mrs_scores_tilemax(const float* X, const float* norms, const float* lams,
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc != cudaSuccess) return (int)rc;
   if (blocks > sms) blocks = sms;               // persistent: a block walks items blockIdx.x, +grid, ...
-  const int vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  const int vec = vec_copies(X, Q, f);
   rc = cudaFuncSetAttribute(scores_tilemax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                             SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
   scores_tilemax_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       X, norms, lams, Q, qn, ql, alpha, mask_from, n0, f, b, qblocks, vec, scores, submax);
   return (int)cudaGetLastError();
+}
+
+// What mrs_scores_tilemax chooses for these addresses and f: *vec 1 for
+// 16-byte copies, 0 for the element-wise loader; *queries_per_block and the
+// dynamic shared memory *smem in bytes, the same for every launch.
+int mrs_scores_tilemax_plan(const float* X, const float* Q, int f, int* vec,
+                            int* queries_per_block, int* smem) {
+  *vec = vec_copies(X, Q, f);
+  *queries_per_block = BM;
+  *smem = SMEM_BYTES;
+  return 0;
 }
 
 // scores [b, n0], sel [b, c] int64 → out [b, c·ts]. 16-byte copies when

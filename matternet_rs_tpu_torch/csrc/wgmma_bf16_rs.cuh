@@ -1,7 +1,7 @@
 // wgmma.mma_async m64nNk16, bf16 × bf16 → f32, with the A operand in
 // registers and the B operand in shared memory (K-major, through a matrix
 // descriptor), for N = 16, 64 and 256. One warpgroup (4 warps, 128 threads)
-// issues each instruction together.
+// executes each instruction together.
 //
 // Fragments (g = lane >> 2, t = lane & 3, warp w of the warpgroup):
 //   A (64 × 16): a0 = rows 16w+g,   k 2t, 2t+1     a1 = row 16w+g+8, k 2t, 2t+1

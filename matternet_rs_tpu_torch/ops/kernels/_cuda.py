@@ -37,6 +37,8 @@ SIGNATURES = {
         # scores, submax, stream
         "mrs_scores_tilemax": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                                _P, _P, _P],
+        # X, Q, f, vec (out), queries_per_block (out), smem (out)
+        "mrs_scores_tilemax_plan": [_P, _P, _I, _P, _P, _P],
         # scores, sel, out, b, c, ts, n0, stream
         "mrs_gather_subtiles": [_P, _P, _P, _I, _I, _I, _I64, _P],
     },
@@ -45,6 +47,8 @@ SIGNATURES = {
         # mode, out, stream
         "mrs_tilemax_only": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I,
                              _I, _P, _P],
+        # X, f, b, mode, vec (out), nq (out), smem (out)
+        "mrs_tilemax_only_plan": [_P, _I, _I, _I, _P, _P, _P],
         # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, stream
         "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P],
     },

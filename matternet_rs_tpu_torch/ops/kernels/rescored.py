@@ -15,6 +15,8 @@ Each has its plain PyTorch version beside it, taken only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
@@ -28,17 +30,16 @@ from matternet_rs_tpu_torch.ops.kernels.tilemax import SUBS
 KERNEL_CHUNK = 128
 _SCAN_MODES = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
-# The fast path of kernel D, as ``csrc/rescored.cu`` lays its dynamic
-# shared memory out: query slabs of 64 features × 128 bytes a query (hi, and
-# lo for f32 rows), two warpgroups' rings of four 64-row × 128-byte stages,
-# the warps' partial maxima and the per-query terms, 1024 bytes of
-# alignment slack.
+# Kernel D's dynamic shared memory, as ``csrc/rescored.cu`` lays it out:
+# query slabs of 64 features × 128 bytes a query (hi, and lo for f32 rows),
+# two warpgroups' rings of four 64-row × 128-byte stages, the warps' partial
+# maxima and the per-query terms, 1024 bytes of alignment slack.
 MAX_DYNAMIC_SMEM = 232_448            # bytes a block may ask for on the H100
 _STAGE_BYTES, _RING, _WARPGROUPS, _SMEM_ALIGN = 64 * 128, 4, 2, 1024
 _QUERY_WIDTHS = (256, 64, 16)         # queries per block the kernel is built for
 
 
-def _fast_smem_bytes(f: int, esz: int, nq: int) -> int:
+def _smem_bytes(f: int, esz: int, nq: int) -> int:
     kstage = 128 // esz                                   # features per stage
     kq = -(-(-(-f // kstage) * kstage) // 64) * 64        # whole stages, whole slabs
     slabs = (kq // 64) * nq * 128 * (2 if esz == 4 else 1)
@@ -49,20 +50,33 @@ def _fast_smem_bytes(f: int, esz: int, nq: int) -> int:
 def tilemax_only_plan(b: int, f: int, dtype: torch.dtype, aligned: bool = True) -> dict:
     """What the C entry point of kernel D chooses for a batch of ``b``
     queries over ``f`` features of corpus type ``dtype``, ``aligned`` saying
-    whether the corpus address is a multiple of 16 bytes: ``path`` ``"fast"``
-    (16-byte copies, wgmma) with ``queries_per_block`` (the narrowest of 16,
-    64, 256 that holds the batch, stepped down until the slabs fit) and the
-    ``smem_bytes`` it asks for, or ``"generic"`` (element-wise staging, static
-    shared memory only) when the row pitch or the address is not a multiple
-    of 16 bytes or not even 16 queries fit."""
+    whether the corpus address is a multiple of 16 bytes: the ``loader``
+    (``"cp.async"``, 16-byte copies, or ``"elementwise"`` when the row pitch
+    or the address is not a multiple of 16 bytes), the ``queries_per_block``
+    (the narrowest of 16, 64, 256 that holds the batch, stepped down until
+    the query slabs fit) and the ``smem_bytes`` it asks for. Raises
+    ``ValueError`` when not even 16 queries fit (``f`` past 2560 for f32
+    rows, 5120 for bf16 or int8 rows): the kernel refuses such a launch."""
     esz = torch.empty((), dtype=dtype).element_size()
-    if aligned and (f * esz) % 16 == 0:
-        for i, nq in enumerate(_QUERY_WIDTHS):
-            needed = i == len(_QUERY_WIDTHS) - 1 or b > _QUERY_WIDTHS[i + 1]
-            if needed and _fast_smem_bytes(f, esz, nq) <= MAX_DYNAMIC_SMEM:
-                return dict(path="fast", queries_per_block=nq,
-                            smem_bytes=_fast_smem_bytes(f, esz, nq))
-    return dict(path="generic", queries_per_block=64, smem_bytes=0)
+    loader = "cp.async" if aligned and (f * esz) % 16 == 0 else "elementwise"
+    for i, nq in enumerate(_QUERY_WIDTHS):
+        needed = i == len(_QUERY_WIDTHS) - 1 or b > _QUERY_WIDTHS[i + 1]
+        if needed and _smem_bytes(f, esz, nq) <= MAX_DYNAMIC_SMEM:
+            return dict(loader=loader, queries_per_block=nq, smem_bytes=_smem_bytes(f, esz, nq))
+    raise ValueError(f"tilemax_only kernel: {f} features of {dtype} rows leave no room for "
+                     f"{_QUERY_WIDTHS[-1]} queries in {MAX_DYNAMIC_SMEM} bytes of shared memory")
+
+
+def tilemax_only_plan_chosen(X, b: int) -> dict:
+    """:func:`tilemax_only_plan` as the built library itself reports it for
+    the corpus tensor ``X`` (on the card) and ``b`` queries."""
+    lib = _cuda.library("rescored")
+    vec, nq, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.mrs_tilemax_only_plan(X.data_ptr(), X.shape[1], b, _SCAN_MODES[X.dtype],
+                                   ctypes.byref(vec), ctypes.byref(nq), ctypes.byref(smem))
+    _cuda.check(lib, rc, "tilemax_only kernel plan")
+    return dict(loader="cp.async" if vec.value else "elementwise",
+                queries_per_block=nq.value, smem_bytes=smem.value)
 
 
 def _epilogue_terms(norms, queries, alphas, rn):
@@ -110,13 +124,13 @@ def tilemax_only_plain(X, norms, lambdas, queries, query_lambdas, alphas,
     return s.view(b, n0 // ts, ts).amax(dim=2)
 
 
-def tilemax_only_operands(X, norms, lambdas, queries, query_lambdas, alphas,
+def _tilemax_only_operands(X, norms, lambdas, queries, query_lambdas, alphas,
                           tile: int = 2048, subs: int = SUBS,
                           mask_from: int | None = None, rn=None) -> dict:
     """Check the arguments of :func:`tilemax_only` for kernel D and form what
     its launch reads beside them: the per-row factor, the per-query terms and
     the queries as bf16 hi (and lo for f32 rows). Small PyTorch calls, no
-    kernel of this package; :func:`tilemax_only_launch` takes the result."""
+    kernel of this package; :func:`_tilemax_only_launch` takes the result."""
     n, f = X.shape
     b = queries.shape[0]
     ts = tile // subs
@@ -131,6 +145,7 @@ def tilemax_only_operands(X, norms, lambdas, queries, query_lambdas, alphas,
                         query_lambdas=query_lambdas).items():
         if t.dtype != torch.float32:
             raise ValueError(f"tilemax_only kernel: {name} must be float32, got {t.dtype}")
+    tilemax_only_plan(b, f, X.dtype)            # raises for an F the kernel refuses
     rn, aqrn, beta = _epilogue_terms(norms, queries, alphas, rn)
     qhi = queries.to(torch.bfloat16)
     qlo = (queries - qhi.float()).to(torch.bfloat16) if X.dtype == torch.float32 else qhi
@@ -140,8 +155,8 @@ def tilemax_only_operands(X, norms, lambdas, queries, query_lambdas, alphas,
                 mask_from=n0 if mask_from is None else int(mask_from))
 
 
-def tilemax_only_launch(ops: dict):
-    """Launch kernel D on the operands of :func:`tilemax_only_operands` →
+def _tilemax_only_launch(ops: dict):
+    """Launch kernel D on the operands of :func:`_tilemax_only_operands` →
     ``submax [B, n0 // ts]``."""
     lib = _cuda.library("rescored")
     tensors = {k: v for k, v in ops.items() if isinstance(v, torch.Tensor)}
@@ -169,13 +184,13 @@ def tilemax_only(X, norms, lambdas, queries, query_lambdas, alphas,
     ``[j·ts, (j+1)·ts)``, ``ts = tile // subs``. ``rn`` overrides the
     per-row cosine factor (default guarded ``1/norms``; the int8 tier
     passes its dequant multiplier). Rows ≥ ``mask_from`` score -inf. CPU
-    tensors take the plain version; CUDA tensors launch kernel D (any B
-    and F; ``ts`` a multiple of 128)."""
+    tensors take the plain version; CUDA tensors launch kernel D (any B;
+    ``ts`` a multiple of 128; F as far as :func:`tilemax_only_plan` allows)."""
     if X.device.type == "cpu":
         return tilemax_only_plain(X, norms, lambdas, queries, query_lambdas, alphas,
                                   tile, subs, mask_from, rn)
     _cuda.library("rescored")                 # without a card: raise before anything is computed
-    return tilemax_only_launch(tilemax_only_operands(
+    return _tilemax_only_launch(_tilemax_only_operands(
         X, norms, lambdas, queries, query_lambdas, alphas, tile, subs, mask_from, rn))
 
 

@@ -13,6 +13,8 @@ Each has its plain PyTorch version beside it, taken only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
@@ -41,6 +43,18 @@ def scores_tilemax_plan(b: int, f: int, aligned: bool = True) -> dict:
         smem_bytes=_RING * (_BLOCK_QUERIES + KERNEL_TS) * _CHUNK_FEATURES * 4,
         blocks_per_tile=-(-b // _BLOCK_QUERIES),
     )
+
+
+def scores_tilemax_plan_chosen(X, queries) -> dict:
+    """:func:`scores_tilemax_plan` as the built library itself reports it for
+    the corpus and query tensors (on the card)."""
+    lib = _cuda.library("tilemax")
+    vec, bm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.mrs_scores_tilemax_plan(X.data_ptr(), queries.data_ptr(), X.shape[1],
+                                     ctypes.byref(vec), ctypes.byref(bm), ctypes.byref(smem))
+    _cuda.check(lib, rc, "scores_and_tilemax kernel plan")
+    return dict(loader="cp.async" if vec.value else "elementwise", smem_bytes=smem.value,
+                blocks_per_tile=-(-queries.shape[0] // bm.value))
 
 
 def blend(dots, denom, lambdas, query_lambdas, alphas):

@@ -100,6 +100,7 @@ def test_tilemax_kernels_match_plain(cuda_device, n, f, b, misalign, mask_from):
         arrs[0] = _misaligned(arrs[0])
     plan = ttmk.scores_tilemax_plan(b, f, aligned=not misalign)
     assert plan["loader"] == ("cp.async" if f % 4 == 0 and not misalign else "elementwise")
+    assert ttmk.scores_tilemax_plan_chosen(arrs[0], arrs[3]) == plan
     before = kernels.launch_counts()
     s, m = ttmk.scores_and_tilemax(*arrs, tile=2048, mask_from=mask_from)
     ps, pm = ttmk.scores_and_tilemax_plain(*arrs, tile=2048, mask_from=mask_from)
@@ -136,15 +137,16 @@ def _scan_corpus(X, dtype):
 
 
 # (n, f, b, subs, misaligned corpus): sub-tiles of 128 rows (subs 16) and 256
-# (subs 8); F = 100 sends bf16 and int8 rows to the generic path (their row
-# pitch is no multiple of 16 bytes), F = 768 narrows the query block, a
-# misaligned corpus takes the generic path whatever F is.
+# (subs 8); F = 100 sends bf16 and int8 rows to the element-wise loader (their
+# row pitch is no multiple of 16 bytes), F = 768 narrows the query block, a
+# misaligned corpus takes the element-wise loader whatever F is (at 256 and at
+# 64 queries a block).
 @pytest.mark.parametrize("mask_from", [None, 5000])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.float32])
 @pytest.mark.parametrize("n,f,b,subs,misalign", [
     (6200, 128, 256, 16, False), (4100, 100, 3, 16, False), (6200, 128, 256, 8, False),
     (6200, 100, 300, 16, False), (4100, 768, 3, 8, False), (4100, 768, 300, 16, False),
-    (6200, 128, 40, 16, False), (6200, 128, 256, 16, True),
+    (6200, 128, 40, 16, False), (6200, 128, 256, 16, True), (4100, 99, 40, 8, True),
 ])
 def test_tilemax_only_kernel_matches_plain(cuda_device, n, f, b, subs, misalign, dtype, mask_from):
     arrs = _fixture(n, f, b, 3, cuda_device)
@@ -153,7 +155,8 @@ def test_tilemax_only_kernel_matches_plain(cuda_device, n, f, b, subs, misalign,
         Xs = _misaligned(Xs)
     plan = trsk.tilemax_only_plan(b, f, dtype, aligned=Xs.data_ptr() % 16 == 0)
     pitch_ok = (f * Xs.element_size()) % 16 == 0
-    assert plan["path"] == ("fast" if pitch_ok and not misalign else "generic")
+    assert plan["loader"] == ("cp.async" if pitch_ok and not misalign else "elementwise")
+    assert trsk.tilemax_only_plan_chosen(Xs, b) == plan
     before = kernels.launch_counts()["tilemax_only"]
     m = trsk.tilemax_only(Xs, *arrs[1:], tile=2048, subs=subs, mask_from=mask_from, rn=rn)
     torch.cuda.synchronize()
@@ -163,6 +166,18 @@ def test_tilemax_only_kernel_matches_plain(cuda_device, n, f, b, subs, misalign,
     fin = torch.isfinite(pm)
     assert torch.equal(fin, torch.isfinite(m))
     assert float((m[fin] - pm[fin]).abs().max()) <= 1e-5
+
+
+def test_tilemax_only_kernel_refuses_rows_too_wide_for_16_queries(cuda_device):
+    arrs = _fixture(2100, 2600, 4, 3, cuda_device)
+    with pytest.raises(ValueError, match="no room for 16 queries"):
+        trsk.tilemax_only(*arrs, tile=2048, subs=16)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        trsk.tilemax_only_plan_chosen(arrs[0], 4)
+    wide = _fixture(2100, 2560, 4, 3, cuda_device)      # the widest f32 rows it takes
+    m = trsk.tilemax_only(*wide, tile=2048, subs=16)
+    pm = trsk.tilemax_only_plain(*wide, tile=2048, subs=16)
+    assert float((m - pm).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
