@@ -80,6 +80,25 @@ Phases, one output line each (JSON):
    shapes (≤ 1e-5): 3 and 300 queries, F = 100 and 768, sub-tiles of 128
    and 256 rows, ``mask_from`` inside a sub-tile, a corpus whose address is
    not a multiple of 16 bytes (the element-wise loaders).
+   Kernel A runs in 3xTF32 on the tensor cores: its rows also carry the
+   gap to its 3xTF32 mirror (≤ 1e-6·max(1, |λ|)), ``bound_ms`` for
+   3·14·N·F² flops at 495 TFLOP/s (TF32) and ``bound_ffma_ms`` (14·N·F² at
+   67); its launch plan (loader, splits, grid, shared memory) and ptxas
+   report go to the phase's line. It is held at every F in {1, 3, 24, 127,
+   128, 130, 768, 2047, 2048} with every N in {1, 63, 64, 65, 1000}, and an
+   offset view of X, a zero row and a 1e-11 row giving exactly 0: against
+   the float64 closed form within 1e-5·max(1, |λ|) plus the row's rounding
+   bound for products of relative error 2^-20 (``taumode_rounding_bound``;
+   at F = 3 rows with nearly equal features make the expanded sums cancel,
+   and the float32 closed form itself misses the exact value by more than
+   1e-5), and against the mirror within 1e-6·max(1, |λ|) plus twice that
+   bound; the strict gaps to the float32 version and the mirror are printed
+   beside. Kernel A's and the merge's ``launch_ms`` time the kernel alone on
+   operands the wrapper prepared once. The merge's row carries
+   ``launch_floor_ms``, an empty kernel of the same library timed the same
+   way; it is held bit for bit at k in {1, 10, 16}, 16, 48, 2,112 and 4,112
+   candidates, 1, 7 and 256 queries, on shuffled lists, all-equal scores,
+   ±0.0 and −inf fills.
 
 Then the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
@@ -116,11 +135,20 @@ LOBPCG_K, LOBPCG_ITERS = 5, 40
 TOL_EIG_NEG, TOL_EIG_DENSE, TOL_RESIDUAL, TOL_ROWSUM = 1e-4, 1e-3, 0.05, 1e-4
 
 # H100 SXM data sheet (dense): HBM3 3.35 TB/s, f32 FFMA 67 TFLOP/s, bf16
-# tensor cores 989 TFLOP/s.
+# tensor cores 989 TFLOP/s, TF32 tensor cores 495 TFLOP/s.
 PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
+PEAK_TF32_FLOP_S = 495e12
+TOL_LAMBDA_MIRROR = 1e-6      # kernel A against its 3xTF32 mirror, × max(|λ|, 1)
+EPS_3XTF32 = 2.0 ** -20       # relative error of a 3xTF32 product, for the λ rounding bound
 TOP_KERNELS = 10
 # Edge shapes of phase kernels: (queries, F, sub-tiles per 2048-row tile).
 EDGE_N, EDGE_MASK_FROM = 4500, 3000
+# Kernel A's edge shapes: every F with every N, and an offset view of X.
+EDGE_F_A = (1, 3, 24, 127, 128, 130, 768, 2047, 2048)
+EDGE_N_A = (1, 63, 64, 65, 1000)
+# The merge's edge cases: k, candidates per query, queries, list contents.
+EDGE_K_G, EDGE_CAND_G, EDGE_B_G = (1, 10, 16), (16, 48, 2112, 4112), (1, 7, 256)
+EDGE_KINDS_G = ("shuffled", "ties", "zeros", "fills")
 EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
 EDGE_SHAPES_B = ((3, 100), (3, 768), (300, 768))
 
@@ -142,6 +170,15 @@ def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """SM clock, its maximum, temperature and power draw now (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
 
@@ -614,22 +651,42 @@ def main() -> int:
         check(log is None or resources[label]["ptxas"] is not None,
               f"{label}: no ptxas report for {entry} in the build log")
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def lam_gaps(Xk, L, tau):
+        """Kernel A's λ and its largest gaps, relative to max(|λ|, 1), to the
+        full-f32 plain version and to the 3xTF32 mirror."""
+        got = tk.taumode_lambdas_fused(Xk, L, tau)
+        ref = tk.taumode_lambdas_plain(Xk, L, tau)
+        mirror = tk.taumode_lambdas_3xtf32_plain(Xk, L, tau)
+        return (got, float(((got - ref).abs() / torch.clamp(ref.abs(), min=1.0)).max()),
+                float(((got - mirror).abs() / torch.clamp(mirror.abs(), min=1.0)).max()),
+                float((got - ref).abs().max()))
+
     def lam_row(label, replaces, Xk, L, launches):
         n, f = Xk.shape
         tau = tmo.select_tau(Xk, tmo.TAU_MEDIAN)
-        got = tk.taumode_lambdas_fused(Xk, L, tau)
-        ref = tk.taumode_lambdas_plain(Xk, L, tau)
-        err = (got - ref).abs()
-        ok = bool(torch.all(err <= TOL_LAMBDA * torch.clamp(ref.abs(), min=1.0)))
-        bms, by = bound(4 * (n * f + f * f + 2 * f + 2 * n), 14 * n * f * f)
+        _, rel, rel_mirror, err = lam_gaps(Xk, L, tau)
+        nbytes = 4 * (n * f + f * f + 2 * f + 2 * n)
+        bms, by = bound(nbytes, 3 * 14 * n * f * f, PEAK_TF32_FLOP_S)
+        state = card_state()
+        ops = tk._operands(Xk, L, tau)          # the wrapper's checks and operand preparation, made once
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/taumode.cu",
-            replaces=replaces, launches=launches, max_abs_err=float(err.max()),
+            replaces=replaces, launches=launches, max_abs_err=err,
             ms=cuda_ms(lambda: tk.taumode_lambdas_fused(Xk, L, tau)),
+            launch_ms=cuda_ms(lambda: tk._launch(*ops)),
             plain_ms=cuda_ms(lambda: tk.taumode_lambdas_plain(Xk, L, tau), reps=3),
-            bound_ms=bms, bound_by=by, library_ms=None, shape=f"N={n} F={f}",
+            bound_ms=bms, bound_by=by, library_ms=None,
+            bound_ffma_ms=bound(nbytes, 14 * n * f * f)[0],
+            max_rel_err=rel, max_rel_err_vs_3xtf32_mirror=rel_mirror,
+            shape=f"N={n} F={f}", arithmetic="3xTF32 (bound: 3·14·N·F² at 495 TFLOP/s)",
+            card_state_before=state,
         ))
-        check(ok, f"{label}: kernel vs plain λ beyond tolerance (max {float(err.max())})")
+        check(rel <= TOL_LAMBDA, f"{label}: kernel vs plain λ beyond tolerance ({rel})")
+        check(rel_mirror <= TOL_LAMBDA_MIRROR, f"{label}: kernel vs its 3xTF32 mirror {rel_mirror}")
+        record_resources(label, "taumode", "taumode_lambda_kernelILb1E",
+                         tk.taumode_plan(n, f, Xk.data_ptr() % 16 == 0, sms), tk.taumode_plan_chosen(Xk))
 
     lam_row("taumode_lambda", "matternet_rs_tpu/ops/pallas/taumode_fused.py:79",
             Xt, gl.matrix.contiguous(), main_counts["taumode"])
@@ -819,6 +876,7 @@ def main() -> int:
     del pv_p, pi_p
     mi, mv = sfk.merge_partials(pv, pi, K)
     mi_p, mv_p = sfk.merge_partials_plain(pv, pi, K)
+    ops_g = sfk._merge_operands(pv, pi, K)     # the wrapper's checks and outputs, made once
     flat_v = pv.view(BATCH, -1)
     bms, by = bound(8 * pv.numel() + 8 * BATCH * K, 0)
     rows_out.append(dict(
@@ -826,13 +884,21 @@ def main() -> int:
         replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
         launches=st_counts["search_fused_merge"], max_abs_err=float((mv - mv_p).abs().max()),
         ms=cuda_ms(lambda: sfk.merge_partials(pv, pi, K), reps=20),
+        launch_ms=cuda_ms(lambda: sfk._merge_launch(*ops_g), reps=20),
         plain_ms=cuda_ms(lambda: sfk.merge_partials_plain(pv, pi, K), reps=5),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.topk(flat_v, K, dim=1), reps=20),
+        launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
         shape=f"B={BATCH} candidates={flat_v.shape[1]} k={K}",
         library="torch.topk over the flattened lists (no id tie-break)",
+        launch_floor="an empty kernel of the same library, timed the same way",
     ))
-    check(bool(torch.equal(mi, mi_p) and torch.equal(mv, mv_p)), "search_fused_merge: kernel vs plain")
+    check(bool(torch.equal(mi, mi_p) and torch.equal(mv.view(torch.int32), mv_p.view(torch.int32))),
+          "search_fused_merge: kernel vs plain")
+    log = buildcache.BUILD_LOG.get("search_fused")
+    resources["search_fused_merge"] = dict(ptxas=ptxas_resources(log, "search_fused_merge_kernel"))
+    check(log is None or resources["search_fused_merge"]["ptxas"] is not None,
+          "search_fused_merge: no ptxas report in the build log")
     # Kernels B and D at edge shapes, each against its plain version.
     def edge_arrays(f, b, seed):
         rng = np.random.default_rng(seed)
@@ -881,6 +947,78 @@ def main() -> int:
             check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap}")
             check(tmk.scores_tilemax_plan(b_e, f_e, aligned=Xv is arrs[0])
                   == tmk.scores_tilemax_plan_chosen(Xv, arrs[3]), f"{what}: unexpected plan")
+    # Kernel A at edge shapes: against the f32 plain version and the 3xTF32
+    # mirror; the zero row and the 1e-11 row give exactly 0; the plan is the
+    # library's own.
+    rng_a = np.random.default_rng(11)
+    for f_e in EDGE_F_A:
+        nodes = torch.from_numpy(rng_a.normal(size=(max(f_e, 2), 30)).astype(np.float32)).to(dev)
+        L_e = lap.build_laplacian_matrix(nodes, GraphParams(eps=0.9, k=5, topk=5, sparsity_check=False)
+                                         ).matrix.contiguous()
+        if f_e == 1:                           # a graph needs two nodes; one feature takes L = [[0.7]]
+            L_e = torch.full((1, 1), 0.7, device=dev)
+        for n_e, offset in [(n_e, False) for n_e in EDGE_N_A] + [(EDGE_N_A[-1], True)]:
+            Xe = rng_a.normal(size=(n_e, f_e)).astype(np.float32)
+            zero_rows = [r for r in (n_e // 3, n_e // 2) if n_e >= 3]
+            if zero_rows:
+                Xe[zero_rows[0]] = 0.0
+                Xe[zero_rows[1]] = 1e-11
+            Xe = torch.from_numpy(Xe).to(dev)
+            if offset:
+                Xe = misaligned(Xe)
+            tau_e = tmo.select_tau(Xe, tmo.TAU_MEDIAN)
+            got, rel, rel_mirror, _ = lam_gaps(Xe, L_e, tau_e)
+            # Against the float64 closed form, with each row's rounding bound:
+            # at F = 3 some rows' sums cancel and the float32 closed form
+            # itself strays from the exact value by more than TOL_LAMBDA.
+            exact = tk.taumode_lambdas_f64(Xe, L_e, tau_e)
+            slack = tk.taumode_rounding_bound(Xe, L_e, tau_e, EPS_3XTF32)
+            scale = torch.clamp(exact.abs(), min=1.0)
+            mirror = tk.taumode_lambdas_3xtf32_plain(Xe, L_e, tau_e).double()
+            vs_exact = float(((got.double() - exact).abs() / (TOL_LAMBDA * scale + slack)).max())
+            vs_mirror = float(((got.double() - mirror).abs() / (TOL_LAMBDA_MIRROR * scale + 2 * slack)).max())
+            plan = tk.taumode_plan(n_e, f_e, Xe.data_ptr() % 16 == 0, sms)
+            what = f"taumode N={n_e} F={f_e} {plan['loader']} splits={plan['splits']}"
+            edge.append(dict(case=what, max_rel_err=rel, max_rel_err_vs_3xtf32_mirror=rel_mirror,
+                             exact_gap_over_tolerance_and_bound=vs_exact,
+                             mirror_gap_over_tolerance_and_bound=vs_mirror,
+                             max_rounding_bound=float(slack.max())))
+            check(vs_exact <= 1.0 and vs_mirror <= 1.0,
+                  f"{what}: kernel vs exact {vs_exact}, vs mirror {vs_mirror} (of tolerance + bound); "
+                  f"strict gaps {rel}, {rel_mirror}")
+            check(all(float(got[r]) == 0.0 for r in zero_rows), f"{what}: zero rows not 0")
+            check(plan == tk.taumode_plan_chosen(Xe), f"{what}: unexpected plan")
+            check(plan["loader"] == ("elementwise" if offset or f_e % 4 else "tma"),
+                  f"{what}: wrong loader")
+
+    # The merge at edge cases, bit for bit: unsorted lists of random scores,
+    # all scores equal (ties fall to the ids, some repeated), ±0.0 only,
+    # half the entries −inf with EMPTY_ID.
+    rng_g = np.random.default_rng(12)
+    for b_e in EDGE_B_G:
+        for cand_e in EDGE_CAND_G:
+            for kind in EDGE_KINDS_G:
+                v = rng_g.normal(size=(b_e, cand_e)).astype(np.float32)
+                ids_e = rng_g.integers(0, 50 * cand_e, size=(b_e, cand_e)).astype(np.int32)
+                if kind == "ties":
+                    v[:] = 0.25
+                    ids_e = rng_g.integers(0, cand_e, size=(b_e, cand_e)).astype(np.int32)
+                elif kind == "zeros":
+                    v = np.where(rng_g.random((b_e, cand_e)) < 0.5, np.float32(-0.0), np.float32(0.0))
+                    ids_e = rng_g.integers(0, cand_e // 2 + 1, size=(b_e, cand_e)).astype(np.int32)
+                elif kind == "fills":
+                    empty = rng_g.random((b_e, cand_e)) < 0.5
+                    v[empty] = -np.inf
+                    ids_e[empty] = sfk.EMPTY_ID
+                pv_e = torch.from_numpy(v.reshape(b_e, -1, 16)).to(dev)
+                pi_e = torch.from_numpy(ids_e.reshape(b_e, -1, 16)).to(dev)
+                for k_e in EDGE_K_G:
+                    ik, vk = sfk.merge_partials(pv_e, pi_e, k_e)
+                    ip, vp = sfk.merge_partials_plain(pv_e, pi_e, k_e)
+                    same = bool(torch.equal(ik, ip) and torch.equal(vk.view(torch.int32), vp.view(torch.int32)))
+                    what = f"search_fused_merge B={b_e} candidates={cand_e} k={k_e} {kind}"
+                    edge.append(dict(case=what, bit_equal=same))
+                    check(same, f"{what}: kernel vs plain")
     torch.cuda.synchronize()
     emit(phase="kernels", card=card, rows=len(rows_out), resources=resources, edge_cases=edge)
 

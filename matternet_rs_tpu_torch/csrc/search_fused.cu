@@ -33,12 +33,26 @@
 //   ballot (its position = the number of entries that rank before it) and
 //   one shuffle (entries behind it move down a lane). Once the lists have
 //   warmed up almost nothing passes, so the selection costs a compare per
-//   score. Each block writes its lists as a partial [B, splits, 16]; a
-//   second kernel (one warp per query) merges the partials with the same
-//   insertion. The order is total, so the answer does not depend on the
-//   number of splits nor on the order in which candidates arrive. The blend
-//   uses rounded multiplies and adds (no contraction), as the plain version
-//   rounds.
+//   score. Each block writes its lists as a partial [B, splits, 16]. The
+//   order is total, so the answer does not depend on the number of splits
+//   nor on the order in which candidates arrive. The blend uses rounded
+//   multiplies and adds (no contraction), as the plain version rounds.
+//
+//   The merge (search_fused_merge_kernel) takes the partials — or any
+//   [B, cand] lists, sorted or not — to each query's best k. What bounds it:
+//   bytes, 8·B·cand read (4.3 MB at B = 256, cand = 2,112: 1.3 µs), below
+//   the cost of one launch; so the aim is latency. One block per query: all
+//   its candidates (up to 4,096 at a time, 32 KB) are brought into shared
+//   memory by 16-byte cp.async copies, all in flight before any selection;
+//   each warp then keeps a sorted list of 32 in registers (one entry per
+//   lane) whose first k are the best k it has seen, and takes its batches
+//   of 32 candidates: the few that beat its k-th (and, after the first
+//   batches, the block's k-th so far) are inserted one by one (a ballot
+//   and a shuffle each), a batch with more is sorted and merged by bitonic
+//   networks over shuffles (21 steps, whatever the data); the eight lists
+//   then merge pairwise through shared memory. The serial chain is a
+//   warp's share of batches, each bounded, not the query's candidates one
+//   by one.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -156,42 +170,175 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
   }
 }
 
-// One warp per query: merge `cand` (value, id) pairs into the best k.
-__global__ void __launch_bounds__(THREADS)
-search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict__ pids,
-                          int b, int cand, int k, float* __restrict__ vals,
-                          int* __restrict__ ids) {
-  const int bq = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (bq >= b) return;                         // warp-uniform
-  const int lane = threadIdx.x & 31;
-  float lv = -INFINITY;
-  int li = EMPTY_ID;
-  float th = -INFINITY;
-  int thid = EMPTY_ID;
-  const float* pv = pvals + (int64_t)bq * cand;
-  const int* pi = pids + (int64_t)bq * cand;
-  for (int c0 = 0; c0 < cand; c0 += 32) {
-    const int c = c0 + lane;
-    const float s = c < cand ? pv[c] : -INFINITY;
-    const int id = c < cand ? pi[c] : EMPTY_ID;
-    unsigned pass = __ballot_sync(0xffffffffu, c < cand && before(s, id, th, thid));
-    while (pass) {
-      const int src = __ffs(pass) - 1;
-      pass &= pass - 1;
-      const float cs = __shfl_sync(0xffffffffu, s, src);
-      const int cid = __shfl_sync(0xffffffffu, id, src);
-      if (before(cs, cid, th, thid)) {
-        insert(lv, li, cs, cid, lane);
-        th = __shfl_sync(0xffffffffu, lv, k - 1);
-        thid = __shfl_sync(0xffffffffu, li, k - 1);
-      }
+// The merge. One block per query; its 8 warps share the query's candidates.
+// Each candidate becomes a 64-bit key that orders as before() does: the f32
+// score mapped to an unsigned integer that grows with the score (−0.0 taken
+// as +0.0, since before() holds them equal; every NaN above +inf, as a
+// descending sort puts them), then the id, flipped so that a smaller id
+// gives a larger key. Equal keys (the same score and id twice) fall to the
+// candidate's position, as the stable sorts of the plain version do, so
+// the order is total on any input and the result is the plain version's
+// bit for bit: the values and ids are read back by position.
+struct Cand {
+  uint64_t key;
+  uint32_t pos;
+};
+
+__device__ __forceinline__ uint64_t order_key(float v, int id) {
+  uint32_t u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;                 // −0.0 → +0.0
+  if (isnan(v)) u = 0x7fffffffu;                // every NaN → above +inf
+  const uint32_t m = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)m << 32) | (uint64_t)(~((uint32_t)id ^ 0x80000000u));
+}
+__device__ __forceinline__ bool ranks_before(const Cand& a, const Cand& b) {
+  return a.key > b.key || (a.key == b.key && a.pos < b.pos);
+}
+// Below every candidate: (−inf, EMPTY_ID) has key 0x007fffff'00000000.
+__device__ __forceinline__ Cand nothing() { return Cand{0ull, 0xffffffffu}; }
+
+__device__ __forceinline__ Cand shfl_cand(const Cand& c, int src) {
+  return Cand{__shfl_sync(0xffffffffu, c.key, src), __shfl_sync(0xffffffffu, c.pos, src)};
+}
+// Lane keeps the better (or, !take_better, the worse) of its candidate and
+// that of lane ^ m.
+__device__ __forceinline__ void exchange(Cand& c, int m, bool take_better) {
+  const Cand o = Cand{__shfl_xor_sync(0xffffffffu, c.key, m), __shfl_xor_sync(0xffffffffu, c.pos, m)};
+  if (ranks_before(o, c) == take_better) c = o;
+}
+// Bitonic sort of the warp's 32 candidates, best in lane 0.
+__device__ __forceinline__ void sort32(Cand& c, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int m = size >> 1; m > 0; m >>= 1) exchange(c, m, ((lane & m) == 0) == ((lane & size) == 0));
+}
+// Insert c (the same on every lane) into the sorted list: the entries that
+// rank before it are a prefix; those behind it move down a lane.
+__device__ __forceinline__ void insert_one(Cand& list, const Cand& c, int lane) {
+  const int at = __popc(__ballot_sync(0xffffffffu, ranks_before(list, c)));
+  const Cand up = shfl_cand(list, lane > 0 ? lane - 1 : 0);
+  if (lane == at) list = c;
+  else if (lane > at) list = up;
+}
+// list := the best 32 of list ∪ x, both sorted best first: the better of
+// list[l] and x[31 − l] is a bitonic sequence holding them; sort it.
+__device__ __forceinline__ void merge32(Cand& list, const Cand& x, int lane) {
+  const Cand r = shfl_cand(x, 31 - lane);
+  if (ranks_before(r, list)) list = r;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) exchange(list, m, (lane & m) == 0);
+}
+
+constexpr int MERGE_THREADS = 256;                   // 8 warps, one query per block
+constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+constexpr int MERGE_CHUNK = 4096;                    // candidates staged at a time
+constexpr int INSERT_MAX = 4;                        // passing candidates a batch inserts one by one
+
+// The warps' lists (each sorted) meet pairwise through shared memory,
+// log2(MERGE_WARPS) rounds of one bitonic merge; lists[0] ends with the
+// block's best k.
+__device__ __forceinline__ void tree_merge(Cand& list, Cand (*lists)[KP], int k, int warp, int lane) {
+  if (lane < k) lists[warp][lane] = list;
+#pragma unroll 1
+  for (int half = MERGE_WARPS / 2; half >= 1; half >>= 1) {
+    __syncthreads();
+    if (warp < half) {
+      merge32(list, lane < k ? lists[warp + half][lane] : nothing(), lane);
+      if (lane < k) lists[warp][lane] = list;
     }
   }
-  if (lane < k) {
-    vals[(int64_t)bq * k + lane] = lv;
-    ids[(int64_t)bq * k + lane] = li;
+  __syncthreads();
+}
+
+// The k-th best of what the warps' lists hold now (every warp calls it;
+// the lists themselves are kept): a candidate that does not beat it is
+// beaten by k others and cannot be among the best k.
+__device__ __forceinline__ Cand block_kth(const Cand& list, Cand (*lists)[KP], int k, int warp,
+                                          int lane) {
+  Cand copy = list;
+  tree_merge(copy, lists, k, warp, lane);
+  const Cand kth = lists[0][k - 1];
+  __syncthreads();                                   // lists is rewritten later
+  return kth;
+}
+
+// One batch of 32 staged candidates (positions b0 + lane of the chunk at
+// c0) into the warp's list. A candidate can enter the best k only if it
+// beats both the list's k-th entry and `floor` (a candidate at least k
+// others beat); once the lists have filled, few do: up to INSERT_MAX of a
+// batch are inserted one by one; more, and the batch is sorted and merged
+// into the list (21 shuffle steps, whatever the data).
+__device__ __forceinline__ void take_batch(Cand& list, const Cand& floor, const float* sv,
+                                           const int* si, int c0, int len, int b0, int k, int lane) {
+  const int e = b0 + lane;
+  Cand x = e < len ? Cand{order_key(sv[e], si[e]), (uint32_t)(c0 + e)} : nothing();
+  const Cand own = shfl_cand(list, k - 1);
+  unsigned pass = __ballot_sync(0xffffffffu, ranks_before(x, ranks_before(own, floor) ? floor : own));
+  if (__popc(pass) > INSERT_MAX) {
+    sort32(x, lane);
+    merge32(list, x, lane);
+    return;
+  }
+  while (pass) {                // one that no longer beats the risen k-th lands behind it: harmless
+    const int src = __ffs(pass) - 1;
+    pass &= pass - 1;
+    insert_one(list, shfl_cand(x, src), lane);
   }
 }
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict__ pids,
+                          int cand, int k, int vec, float* __restrict__ vals,
+                          int* __restrict__ ids) {
+  __shared__ __align__(16) float sv[MERGE_CHUNK];
+  __shared__ __align__(16) int si[MERGE_CHUNK];
+  __shared__ Cand lists[MERGE_WARPS][KP];
+  const int64_t bq = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* pv = pvals + bq * cand;
+  const int* pi = pids + bq * cand;
+  Cand list = nothing();                             // the warp's best 32 so far, best in lane 0
+  Cand floor = nothing();                            // a candidate at least k others beat, or nothing
+
+  for (int c0 = 0; c0 < cand; c0 += MERGE_CHUNK) {
+    const int len = min(MERGE_CHUNK, cand - c0);
+    // Every load of the chunk is in flight before any selection begins.
+    if (vec) {
+      for (int u = tid; u < len / 4; u += MERGE_THREADS) {
+        f32tile::cp_async16(sv + 4 * u, pv + c0 + 4 * u, true);
+        f32tile::cp_async16(reinterpret_cast<float*>(si) + 4 * u,
+                            reinterpret_cast<const float*>(pi) + c0 + 4 * u, true);
+      }
+      f32tile::cp_async_commit();
+      f32tile::cp_async_wait<0>();
+    } else {
+      for (int e = tid; e < len; e += MERGE_THREADS) {
+        sv[e] = pv[c0 + e];
+        si[e] = pi[c0 + e];
+      }
+    }
+    __syncthreads();
+    // Warp w takes batches w, w + MERGE_WARPS, ... of 32; after the first
+    // ones the block's k-th so far becomes every warp's floor.
+    int b0 = warp * 32;
+    if (c0 == 0 && cand > MERGE_WARPS * 32) {          // block-uniform
+      take_batch(list, floor, sv, si, c0, len, b0, k, lane);
+      b0 += MERGE_WARPS * 32;
+      floor = block_kth(list, lists, k, warp, lane);
+    }
+    for (; b0 < len; b0 += MERGE_WARPS * 32) take_batch(list, floor, sv, si, c0, len, b0, k, lane);
+    __syncthreads();
+  }
+
+  tree_merge(list, lists, k, warp, lane);
+  if (warp == 0 && lane < k) {
+    vals[bq * k + lane] = pv[list.pos];
+    ids[bq * k + lane] = pi[list.pos];
+  }
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -223,14 +370,23 @@ int mrs_search_fused_scan(const float* X, const float* lams, const float* Q,
   return (int)cudaGetLastError();
 }
 
-// pvals/pids [b, cand] → vals/ids [b, k]: per query the best k under
-// (score descending, id ascending). Returns cudaGetLastError().
+// pvals/pids [b, cand] (any order) → vals/ids [b, k]: per query the best
+// k under (score descending, id ascending; equal pairs by position), k ≤
+// cand. 16-byte loads when cand % 4 == 0 and both arrays are 16-byte
+// aligned. Returns cudaGetLastError().
 int mrs_search_fused_merge(const float* pvals, const int* pids, int b, int cand, int k,
                            float* vals, int* ids, void* stream) {
-  if (b <= 0 || cand <= 0 || k < 1 || k > KP) return (int)cudaErrorInvalidValue;
-  const int blocks = (b + (THREADS / 32) - 1) / (THREADS / 32);
-  search_fused_merge_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      pvals, pids, b, cand, k, vals, ids);
+  if (b <= 0 || cand <= 0 || k < 1 || k > KP || k > cand) return (int)cudaErrorInvalidValue;
+  const int vec = cand % 4 == 0 && reinterpret_cast<uintptr_t>(pvals) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(pids) % 16 == 0;
+  search_fused_merge_kernel<<<b, MERGE_THREADS, 0, (cudaStream_t)stream>>>(pvals, pids, cand, k,
+                                                                           vec, vals, ids);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel, launched as the merge is: what one launch costs.
+int mrs_search_fused_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

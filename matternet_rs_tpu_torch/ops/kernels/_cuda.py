@@ -29,8 +29,10 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # library → {C function: argument types}; every function returns an int.
 SIGNATURES = {
     "taumode": {
-        # X, L, deg, deg2, tau, lam, n, f, stream
-        "mrs_taumode_lambda": [_P, _P, _P, _P, _P, _P, _I64, _I, _P],
+        # X, Wp, deg, deg2, tau, lam, partial, tickets, n, f, splits, stream
+        "mrs_taumode_lambda": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
+        # X, n, f, vec (out), splits (out), grid (out), smem (out)
+        "mrs_taumode_plan": [_P, _I64, _I, _P, _P, _P, _P],
     },
     "tilemax": {
         # X, norms, lams, Q, qn, ql, alpha, mask_from, n0, f, b,
@@ -61,6 +63,8 @@ SIGNATURES = {
         "mrs_search_fused_scan": [_P, _P, _P, _P, _F, _F, _I64, _I, _I, _I, _I, _P, _P, _P],
         # pvals, pids, b, cand, k, vals, ids, stream
         "mrs_search_fused_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
+        # stream: an empty kernel (what one launch costs)
+        "mrs_search_fused_empty": [_P],
     },
 }
 

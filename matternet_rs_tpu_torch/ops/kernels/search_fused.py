@@ -17,6 +17,7 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
@@ -128,22 +129,39 @@ def merge_partials_plain(vals, ids, k: int):
     return i, v
 
 
-def merge_partials(vals, ids, k: int):
-    """The best ``k`` of each query's candidate lists ``(vals, ids)
-    [B, splits, 16]`` under (score descending, id ascending) → ``(ids
-    [B, k] int32, scores [B, k])``. CPU tensors take the plain version;
-    CUDA tensors launch the merge kernel."""
-    if vals.shape != ids.shape or vals.ndim != 3 or not 1 <= k <= K_PAD:
-        raise ValueError(f"search_fused merge: vals {tuple(vals.shape)}, ids {tuple(ids.shape)}, k={k}")
-    if vals.device.type == "cpu":
-        return merge_partials_plain(vals, ids, k)
+def order_keys(vals, ids) -> np.ndarray:
+    """The merge kernel's 64-bit keys (numpy uint64) of float32 ``vals`` and
+    int32 ``ids``: a larger key ranks first under (score descending, id
+    ascending). The score's bits are mapped to an unsigned integer that
+    grows with the score, −0.0 taken as +0.0 and every NaN above +inf; the
+    id's, sign flipped and inverted, fill the low half. For tests."""
+    v = np.ascontiguousarray(vals, dtype=np.float32)
+    u = v.view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    u[np.isnan(v)] = 0x7FFFFFFF
+    m = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint64)
+    i = np.ascontiguousarray(ids, dtype=np.int32).view(np.uint32) ^ np.uint32(0x80000000)
+    return (m << np.uint64(32)) | (~i).astype(np.uint64)
+
+
+def _merge_operands(vals, ids, k: int) -> tuple:
+    """The merge kernel's launch on CUDA tensors, checked, with its outputs
+    allocated. Raises on what the kernel does not take."""
     lib = _cuda.library("search_fused")
     if vals.dtype != torch.float32 or ids.dtype != torch.int32:
         raise ValueError("search_fused merge kernel: vals float32 and ids int32 required")
     dev = _cuda.require_cuda("search_fused merge kernel", vals=vals, ids=ids)
     b, cand = vals.shape[0], vals.shape[1] * vals.shape[2]
+    if k > cand:
+        raise ValueError(f"search_fused merge kernel: k={k} exceeds the {cand} candidates")
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    return lib, vals, ids, k, out_v, out_i, dev
+
+
+def _merge_launch(lib, vals, ids, k: int, out_v, out_i, dev):
+    """Launch the merge on operands from :func:`_merge_operands`; counts it."""
+    b, cand = vals.shape[0], vals.shape[1] * vals.shape[2]
     if b == 0:
         return out_i, out_v
     rc = lib.mrs_search_fused_merge(
@@ -153,6 +171,26 @@ def merge_partials(vals, ids, k: int):
     _cuda.check(lib, rc, "search_fused merge kernel")
     kernels.LAUNCHES["search_fused_merge"] += 1
     return out_i, out_v
+
+
+def merge_partials(vals, ids, k: int):
+    """The best ``k`` of each query's candidate lists ``(vals, ids)
+    [B, splits, w]`` (any order) under (score descending, id ascending;
+    −0.0 and +0.0 equal) → ``(ids [B, k] int32, scores [B, k])``. CPU
+    tensors take the plain version; CUDA tensors launch the merge kernel,
+    which needs ``k ≤ splits·w``."""
+    if vals.shape != ids.shape or vals.ndim != 3 or not 1 <= k <= K_PAD:
+        raise ValueError(f"search_fused merge: vals {tuple(vals.shape)}, ids {tuple(ids.shape)}, k={k}")
+    if vals.device.type == "cpu":
+        return merge_partials_plain(vals, ids, k)
+    return _merge_launch(*_merge_operands(vals, ids, k))
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch an empty kernel of the same library on ``device``'s current
+    stream: timed like the merge, the cost of one launch."""
+    lib = _cuda.library("search_fused")
+    _cuda.check(lib, lib.mrs_search_fused_empty(_cuda.stream_ptr(device)), "empty kernel")
 
 
 def search_fused_plain(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float = 0.7):

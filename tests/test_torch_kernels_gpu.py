@@ -42,6 +42,8 @@ def cuda_device():
 
 
 def _laplacian(f, seed, device):
+    if f == 1:                            # a graph needs two nodes; one feature takes L = [[0.7]]
+        return torch.full((1, 1), 0.7, device=device)
     nodes = np.random.default_rng(seed).normal(size=(f, 30)).astype(np.float32)
     gl = tlap.build_laplacian_matrix(
         torch.from_numpy(nodes).to(device),
@@ -50,13 +52,19 @@ def _laplacian(f, seed, device):
     return gl.matrix.contiguous()
 
 
-@pytest.mark.parametrize("n,f", [(1000, 24), (777, 128), (300, 768), (65, 2048)])
-def test_taumode_kernel_matches_plain(cuda_device, n, f):
+@pytest.mark.parametrize("n,f,aligned", [
+    (1000, 24, True), (777, 128, True), (300, 768, True), (65, 2048, True),
+    (500, 1, True), (300, 130, True), (65, 2047, True),
+    (777, 128, False), (1000, 3, False),              # X off 16 bytes / rows off 16 bytes
+])
+def test_taumode_kernel_matches_plain(cuda_device, n, f, aligned):
     L = _laplacian(f, 6, cuda_device)
     X = np.random.default_rng(7).normal(size=(n, f)).astype(np.float32)
     X[3] = 0.0
     X[5] = 1e-11
     X = torch.from_numpy(X).to(cuda_device)
+    if not aligned:
+        X = _misaligned(X)
     tau = ttm.select_tau(X, ttm.TAU_MEDIAN)
     before = kernels.launch_counts()["taumode"]
     got = ttk.taumode_lambdas_fused(X, L, tau)
@@ -64,7 +72,29 @@ def test_taumode_kernel_matches_plain(cuda_device, n, f):
     assert kernels.launch_counts()["taumode"] == before + 1
     ref = ttk.taumode_lambdas_plain(X, L, tau)
     assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+    mirror = ttk.taumode_lambdas_3xtf32_plain(X, L, tau)
+    assert bool(torch.all((got - mirror).abs() <= 1e-6 * torch.clamp(mirror.abs(), min=1.0)))
     assert float(got[3]) == 0.0 and float(got[5]) == 0.0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = ttk.taumode_plan(n, f, X.data_ptr() % 16 == 0, sms)
+    assert plan == ttk.taumode_plan_chosen(X)
+    assert plan["loader"] == ("tma" if aligned and f % 4 == 0 else "elementwise")
+
+
+def test_taumode_kernel_matches_plain_on_the_energy_data(cuda_device):
+    from matternet_rs_tpu_torch import ArrowSpaceBuilder
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
+
+    Xn = make_energy_test_dataset(4000, 128, 44).astype(np.float32)
+    _, gl = (ArrowSpaceBuilder().with_lambda_graph(1.0, 6).with_sparsity_check(False)
+             .with_cluster_params(max_clusters=64, radius=25.0).with_sampling(None).build(Xn))
+    X, L = torch.from_numpy(Xn).to(cuda_device), gl.matrix.float().contiguous()
+    tau = ttm.select_tau(X, ttm.TAU_MEDIAN)
+    got = ttk.taumode_lambdas_fused(X, L, tau)
+    ref = ttk.taumode_lambdas_plain(X, L, tau)
+    mirror = ttk.taumode_lambdas_3xtf32_plain(X, L, tau)
+    assert bool(torch.all((got - ref).abs() <= 1e-5 * torch.clamp(ref.abs(), min=1.0)))
+    assert bool(torch.all((got - mirror).abs() <= 1e-6 * torch.clamp(mirror.abs(), min=1.0)))
 
 
 def _fixture(n, f, b, seed, device):
@@ -342,6 +372,42 @@ def test_search_fused_partials_and_merge_match_plain(cuda_device):
     vals, ids = tsf.scan_partials(*arrs, 10, 0.7, 5)
     pvals, pids = tsf.scan_partials_plain(*arrs, 10, 0.7, 5)
     assert float((vals[:, :, :10] - pvals[:, :, :10]).abs().max()) <= 1e-5
-    i_k, v_k = tsf.merge_partials(vals, ids, 10)
-    i_p, v_p = tsf.merge_partials_plain(vals, ids, 10)
-    assert torch.equal(i_k, i_p) and torch.equal(v_k, v_p)
+    for k in (1, 10, 16):
+        i_k, v_k = tsf.merge_partials(vals, ids, k)
+        i_p, v_p = tsf.merge_partials_plain(vals, ids, k)
+        assert torch.equal(i_k, i_p) and torch.equal(v_k, v_p)
+
+
+def _merge_lists(b, cand, kind, seed, device):
+    """``[b, cand / 16, 16]`` candidate lists, unsorted: random scores;
+    all scores equal (ties fall to the ids, some ids repeated); ±0.0 only;
+    half the entries −inf with ``EMPTY_ID``."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(b, cand)).astype(np.float32)
+    i = rng.integers(0, 50 * cand, size=(b, cand)).astype(np.int32)
+    if kind == "ties":
+        v[:] = 0.25
+        i = rng.integers(0, cand, size=(b, cand)).astype(np.int32)
+    elif kind == "zeros":
+        v = np.where(rng.random((b, cand)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        i = rng.integers(0, cand // 2 + 1, size=(b, cand)).astype(np.int32)
+    elif kind == "fills":
+        empty = rng.random((b, cand)) < 0.5
+        v[empty] = -np.inf
+        i[empty] = tsf.EMPTY_ID
+    return (torch.from_numpy(v.reshape(b, -1, 16)).to(device),
+            torch.from_numpy(i.reshape(b, -1, 16)).to(device))
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "fills"])
+@pytest.mark.parametrize("b,cand", [(1, 16), (7, 48), (256, 2112), (7, 4112)])
+def test_search_fused_merge_matches_plain_bit_for_bit(cuda_device, b, cand, kind):
+    vals, ids = _merge_lists(b, cand, kind, cand + b, cuda_device)
+    for k in (1, 10, 16):
+        before = kernels.launch_counts()["search_fused_merge"]
+        i_k, v_k = tsf.merge_partials(vals, ids, k)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["search_fused_merge"] == before + 1
+        i_p, v_p = tsf.merge_partials_plain(vals, ids, k)
+        assert torch.equal(i_k, i_p)
+        assert torch.equal(v_k.view(torch.int32), v_p.view(torch.int32))
