@@ -265,8 +265,9 @@ __device__ __forceinline__ Cand block_kth(const Cand& list, Cand (*lists)[KP], i
 
 // One batch of 32 staged candidates (positions b0 + lane of the chunk at
 // c0) into the warp's list. A candidate can enter the best k only if it
-// beats both the list's k-th entry and `floor` (a candidate at least k
-// others beat); once the lists have filled, few do: up to INSERT_MAX of a
+// beats both the list's k-th entry and `floor` (the block's k-th at some
+// earlier point, or nothing), so the better of the two is the bar; once
+// the lists have filled, few pass it: up to INSERT_MAX of a
 // batch are inserted one by one; more, and the batch is sorted and merged
 // into the list (21 shuffle steps, whatever the data).
 __device__ __forceinline__ void take_batch(Cand& list, const Cand& floor, const float* sv,
@@ -274,7 +275,7 @@ __device__ __forceinline__ void take_batch(Cand& list, const Cand& floor, const 
   const int e = b0 + lane;
   Cand x = e < len ? Cand{order_key(sv[e], si[e]), (uint32_t)(c0 + e)} : nothing();
   const Cand own = shfl_cand(list, k - 1);
-  unsigned pass = __ballot_sync(0xffffffffu, ranks_before(x, ranks_before(own, floor) ? floor : own));
+  unsigned pass = __ballot_sync(0xffffffffu, ranks_before(x, ranks_before(own, floor) ? own : floor));
   if (__popc(pass) > INSERT_MAX) {
     sort32(x, lane);
     merge32(list, x, lane);
@@ -299,7 +300,7 @@ search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict
   const float* pv = pvals + bq * cand;
   const int* pi = pids + bq * cand;
   Cand list = nothing();                             // the warp's best 32 so far, best in lane 0
-  Cand floor = nothing();                            // a candidate at least k others beat, or nothing
+  Cand floor = nothing();                            // the block's k-th so far, or nothing
 
   for (int c0 = 0; c0 < cand; c0 += MERGE_CHUNK) {
     const int len = min(MERGE_CHUNK, cand - c0);

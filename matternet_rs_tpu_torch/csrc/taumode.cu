@@ -409,7 +409,11 @@ taumode_lambda_kernel(const __grid_constant__ CUtensorMap xmap, const float* __r
       }
       __threadfence();
       __syncthreads();
-      if (tid == 0) *last_flag = atomicAdd(tickets + rt, 1) == splits - 1;
+      if (tid == 0) {                            // the last item also rearms the ticket for the next launch
+        const int last = atomicAdd(tickets + rt, 1) == splits - 1;
+        if (last) tickets[rt] = 0;
+        *last_flag = last;
+      }
       __syncthreads();
       tail = *last_flag != 0;
       if (tail && t == 0) {
@@ -549,7 +553,8 @@ int mrs_taumode_plan(const void* X, int64_t n, int f, int* vec, int* splits, int
 // X [n, f], tau [n] float32 contiguous; Wp [3, 2, Fp, Fp] the prepared B
 // operand (Fp = f rounded up to 32; see the header); deg/deg2 [f] → lam [n].
 // `splits` must be what mrs_taumode_plan chooses; for splits > 1, partial
-// holds splits·n·5 floats and tickets one zeroed int per 128-row tile.
+// holds splits·n·5 floats and tickets one zeroed int per 128-row tile (zeroed
+// again by the launch, so the same scratch serves the next one).
 // Launches on `stream`, does not synchronise; returns cudaGetLastError().
 int mrs_taumode_lambda(const float* X, const float* Wp, const float* deg, const float* deg2,
                        const float* tau, float* lam, float* partial, int* tickets, int64_t n,
