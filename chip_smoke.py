@@ -61,7 +61,8 @@ Phases, one output line each (JSON):
 7. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
-   product: ≤ 1e-5·Σ|w|·|x|; the streamed top-k's lists: scores ≤ 1e-5,
+   product: bit for bit, also on every block LOBPCG applies in one more
+   solve on the large graph; the streamed top-k's lists: scores ≤ 1e-5,
    the merge bit for bit), timed
    with CUDA events over cold-L2 launches beside its plain version, the
    one PyTorch call that computes the same thing where there is one, and
@@ -98,7 +99,16 @@ Phases, one output line each (JSON):
    ``launch_floor_ms``, an empty kernel of the same library timed the same
    way; it is held bit for bit at k in {1, 10, 16}, 16, 48, 2,112 and 4,112
    candidates, 1, 7 and 256 queries, on shuffled lists, all-equal scores,
-   ±0.0 and −inf fills.
+   ±0.0 and −inf fills. The rows of kernels E and F carry ``launch_ms``
+   (the kernel alone) and ``launch_floor_ms`` (the same empty kernel).
+   Their launch plans (held equal to the library's) and ptxas reports go to the phase's
+   line. Kernel F is held bit for bit at every n in {1, 31, 16384} with
+   every k in {1, 14, 40} and m in {1, 15, 16, 17, 256}, both forms, with
+   rows of empty slots only, empty slots at −1 or naming a row of inf that
+   no live slot names. Kernel E is held at every F
+   in {1, 3, 100, 128, 768, 2048} with ts in {128, 256}, c in {1, 14}, B in
+   {1, 7, 256}, f32 and int8 rows, X aligned and 4 bytes off; ids out of
+   range give exactly their NaN slices.
 
 Then the ``kernels`` line, the card's name and power limit
 (``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
@@ -151,6 +161,13 @@ EDGE_K_G, EDGE_CAND_G, EDGE_B_G = (1, 10, 16), (16, 48, 2112, 4112), (1, 7, 256)
 EDGE_KINDS_G = ("shuffled", "ties", "zeros", "fills")
 EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
 EDGE_SHAPES_B = ((3, 100), (3, 768), (300, 768))
+# Kernel F's edge cases: every n with every k and m, both forms.
+EDGE_N_F, EDGE_K_F, EDGE_M_F = (1, 31, 16_384), (1, 14, 40), (1, 15, 16, 17, 256)
+# Kernel E's edge cases: every F, ts, c and B, both row types, X aligned and
+# 4 bytes off; EDGE_SLABS_E slabs of corpus.
+EDGE_F_E, EDGE_TS_E, EDGE_C_E, EDGE_B_E, EDGE_SLABS_E = (
+    (1, 3, 100, 128, 768, 2048), (128, 256), (1, 14), (1, 7, 256), 40)
+PLAIN_GATHER_BYTES = 1 << 28  # kernel E's plain version gathers at most this much at once
 
 
 class SmokeFailure(RuntimeError):
@@ -626,6 +643,7 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
 
     def cuda_ms(fn, reps=5):
+        """Median ms of ``fn`` over cold-L2 launches."""
         fn()
         times = []
         for _ in range(reps):
@@ -638,8 +656,12 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
+    def bit_equal(a, b):
+        """Same shape and the same float32 bits (NaN, inf and ±0 included)."""
+        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
     rows_out = []
-    resources = {}        # kernels B and D: launch plan and compiler report, by row name
+    resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
     def record_resources(label, lib_name, entry, plan, chosen):
         """Hold the Python mirror of a launch plan against what the built
@@ -784,16 +806,20 @@ def main() -> int:
     # Kernel E in both row modes. The maxima-first tiers read f32 rows; the
     # int8-row mode serves the sketch callers of a later slice, so its row
     # carries the wrapper's count and its own mode's count (0) beside it.
+    # The main path calls the wrapper with checked=True (no read-back of
+    # the slab ids), and so is it timed here.
     e_launches = sum(tier_counts[t]["slab_dots"] for t in scan_of)
     qnorm = torch.linalg.norm(Q, dim=1)
-    for label, Xr, sel_e, peak, mode_launches in (
-        ("slab_dots_f32", Xt, sels["bf16x3_rescored"], PEAK_F32_FLOP_S, e_launches),
-        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, 0),
+    floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
+    for label, Xr, sel_e, peak, mode_launches, entry in (
+        ("slab_dots_f32", Xt, sels["bf16x3_rescored"], PEAK_F32_FLOP_S, e_launches, "slab_dots_kernelILb0E"),
+        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, 0, "slab_dots_kernelILb1E"),
     ):
-        de, dp = rsk.slab_dots(Xr, Q, sel_e, ts_r), rsk.slab_dots_plain(Xr, Q, sel_e, ts_r)
+        de, dp = rsk.slab_dots(Xr, Q, sel_e, ts_r, checked=True), rsk.slab_dots_plain(Xr, Q, sel_e, ts_r)
         rows_e = sel_e[:, :, None] * ts_r + torch.arange(ts_r, device=dev)
         scale = qnorm[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows_e]
         err_e = float(((de - dp).abs() / torch.clamp(scale, min=1e-30)).max())
+        plan_e = rsk.slab_dots_plan(BATCH, c_r, F_MAIN, Xr.dtype, x_addr=Xr.data_ptr())
         distinct = int(torch.unique(sel_e).numel())
         bms, by = bound(distinct * ts_r * F_MAIN * Xr.element_size() + 4 * BATCH * F_MAIN
                         + 4 * BATCH * c_r * ts_r + 8 * BATCH * c_r,
@@ -802,14 +828,17 @@ def main() -> int:
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:417",
             launches=e_launches, max_abs_err=err_e,
-            ms=cuda_ms(lambda: rsk.slab_dots(Xr, Q, sel_e, ts_r), reps=20),
+            ms=cuda_ms(lambda: rsk.slab_dots(Xr, Q, sel_e, ts_r, checked=True), reps=20),
+            launch_ms=cuda_ms(lambda: rsk._slab_dots_launch(Xr, Q, sel_e, ts_r, de), reps=20),
             plain_ms=cuda_ms(lambda: rsk.slab_dots_plain(Xr, Q, sel_e, ts_r), reps=5),
-            bound_ms=bms, bound_by=by, library_ms=None,
+            bound_ms=bms, bound_by=by, library_ms=None, launch_floor_ms=floor_ms,
             shape=f"B={BATCH} c={c_r} ts={ts_r} F={F_MAIN} {Xr.dtype} distinct_slabs={distinct}",
             mode_launches=mode_launches,
             err_scale="cosine (|Δd|/(‖q‖·‖x‖))",
+            launch_floor="an empty kernel, timed the same way",
         ))
         check(err_e <= TOL_SCORE, f"{label}: kernel vs plain dots {err_e} on the cosine scale")
+        record_resources(label, "rescored", entry, plan_e, rsk.slab_dots_plan_chosen(Xr, BATCH, c_r))
 
     # Kernel F on the direct-ELL graph of phase largef (n = 16384): the
     # Laplacian form LOBPCG applies to its [n, 3k] block, and one vector.
@@ -820,31 +849,55 @@ def main() -> int:
         ell_big.weights[live], (n_e, n_e))
     Wcsr = coo.coalesce().to_sparse_csr()
     gen = torch.Generator(device=dev).manual_seed(5)
-    for label, m, launches in (
-        ("spmv_ell_block", 3 * LOBPCG_K, largef_counts[n_e]["lobpcg"]),
-        ("spmv_ell_vector", 1, largef_counts[n_e]["path"]),
+    for label, m, launches, entry in (
+        ("spmv_ell_block", 3 * LOBPCG_K, largef_counts[n_e]["lobpcg"], "spmv_ell_kernelILi16ELi1E"),
+        ("spmv_ell_vector", 1, largef_counts[n_e]["path"], "spmv_ell_kernelILi1ELi1E"),
     ):
         V = torch.randn((n_e, m), device=dev, generator=gen)
         args = (ell_big.indices, ell_big.weights, V, ell_big.diag)
         got, ref = fk.spmv_ell(*args, checked=True), fk.spmv_ell_plain(*args)
-        scale = (ell_big.weights.abs()[:, :, None]
-                 * V[torch.where(live, ell_big.indices, 0).long()].abs()).sum(dim=1) \
-            + ell_big.diag[:, None] * V.abs()
         err_f = float((got - ref).abs().max())
-        ok_f = bool(torch.all((got - ref).abs() <= TOL_SCORE * scale))
         bms, by = bound(n_e * k_e * 8 + n_e * 4 + 2 * n_e * m * 4, 2 * int(live.sum()) * m + 2 * n_e * m)
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/spmv_ell.cu",
             replaces="matternet_rs_tpu/ops/pallas/spmv_ell.py:36", launches=launches,
             max_abs_err=err_f,
             ms=cuda_ms(lambda: fk.spmv_ell(*args, checked=True), reps=20),
+            launch_ms=cuda_ms(lambda: fk._spmv_ell_launch(*args, got), reps=20),
             plain_ms=cuda_ms(lambda: fk.spmv_ell_plain(*args), reps=5),
             bound_ms=bms, bound_by=by,
             library_ms=cuda_ms(lambda: torch.sparse.mm(Wcsr, V), reps=20),
+            launch_floor_ms=floor_ms,
             shape=f"n={n_e} k={k_e} m={m} live_slots={int(live.sum())}",
             library="torch.sparse.mm(W as CSR, X): the product alone, without d∘X −",
+            launch_floor="an empty kernel, timed the same way",
         ))
-        check(ok_f, f"{label}: kernel vs plain {err_f}")
+        check(bit_equal(got, ref), f"{label}: kernel vs plain not bit for bit ({err_f})")
+        record_resources(label, "spmv_ell", entry, fk.spmv_ell_plan(n_e, k_e, m),
+                         fk.spmv_ell_plan_chosen(n_e, k_e, m))
+
+    # L@V inside LOBPCG: every block the solver applies on the large graph,
+    # held bit for bit against the plain version on the same block.
+    applied = []
+
+    def capturing(Vb, method=type(ell_big).matvec):
+        out = method(ell_big, Vb)
+        applied.append((Vb.clone(), out.clone()))
+        return out
+
+    ell_big.matvec = capturing
+    try:
+        eig.lobpcg_smallest(ell_big, LOBPCG_K, iters=LOBPCG_ITERS)
+    finally:
+        del ell_big.matvec
+    lobpcg_unequal = [i for i, (Vb, out) in enumerate(applied) if not bit_equal(
+        out.reshape(n_e, -1), fk.spmv_ell_plain(ell_big.indices, ell_big.weights,
+                                                Vb.reshape(n_e, -1), ell_big.diag))]
+    lobpcg_check = dict(case=f"L@V inside LOBPCG (n={n_e} k={k_e}): {len(applied)} blocks",
+                        bit_equal=not lobpcg_unequal, unequal_calls=lobpcg_unequal[:5])
+    check(len(applied) == LOBPCG_ITERS + 1 and not lobpcg_unequal,
+          f"LOBPCG's L@V: {len(applied)} blocks, unequal at {lobpcg_unequal[:5]}")
+    del applied
 
     # Kernel G on the streamed phase's inputs: the scan (per-range lists)
     # and the merge, each against its plain version.
@@ -920,7 +973,7 @@ def main() -> int:
         check(bool(torch.equal(fin, torch.isfinite(got))), f"{what}: -inf entries differ")
         return float((got[fin] - ref[fin]).abs().max())
 
-    edge = []
+    edge = [lobpcg_check]
     for b_e, f_e, subs_e in EDGE_SHAPES_D:
         arrs = edge_arrays(f_e, b_e, seed=f_e + b_e)
         for dtype in (torch.bfloat16, torch.int8, torch.float32):
@@ -990,6 +1043,82 @@ def main() -> int:
             check(plan == tk.taumode_plan_chosen(Xe), f"{what}: unexpected plan")
             check(plan["loader"] == ("elementwise" if offset or f_e % 4 else "tma"),
                   f"{what}: wrong loader")
+
+    # Kernel F at edge cases, bit for bit, both forms: empty slots carry −1
+    # or name a row of inf that no live slot names; every tenth row has no
+    # live slot at all.
+    rng_f = np.random.default_rng(13)
+    for n_e in EDGE_N_F:
+        poison = n_e - 1 if n_e > 1 else None
+        for k_e in EDGE_K_F:
+            idx_e = rng_f.integers(0, max(n_e - 1, 1), size=(n_e, k_e)).astype(np.int32)
+            w_e = rng_f.random((n_e, k_e)).astype(np.float32)
+            empty = rng_f.random((n_e, k_e)) < 0.3
+            empty[::10] = True
+            w_e[empty] = 0.0
+            to_poison = empty & (rng_f.random((n_e, k_e)) < 0.5)
+            idx_e[empty] = -1
+            if poison is not None:
+                idx_e[to_poison] = poison
+            idx_t, w_t = torch.from_numpy(idx_e).to(dev), torch.from_numpy(w_e).to(dev)
+            for m_e in EDGE_M_F:
+                V = torch.from_numpy(rng_f.normal(size=(n_e, m_e)).astype(np.float32)).to(dev)
+                if poison is not None:
+                    V[poison] = float("inf")
+                for d_e in (None, w_t.sum(dim=1)):
+                    got = fk.spmv_ell(idx_t, w_t, V, d_e, checked=True)
+                    ref = fk.spmv_ell_plain(idx_t, w_t, V, d_e)
+                    fin = torch.ones(n_e, dtype=torch.bool, device=dev)
+                    if poison is not None:
+                        fin[poison] = False
+                    what = f"spmv_ell n={n_e} k={k_e} m={m_e} {'W@X' if d_e is None else 'd∘X−W@X'}"
+                    same = bit_equal(got, ref)
+                    edge.append(dict(case=what, bit_equal=same))
+                    check(same, f"{what}: kernel vs plain not bit for bit")
+                    check(bool(torch.isfinite(got[fin]).all()), f"{what}: an empty slot reached X")
+                check(fk.spmv_ell_plan(n_e, k_e, m_e) == fk.spmv_ell_plan_chosen(n_e, k_e, m_e),
+                      f"spmv_ell n={n_e} k={k_e} m={m_e}: unexpected plan")
+
+    # Kernel E at edge cases (≤ 1e-5 on the cosine scale): every F, ts, c
+    # and B, f32 and int8 rows (F = 1 and 3: int8 rows off 4 bytes), X
+    # aligned and 4 bytes off; one id out of range gives a NaN slice.
+    rng_e = np.random.default_rng(14)
+    for f_e in EDGE_F_E:
+        for ts_e in EDGE_TS_E:
+            Xf = torch.from_numpy(rng_e.standard_normal((EDGE_SLABS_E * ts_e + 7, f_e),
+                                                        dtype=np.float32)).to(dev)
+            for Xr in (Xf, core.quantize_rows(Xf)[0]):
+                off = 4 // Xr.element_size()
+                buf = torch.empty(Xr.numel() + off, dtype=Xr.dtype, device=dev)
+                Xo = buf[off:].view(Xr.shape)
+                Xo.copy_(Xr)
+                xnorm = torch.linalg.norm(Xr.float(), dim=1)
+                for c_e in EDGE_C_E:
+                    for b_e in EDGE_B_E:
+                        Qe = torch.from_numpy(rng_e.standard_normal((b_e, f_e), dtype=np.float32)).to(dev)
+                        sel_e = torch.sort(torch.from_numpy(
+                            rng_e.integers(0, EDGE_SLABS_E, (b_e, c_e))).to(dev), dim=1).values
+                        per = max(1, PLAIN_GATHER_BYTES // (c_e * ts_e * f_e * 4))
+                        rows_e = sel_e[:, :, None] * ts_e + torch.arange(ts_e, device=dev)
+                        scale = torch.linalg.norm(Qe, dim=1)[:, None, None] * xnorm[rows_e]
+                        for Xv in (Xr, Xo):
+                            ref = torch.cat([rsk.slab_dots_plain(Xv, Qe[q0:q0 + per], sel_e[q0:q0 + per], ts_e)
+                                             for q0 in range(0, b_e, per)])
+                            got = rsk.slab_dots(Xv, Qe, sel_e, ts_e, checked=True)
+                            gap = float(((got - ref).abs() / torch.clamp(scale, min=1e-30)).max())
+                            plan = rsk.slab_dots_plan(b_e, c_e, f_e, Xv.dtype, x_addr=Xv.data_ptr())
+                            what = (f"slab_dots F={f_e} ts={ts_e} c={c_e} B={b_e} {Xv.dtype} "
+                                    f"{'offset' if Xv is Xo else 'aligned'} {plan['reads']}")
+                            edge.append(dict(case=what, max_rel_err=gap))
+                            check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap} on the cosine scale")
+                            check(plan == rsk.slab_dots_plan_chosen(Xv, b_e, c_e), f"{what}: unexpected plan")
+    bad_sel = torch.tensor([[0, 5], [7, EDGE_SLABS_E], [-1, 2]], device=dev)
+    d_bad = rsk.slab_dots(Xf, torch.ones((3, Xf.shape[1]), device=dev), bad_sel, EDGE_TS_E[-1], checked=True)
+    nan_ok = bool(torch.isnan(d_bad[1, 1]).all() and torch.isnan(d_bad[2, 0]).all()
+                  and torch.isfinite(d_bad[0]).all() and torch.isfinite(d_bad[1, 0]).all()
+                  and torch.isfinite(d_bad[2, 1]).all())
+    edge.append(dict(case="slab_dots ids out of range", nan_slices=nan_ok))
+    check(nan_ok, "slab_dots: an out-of-range id does not give exactly its NaN slice")
 
     # The merge at edge cases, bit for bit: unsorted lists of random scores,
     # all scores equal (ties fall to the ids, some repeated), ±0.0 only,

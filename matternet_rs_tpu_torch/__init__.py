@@ -17,6 +17,7 @@ streamed exact top-k (``csrc/``). ROADMAP.md lists the modules that wait.
 
 from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder
 from matternet_rs_tpu_torch.core import (
+    TAU_FLOOR,
     ArrowSpace,
     TauMode,
     UndecidableQueryError,
@@ -25,8 +26,25 @@ from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
 from matternet_rs_tpu_torch.ops.csr import EllLaplacian, SparseGraph
 from matternet_rs_tpu_torch.ops.eigensolver import lobpcg_smallest, spectral_embedding
 from matternet_rs_tpu_torch.ops.kernels.search_fused import search_fused
+from matternet_rs_tpu_torch import backend, eigenmaps
+
+__version__ = "0.2.0"
+
+
+def init(level: int | str = "INFO") -> None:
+    """One-time logging set-up, as the reference's ``init``: the root
+    logger at ``level`` with a time, level and logger name on each line."""
+    import logging
+
+    logging.basicConfig(
+        level=level,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+
 
 __all__ = [
+    "TAU_FLOOR",
+    "__version__",
     "ArrowSpace",
     "ArrowSpaceBuilder",
     "EllLaplacian",
@@ -35,6 +53,9 @@ __all__ = [
     "SparseGraph",
     "TauMode",
     "UndecidableQueryError",
+    "backend",
+    "eigenmaps",
+    "init",
     "lobpcg_smallest",
     "search_fused",
     "spectral_embedding",

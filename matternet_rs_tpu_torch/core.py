@@ -394,9 +394,12 @@ class ArrowSpace:
     # -- search ---------------------------------------------------------
     def search_lambda_aware(self, query, query_lambda: float, k: int,
                             alpha: float = 0.7, approx: bool = False,
+                            recall_target: float = 0.95,
                             quantized: bool = False) -> list[tuple[int, float]]:
         """Single-query top-k by blended score, over the bf16 copy with
-        ``quantized``; ``approx`` selects exactly."""
+        ``quantized``. ``approx`` selects exactly (``ops/search.py`` says
+        why), so ``recall_target`` is accepted, in the reference's place,
+        and bounds nothing."""
         self._require_lambdas()
         if query_lambda == 0.0:
             raise ValueError(
@@ -405,7 +408,7 @@ class ArrowSpace:
         q = torch.from_numpy(np.array(query, np.float32)).to(self.device)
         idx, sc = search_ops.search_lambda_aware(
             self._scan_corpus(quantized), self.norms, self.lambdas, q, query_lambda, k,
-            alpha, approx=approx,
+            alpha, approx=approx, recall_target=recall_target,
         )
         return [(int(i), float(s)) for i, s in zip(idx.cpu(), sc.cpu())]
 

@@ -81,16 +81,23 @@
 // Kernel E (slab_dots_kernel) replaces the TPU kernel tilemax_fused.py
 // `slab_dots_ring`: dots of each query against every row of its c
 // selected ts-row slabs → [B, c, ts]. f32 rows at full f32 (FFMA); int8
-// rows upcast exactly, with the query rounded to bf16 by the caller.
+// rows upcast exactly, the query rounded to bf16 as the kernel reads it.
 //
-//   What bounds it: bytes (the distinct selected slabs read once; at most
-//   B·c·ts·F·4 = 235 MB at B = 256, c = 14, ts = 128, F = 128: 0.070 ms).
-//   Design. The TPU hid HBM latency with an 8-deep DMA ring; here many
-//   blocks in flight hide it. One block per (query, selected slab): the
-//   query sits in shared memory, each warp takes one slab row at a time,
-//   its lanes read the row with 16-byte loads (4-byte for int8 rows),
-//   multiply in f32 and sum with a shuffle tree. An out-of-range slab id
-//   yields a NaN slice (the wrapper refuses such ids before the launch).
+//   What bounds it: bytes — the distinct selected slabs read once, 188 MB
+//   of f32 rows at B = 256, c = 14, ts = 128, F = 128 on the main path
+//   (0.056 ms at 3.35 TB/s; 47 MB, 0.015 ms, for int8 rows). The work per
+//   byte is one FMA, so a design has only to keep enough bytes in flight.
+//   Design: one block a (query, slab) pair. The query sits in shared
+//   memory, each warp takes one slab row at a time, its lanes read the row
+//   with 16-byte loads (4-byte for int8 rows) straight to registers,
+//   multiply in f32 and sum with a shuffle tree; the main path's 3,584
+//   blocks keep the loads in flight. A persistent ring of bulk copies
+//   through shared memory was measured beside it and was slower for the
+//   f32 rows the main path reads (PERF.md, NVIDIA H100 80GB HBM3, 700 W;
+//   chip_smoke.py). An out-of-range slab id is not read and yields a NaN
+//   slice (the public wrapper refuses such ids unless its caller made them
+//   in range). mrs_slab_dots_plan reports the launch
+//   (ops/kernels/rescored.slab_dots_plan mirrors it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -571,14 +578,24 @@ int launch_mode(const void* X, const float* rn, const float* lams, const __nv_bf
 #undef MRS_LAUNCH
 }
 
+// ---- Kernel E ----------------------------------------------------------------
+
+constexpr int E_THREADS = 256;                 // 8 warps a block
+constexpr int E_MAX_SMEM = 48 * 1024;          // the query, without opting in to more
+
+// The query value an int8 row multiplies: rounded to bf16 (to nearest
+// even), as the reference's bf16 dot rounds it.
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// Block bi takes item bi (query b = bi / c, slot bi % c).
 template <bool INT8>
 __global__ void slab_dots_kernel(const void* __restrict__ X, const float* __restrict__ Q,
                                  const int64_t* __restrict__ sel, float* __restrict__ out,
                                  int c, int ts, int f, int64_t nslabs, int vec) {
   extern __shared__ __align__(16) float qs[];
-  const int64_t bi = blockIdx.x;            // query b = bi / c, slot bi % c
+  const int64_t bi = blockIdx.x;
   const int64_t b = bi / c;
-  for (int j = threadIdx.x; j < f; j += blockDim.x) qs[j] = Q[b * f + j];
+  for (int j = threadIdx.x; j < f; j += blockDim.x) qs[j] = INT8 ? bf16_round(Q[b * f + j]) : Q[b * f + j];
   __syncthreads();
   float* dst = out + bi * ts;
   const int64_t s = sel[bi];
@@ -627,6 +644,11 @@ __global__ void slab_dots_kernel(const void* __restrict__ X, const float* __rest
   }
 }
 
+// 16-byte (f32 rows) or 4-byte (int8 rows) reads where F and X allow them.
+inline int slab_vec(const void* X, int f, int int8_rows) {
+  return f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % (int8_rows ? 4 : 16) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -673,24 +695,38 @@ int mrs_tilemax_only_plan(const void* X, int f, int b, int mode, int* vec, int* 
   return p.nq ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// X [N, f] f32 (int8_rows = 0) or int8 (int8_rows = 1), Q [b, f] f32 (the
-// bf16-rounded query for int8 rows), sel [b, c] int64 slab ids in
-// [0, nslabs) → out [b, c, ts] f32. Returns cudaGetLastError().
+// X [N, f] f32 (int8_rows = 0) or int8 (int8_rows = 1), Q [b, f] f32 (for
+// int8 rows the kernel rounds it to bf16), sel [b, c] int64 slab ids → out
+// [b, c, ts] f32, contiguous; an id outside [0, nslabs) gives a NaN slice.
+// cudaErrorInvalidValue where the query passes 48 KB (past 12,288
+// features). Returns cudaGetLastError().
 int mrs_slab_dots(const void* X, const float* Q, const int64_t* sel, float* out, int b, int c,
                   int ts, int f, int64_t nslabs, int int8_rows, void* stream) {
-  const int64_t blocks = (int64_t)b * c;
-  if (blocks == 0) return 0;
-  const size_t smem = (size_t)f * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int align = int8_rows ? 4 : 16;
-  const int vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % align == 0;
+  if (b <= 0 || c <= 0) return 0;
+  if (ts <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = f * (int)sizeof(float);
+  if (smem > E_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const int vec = slab_vec(X, f, int8_rows);
+  const unsigned blocks = (unsigned)((int64_t)b * c);
   cudaStream_t st = (cudaStream_t)stream;
-  if (int8_rows) {
-    slab_dots_kernel<true><<<(unsigned)blocks, 256, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
-  } else {
-    slab_dots_kernel<false><<<(unsigned)blocks, 256, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
-  }
+  if (int8_rows)
+    slab_dots_kernel<true><<<blocks, E_THREADS, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
+  else
+    slab_dots_kernel<false><<<blocks, E_THREADS, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
   return (int)cudaGetLastError();
+}
+
+// What mrs_slab_dots chooses for these arguments: *vec 1 for 16-byte (f32
+// rows) or 4-byte (int8 rows) reads, 0 for element reads; *blocks; *smem
+// the dynamic shared memory. cudaErrorInvalidValue where mrs_slab_dots
+// refuses the launch.
+int mrs_slab_dots_plan(const void* X, int b, int c, int f, int int8_rows, int* vec, int64_t* blocks,
+                       int* smem) {
+  if (b <= 0 || c <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+  *vec = slab_vec(X, f, int8_rows);
+  *blocks = (int64_t)b * c;
+  *smem = f * (int)sizeof(float);
+  return *smem > E_MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // extern "C"

@@ -53,10 +53,15 @@ SIGNATURES = {
         "mrs_tilemax_only_plan": [_P, _I, _I, _I, _P, _P, _P],
         # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, stream
         "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P],
+        # X, b, c, f, int8_rows, vec (out), blocks (out, int64), smem (out)
+        "mrs_slab_dots_plan": [_P, _I, _I, _I, _I, _P, _P, _P],
     },
     "spmv_ell": {
         # idx, w, X, d (or null), out, n, k, m, stream
         "mrs_spmv_ell": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
+        # n, k, m, group (out), cols per lane (out), rows per block (out),
+        # blocks (out, int64), passes (out)
+        "mrs_spmv_ell_plan": [_I64, _I, _I, _P, _P, _P, _P, _P],
     },
     "search_fused": {
         # X, lams, Q, ql, alpha, beta, n, f, b, k, splits, pvals, pids, stream

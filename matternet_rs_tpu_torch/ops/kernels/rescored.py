@@ -205,35 +205,78 @@ def slab_dots_plain(X, queries, sel, ts: int):
     return d.view(b, c, ts)
 
 
-def slab_dots(X, queries, sel, ts: int):
+_SLAB_MAX_SMEM = 48 * 1024            # kernel E's query in shared memory
+
+
+def slab_dots_plan(b: int, c: int, f: int, dtype: torch.dtype, x_addr: int = 0) -> dict:
+    """What the C entry point of kernel E chooses for ``b`` queries of ``c``
+    slabs, ``f`` features of ``dtype`` rows (float32 or int8) at address
+    ``x_addr``: the ``reads`` of the rows (``"vector"``: 16-byte reads of
+    f32 rows or 4-byte reads of int8 rows, when F % 4 = 0 and the address
+    allows it; ``"element"`` otherwise), the ``blocks`` (one a (query,
+    slab) pair) and the ``smem_bytes`` (the query). Raises ``ValueError``
+    where the launch would be refused: the query past 48 KB (past 12,288
+    features), or an empty shape."""
+    if min(b, c, f) < 1:
+        raise ValueError(f"slab_dots kernel: b={b}, c={c}, f={f} must all be >= 1")
+    if 4 * f > _SLAB_MAX_SMEM:
+        raise ValueError(f"slab_dots kernel: a query of {f} features passes {_SLAB_MAX_SMEM} bytes")
+    vec = f % 4 == 0 and x_addr % (4 if dtype == torch.int8 else 16) == 0
+    return dict(reads="vector" if vec else "element", blocks=b * c, smem_bytes=4 * f)
+
+
+def slab_dots_plan_chosen(X, b: int, c: int) -> dict:
+    """:func:`slab_dots_plan` as the built library itself reports it for the
+    rows ``X`` on the card."""
+    lib = _cuda.library("rescored")
+    vec, smem = ctypes.c_int(), ctypes.c_int()
+    blocks = ctypes.c_int64()
+    rc = lib.mrs_slab_dots_plan(X.data_ptr(), b, c, X.shape[1], int(X.dtype == torch.int8),
+                                ctypes.byref(vec), ctypes.byref(blocks), ctypes.byref(smem))
+    _cuda.check(lib, rc, "slab_dots kernel plan")
+    return dict(reads="vector" if vec.value else "element", blocks=blocks.value, smem_bytes=smem.value)
+
+
+def _slab_dots_launch(X, queries, sel, ts: int, out) -> None:
+    """Launch kernel E into ``out [B, c, ts]`` on arguments that
+    :func:`slab_dots` has checked."""
+    lib = _cuda.library("rescored")
+    b, c = sel.shape
+    rc = lib.mrs_slab_dots(
+        X.data_ptr(), queries.data_ptr(), sel.data_ptr(), out.data_ptr(), b, c, ts, X.shape[1],
+        X.shape[0] // ts, int(X.dtype == torch.int8), _cuda.stream_ptr(out.device),
+    )
+    _cuda.check(lib, rc, "slab_dots kernel")
+    kernels.LAUNCHES["slab_dots"] += 1
+
+
+def slab_dots(X, queries, sel, ts: int, *, checked: bool = False):
     """``d[b, i, r] = queries[b] · X[sel[b, i]·ts + r]`` → ``[B, c, ts]``.
     ``X`` f32 (full-f32 dots) or int8 (lossless upcast, the query rounded
     to bf16); ``sel [B, c]`` int64 slab ids, each in ``[0, N // ts)``. CPU
-    tensors take the plain version; CUDA tensors launch kernel E (an
-    out-of-range id raises ``ValueError`` before the launch)."""
+    tensors take the plain version; CUDA tensors launch kernel E (one block
+    a (query, slab) pair, :func:`slab_dots_plan`). Unless
+    ``checked`` (the caller made the ids in range itself), an out-of-range
+    id raises ``ValueError`` before the launch, which reads the ids back to
+    the host; with ``checked=True`` nothing is read back, and the kernel
+    answers an out-of-range id with a NaN slice."""
     if X.device.type == "cpu":
         return slab_dots_plain(X, queries, sel, ts)
-    lib = _cuda.library("rescored")
+    _cuda.library("rescored")                 # without a card: raise before anything is computed
     n, f = X.shape
     b, c = sel.shape
     if queries.shape != (b, f) or queries.dtype != torch.float32:
         raise ValueError(f"slab_dots kernel: queries {tuple(queries.shape)} {queries.dtype}, want ({b}, {f}) float32")
     if sel.dtype != torch.int64 or X.dtype not in (torch.float32, torch.int8):
         raise ValueError("slab_dots kernel: sel int64 and X float32 or int8 required")
-    int8_rows = X.dtype == torch.int8
-    q = queries.to(torch.bfloat16).float() if int8_rows else queries
-    dev = _cuda.require_cuda("slab_dots kernel", X=X, queries=q, sel=sel)
+    dev = _cuda.require_cuda("slab_dots kernel", X=X, queries=queries, sel=sel)
     nslabs = n // ts
     out = torch.empty((b, c, ts), dtype=torch.float32, device=dev)
     if b == 0 or c == 0:
         return out
-    lo, hi = torch.stack(torch.aminmax(sel)).tolist()
-    if lo < 0 or hi >= nslabs:
-        raise ValueError(f"slab_dots kernel: slab ids span [{lo}, {hi}], corpus has {nslabs} slabs")
-    rc = lib.mrs_slab_dots(
-        X.data_ptr(), q.data_ptr(), sel.data_ptr(), out.data_ptr(), b, c, ts, f, nslabs,
-        int(int8_rows), _cuda.stream_ptr(dev),
-    )
-    _cuda.check(lib, rc, "slab_dots kernel")
-    kernels.LAUNCHES["slab_dots"] += 1
+    if not checked:
+        lo, hi = torch.stack(torch.aminmax(sel)).tolist()
+        if lo < 0 or hi >= nslabs:
+            raise ValueError(f"slab_dots kernel: slab ids span [{lo}, {hi}], corpus has {nslabs} slabs")
+    _slab_dots_launch(X, queries, sel, ts, out)
     return out

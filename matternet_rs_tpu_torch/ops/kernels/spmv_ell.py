@@ -10,14 +10,59 @@ Empty slots may carry any index (the direct graph build writes −1): a slot
 with ``w == 0`` contributes nothing and its index is never used. A slot
 with ``w != 0`` must name a row in ``[0, n)``; :func:`check_ell` verifies
 that on the host, and the callers run it once per graph.
+
+:func:`spmv_ell_plan` mirrors the launch plan the C entry point chooses
+(``mrs_spmv_ell_plan``); :func:`spmv_ell_plan_chosen` asks the built
+library.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
 from matternet_rs_tpu_torch.ops.kernels import _cuda
+
+
+# Kernel F's block and the widest column run of a lane per pass, as in
+# ``csrc/spmv_ell.cu``.
+THREADS = 128
+MAX_COLS_PER_LANE = 8
+
+
+def spmv_ell_plan(n: int, k: int, m: int) -> dict:
+    """What the C entry point of kernel F chooses for ``n`` rows, ``k``
+    slots and ``m`` columns: the ``group`` of lanes that shares a row (the
+    smallest power of two ≥ min(m, 32)), the ``cols_per_lane`` of one pass
+    (1 while m ≤ 32, else the smallest power of two ≤ 8 that covers m in
+    32-lane strides), the ``rows_per_block`` of 128 threads, the
+    ``blocks`` and the ``passes`` over the columns. Raises ``ValueError``
+    unless n, k, m ≥ 1."""
+    if n < 1 or k < 1 or m < 1:
+        raise ValueError(f"spmv_ell kernel takes n, k, m >= 1, got n={n}, k={k}, m={m}")
+    group = 1
+    while group < min(m, 32):
+        group *= 2
+    cpt = 1
+    while group * cpt < m and cpt < MAX_COLS_PER_LANE:
+        cpt *= 2
+    rows = THREADS // group
+    return dict(group=group, cols_per_lane=cpt, rows_per_block=rows,
+                blocks=-(-n // rows), passes=-(-m // (group * cpt)))
+
+
+def spmv_ell_plan_chosen(n: int, k: int, m: int) -> dict:
+    """:func:`spmv_ell_plan` as the built library itself reports it."""
+    lib = _cuda.library("spmv_ell")
+    group, cpt, rows, passes = (ctypes.c_int() for _ in range(4))
+    blocks = ctypes.c_int64()
+    rc = lib.mrs_spmv_ell_plan(n, k, m, ctypes.byref(group), ctypes.byref(cpt), ctypes.byref(rows),
+                               ctypes.byref(blocks), ctypes.byref(passes))
+    _cuda.check(lib, rc, "spmv_ell kernel plan")
+    return dict(group=group.value, cols_per_lane=cpt.value, rows_per_block=rows.value,
+                blocks=blocks.value, passes=passes.value)
 
 
 def check_ell(indices: torch.Tensor, weights: torch.Tensor) -> None:
@@ -53,6 +98,20 @@ def spmv_ell_plain(indices, weights, X, d=None):
     return acc if d is None else d[:, None] * X - acc
 
 
+def _spmv_ell_launch(indices, weights, X, d, out) -> None:
+    """Launch kernel F into ``out [n, m]`` on arguments that
+    :func:`spmv_ell` has checked (``chip_smoke.py`` times it alone)."""
+    lib = _cuda.library("spmv_ell")
+    n, k = indices.shape
+    rc = lib.mrs_spmv_ell(
+        indices.data_ptr(), weights.data_ptr(), X.data_ptr(),
+        None if d is None else d.data_ptr(), out.data_ptr(), n, k, X.shape[1],
+        _cuda.stream_ptr(out.device),
+    )
+    _cuda.check(lib, rc, "spmv_ell kernel")
+    kernels.LAUNCHES["spmv_ell"] += 1
+
+
 def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):
     """``W @ X`` (``d is None``) or ``d∘X − W@X`` → ``[n, m]`` float32.
 
@@ -70,7 +129,7 @@ def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):
         )
     if X.device.type == "cpu":
         return spmv_ell_plain(indices, weights, X, d)
-    lib = _cuda.library("spmv_ell")
+    _cuda.library("spmv_ell")                 # without a card: raise before anything is computed
     tensors = dict(weights=weights, X=X) if d is None else dict(weights=weights, X=X, d=d)
     for name, t in tensors.items():
         if t.dtype != torch.float32:
@@ -82,11 +141,5 @@ def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):
         return out
     if k == 0:
         return out.zero_() if d is None else d[:, None] * X
-    rc = lib.mrs_spmv_ell(
-        indices.data_ptr(), weights.data_ptr(), X.data_ptr(),
-        None if d is None else d.data_ptr(), out.data_ptr(), n, k, m,
-        _cuda.stream_ptr(dev),
-    )
-    _cuda.check(lib, rc, "spmv_ell kernel")
-    kernels.LAUNCHES["spmv_ell"] += 1
+    _spmv_ell_launch(indices, weights, X, d, out)
     return out

@@ -106,10 +106,12 @@ def _batched_scores(X, norms, lambdas, queries, query_lambdas, alphas) -> torch.
 
 
 def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
-                        alphas=0.7, approx: bool = False):
+                        alphas=0.7, approx: bool = False, recall_target: float = 0.95):
     """Flat exact top-k. ``queries [B, F]`` (or one ``[F]`` query with a
-    scalar λ). ``approx`` selects exactly (module docstring). Returns
-    ``(indices, scores)``, ``[B, k]`` or ``[k]``."""
+    scalar λ). ``approx`` selects exactly (module docstring), so
+    ``recall_target``, the reference's bound for ``lax.approx_max_k``, is
+    accepted and has nothing to bound. Returns ``(indices, scores)``,
+    ``[B, k]`` or ``[k]``."""
     single = queries.ndim == 1
     Q = queries[None, :] if single else queries
     ql = torch.as_tensor(query_lambdas, dtype=torch.float32, device=Q.device).reshape(-1)
@@ -238,10 +240,18 @@ def fused_rescored_path(n: int, f: int, b: int, kk: int, cand: int,
     )
 
 
+def _slab_dots_checked(X, queries, sel, ts: int):
+    """Kernel E on slab ids that :func:`fused_scan_rescored` made itself, in
+    ``[0, ns)`` by construction: the wrapper skips its range check and so
+    reads nothing back to the host (a bad id would still show, as a NaN
+    slice)."""
+    return rsk.slab_dots(X, queries, sel, ts, checked=True)
+
+
 def fused_scan_rescored(Xscan, X, norms, lambdas, queries, query_lambdas, k: int,
                         cand: int, alphas, t: int = DEFAULT_TILE, scan_rn=None,
                         mask_from: int | None = None,
-                        producer=rsk.tilemax_only, slab_reader=rsk.slab_dots):
+                        producer=rsk.tilemax_only, slab_reader=_slab_dots_checked):
     """Maxima-first reduced-precision scan + exact slab rescore.
 
     Stage 1: ``producer`` (kernel D) scans ``Xscan`` — bf16, int8 (with
@@ -249,7 +259,8 @@ def fused_scan_rescored(Xscan, X, norms, lambdas, queries, query_lambdas, k: int
     the per-sub-tile maxima ``[B, ns]`` of ``ts = t // RESCORE_SUBS``-row
     sub-tiles. Stage 2: the ``c = max(k + 4, ⌈cand/ts⌉)`` sub-tiles with
     the largest maxima, sorted into id order, go to ``slab_reader``
-    (kernel E) for full-f32 dots of every row of the f32 corpus ``X``; the
+    (kernel E, told the ids are in range, so nothing is read back to the
+    host) for full-f32 dots of every row of the f32 corpus ``X``; the
     ragged tail is scored exactly by :func:`_batched_scores`; the final
     stable top-k ranks exact scores only, ties lowest index first. Rows ≥
     ``mask_from`` score -inf at both stages. Passing the plain versions as

@@ -1,7 +1,9 @@
-"""What can be held about kernels B and D without a card: the launch plans
-that mirror their C entry points, their plain versions against the
-reference's Pallas kernels (interpret mode) at edge shapes, and the build
-cache's handling of an included header.
+"""What can be held about kernels B, D, E and F without a card: the launch
+plans that mirror their C entry points, the plain versions of B and D
+against the reference's Pallas kernels (interpret mode) at edge shapes,
+that the rescored route tells kernel E its slab ids are in range (so it
+reads nothing back to the host), and the build cache's handling of an
+included header.
 
 Tolerances: scores and maxima ≤ 1e-5 absolute (f32 summation order; the
 plain versions and the Pallas kernels round the blend alike); bf16x3 scan
@@ -25,6 +27,7 @@ from matternet_rs_tpu_torch import core as tcore
 from matternet_rs_tpu_torch.ops import search as tso
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
+from matternet_rs_tpu_torch.ops.kernels import spmv_ell as fk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as ttmk
 
 DTYPES = [torch.bfloat16, torch.int8, torch.float32]
@@ -263,3 +266,97 @@ def test_tilemax_only_operands_refuse_what_the_kernel_does_not_take(bad):
         Q = Q.double()
     with pytest.raises(ValueError, match="tilemax_only kernel"):
         rsk._tilemax_only_operands(X, norms, lams, Q, ql, al, **kw)
+
+
+# Kernel F's plan: (group, columns a lane per pass, rows a block of 128
+# threads, passes) by m, pinned; blocks follow n.
+SPMV_PLANS = {
+    1: (1, 1, 128, 1), 2: (2, 1, 64, 1), 15: (16, 1, 8, 1), 16: (16, 1, 8, 1),
+    17: (32, 1, 4, 1), 33: (32, 2, 4, 1), 256: (32, 8, 4, 1), 300: (32, 8, 4, 2),
+}
+
+
+@pytest.mark.parametrize("m", sorted(SPMV_PLANS))
+def test_spmv_ell_plan_pins_groups_and_passes(m):
+    group, cpt, rows, passes = SPMV_PLANS[m]
+    for n in (1, 31, 16384):
+        for k in (1, 14, 40):
+            plan = fk.spmv_ell_plan(n, k, m)
+            assert plan == dict(group=group, cols_per_lane=cpt, rows_per_block=rows,
+                                blocks=-(-n // rows), passes=passes)
+            # A group is the smallest power of two that holds min(m, 32)
+            # columns; a pass covers group·cpt columns, the passes all of m.
+            assert group >= min(m, 32) and (group == 1 or group // 2 < min(m, 32))
+            assert plan["rows_per_block"] * group == fk.THREADS
+            assert (passes - 1) * group * cpt < m <= passes * group * cpt
+    assert fk.spmv_ell_plan(16384, 14, 15)["blocks"] == 2048      # LOBPCG's block at n = 16384
+    assert fk.spmv_ell_plan(16384, 14, 1)["blocks"] == 128
+    for bad in ((0, 14, 15), (16384, 0, 15), (16384, 14, 0)):
+        with pytest.raises(ValueError, match="n, k, m >= 1"):
+            fk.spmv_ell_plan(*bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
+@pytest.mark.parametrize("f", [1, 3, 100, 128, 768, 2048])
+def test_slab_dots_plan_fits_and_respects_alignment(f, dtype):
+    """Kernel E's launch at every F and (B, c), aligned and offset X: one
+    block a (query, slab) pair, the query in shared memory, vector reads
+    only where F and the address allow them."""
+    esz = torch.empty((), dtype=dtype).element_size()
+    for b, c in ((1, 1), (7, 14), (256, 14)):
+        for x_addr in (0, 4):                      # X aligned, and 4 bytes off
+            # 16-byte reads of f32 rows need X on 16 bytes, 4-byte reads of
+            # int8 rows X on 4; both need F % 4 == 0.
+            vector = f % 4 == 0 and (x_addr == 0 or esz == 1)
+            assert rsk.slab_dots_plan(b, c, f, dtype, x_addr=x_addr) == dict(
+                reads="vector" if vector else "element", blocks=b * c, smem_bytes=4 * f)
+    assert rsk.slab_dots_plan(1, 1, f, dtype, x_addr=8)["reads"] == \
+        ("vector" if f % 4 == 0 and esz == 1 else "element")
+
+
+def test_slab_dots_plan_at_the_main_path_shape_and_past_the_fused_range():
+    for dtype in (torch.float32, torch.int8):
+        assert rsk.slab_dots_plan(256, 14, 128, dtype) == dict(reads="vector", blocks=3584, smem_bytes=512)
+    assert rsk.slab_dots_plan(3, 2, 12_288, torch.float32)["smem_bytes"] == 49_152
+    with pytest.raises(ValueError, match="passes 49152 bytes"):
+        rsk.slab_dots_plan(3, 2, 12_289, torch.float32)
+    for bad in ((0, 2, 128), (3, 0, 128), (3, 2, 0)):
+        with pytest.raises(ValueError, match="must all be >= 1"):
+            rsk.slab_dots_plan(*bad, torch.float32)
+
+
+def test_rescored_route_tells_kernel_e_its_ids_are_in_range(monkeypatch):
+    """``fused_scan_rescored``'s default slab reader calls ``slab_dots``
+    with ``checked=True`` (no read-back of the ids); the hooks the plain
+    runs pass stay as they were, and the result is the plain route's."""
+    import inspect
+
+    assert inspect.signature(tso.fused_scan_rescored).parameters["slab_reader"].default \
+        is tso._slab_dots_checked
+    assert inspect.signature(tso.fused_scan_rescored).parameters["producer"].default is rsk.tilemax_only
+    X, norms, lams, Q, ql, al = [torch.from_numpy(a) for a in _fixture(40_000, 32, 6, seed=4)]
+    calls = []
+    real = rsk.slab_dots
+
+    def recording(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(rsk, "slab_dots", recording)
+    idx, top = tso.fused_scan_rescored(X, X, norms, lams, Q, ql, 10, 64, al)
+    assert calls == [dict(checked=True)]
+    pidx, ptop = tso.fused_scan_rescored(X, X, norms, lams, Q, ql, 10, 64, al,
+                                         producer=rsk.tilemax_only_plain,
+                                         slab_reader=rsk.slab_dots_plain)
+    assert len(calls) == 1 and torch.equal(idx, pidx) and torch.equal(top, ptop)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
+def test_slab_dots_on_the_cpu_takes_the_plain_version_checked_or_not(dtype):
+    X, _, _, Q, _, _ = [torch.from_numpy(a) for a in _fixture(2000, 24, 5, seed=8)]
+    Xr = tcore.quantize_rows(X)[0] if dtype is torch.int8 else X
+    sel = torch.sort(torch.randint(0, 2000 // 128, (5, 3), generator=torch.Generator().manual_seed(1)),
+                     dim=1).values
+    ref = rsk.slab_dots_plain(Xr, Q, sel, 128)
+    for checked in (False, True):
+        assert torch.equal(rsk.slab_dots(Xr, Q, sel, 128, checked=checked), ref)

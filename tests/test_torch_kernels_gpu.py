@@ -9,7 +9,8 @@ kernels sum the dot products in another order than cuBLAS); the gather
 bit for bit; slab dots ≤ 1e-5·‖q‖·‖x‖; routed results under the same-k
 rule of ``utils/parity.same_k_mismatches``; the ELL product ≤
 1e-5·Σ_s|w|·|x| (it sums in the plain version's order, so it is in fact
-equal); the streamed top-k's ids under the near-tie rule, scores ≤ 1e-5.
+equal), and bit for bit at the edge shapes; the streamed top-k's ids under
+the near-tie rule, scores ≤ 1e-5.
 """
 
 import numpy as np
@@ -411,3 +412,108 @@ def test_search_fused_merge_matches_plain_bit_for_bit(cuda_device, b, cand, kind
         i_p, v_p = tsf.merge_partials_plain(vals, ids, k)
         assert torch.equal(i_k, i_p)
         assert torch.equal(v_k.view(torch.int32), v_p.view(torch.int32))
+
+
+def _bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 14, 40])
+@pytest.mark.parametrize("n", [1, 31, 16384])
+def test_spmv_ell_kernel_is_bit_equal_at_edge_shapes(cuda_device, n, k):
+    """Every m of the plan's table, both forms, bit for bit: every tenth row
+    has no live slot, empty slots carry −1 or name a row of inf that no
+    live slot names; the plan is the library's own."""
+    rng = np.random.default_rng(n + k)
+    poison = n - 1 if n > 1 else None
+    idx = rng.integers(0, max(n - 1, 1), size=(n, k)).astype(np.int32)
+    w = rng.random((n, k)).astype(np.float32)
+    empty = rng.random((n, k)) < 0.3
+    empty[::10] = True
+    w[empty] = 0.0
+    idx[empty] = -1
+    if poison is not None:
+        idx[empty & (rng.random((n, k)) < 0.5)] = poison
+    idx, w = torch.from_numpy(idx).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    for m in (1, 2, 15, 16, 17, 33, 256, 300):
+        X = torch.from_numpy(rng.normal(size=(n, m)).astype(np.float32)).to(cuda_device)
+        if poison is not None:
+            X[poison] = float("inf")
+        for d in (None, w.sum(dim=1)):
+            got = tfk.spmv_ell(idx, w, X, d, checked=True)
+            assert _bit_equal(got, tfk.spmv_ell_plain(idx, w, X, d)), (m, d is None)
+            rows = torch.arange(n, device=cuda_device) != (n - 1 if poison is not None else -1)
+            assert bool(torch.isfinite(got[rows]).all())
+        assert tfk.spmv_ell_plan_chosen(n, k, m) == tfk.spmv_ell_plan(n, k, m)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
+@pytest.mark.parametrize("f", [1, 3, 100, 128, 768, 2048])
+def test_slab_dots_kernel_matches_plain_at_edge_shapes(cuda_device, f, dtype, offset):
+    """Kernel E through the public wrapper against the plain version; the
+    plan is the library's."""
+    rng = np.random.default_rng(f)
+    nslabs = 20
+    for ts in (128, 256):
+        X = torch.from_numpy(rng.standard_normal((nslabs * ts + 5, f), dtype=np.float32)).to(cuda_device)
+        Xr = quantize_rows(X)[0] if dtype is torch.int8 else X
+        if offset:                          # 4 bytes past the allocation's start
+            per = 4 // Xr.element_size()
+            buf = torch.empty(Xr.numel() + per, dtype=Xr.dtype, device=cuda_device)
+            view = buf[per:].view(Xr.shape)
+            view.copy_(Xr)
+            Xr = view
+        for c in (1, 14):
+            for b in (1, 7, 256):
+                Q = torch.from_numpy(rng.standard_normal((b, f), dtype=np.float32)).to(cuda_device)
+                sel = torch.sort(torch.from_numpy(rng.integers(0, nslabs, (b, c))).to(cuda_device),
+                                 dim=1).values
+                d = trsk.slab_dots(Xr, Q, sel, ts, checked=True)
+                per_q = max(1, (1 << 28) // (c * ts * f * 4))
+                pd = torch.cat([trsk.slab_dots_plain(Xr, Q[i:i + per_q], sel[i:i + per_q], ts)
+                                for i in range(0, b, per_q)])
+                rows = sel[:, :, None] * ts + torch.arange(ts, device=cuda_device)
+                scale = torch.linalg.norm(Q, dim=1)[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows]
+                assert bool(torch.all((d - pd).abs() <= 1e-5 * scale)), (ts, c, b)
+                assert trsk.slab_dots_plan_chosen(Xr, b, c) == trsk.slab_dots_plan(
+                    b, c, f, dtype, x_addr=Xr.data_ptr())
+    bad = torch.tensor([[0, 3], [4, nslabs], [-1, 2]], device=cuda_device)
+    d = trsk.slab_dots(Xr, torch.ones((3, f), device=cuda_device), bad, 256, checked=True)
+    assert bool(torch.isnan(d[1, 1]).all() and torch.isnan(d[2, 0]).all())
+    assert bool(torch.isfinite(d[0]).all() and torch.isfinite(d[1, 0]).all() and torch.isfinite(d[2, 1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
+def test_rescored_route_makes_no_synchronising_call_after_kernel_d(cuda_device, dtype):
+    """From kernel D's launch to its return, ``fused_scan_rescored`` makes
+    no call that waits for the card: kernel E takes the slab ids on trust."""
+    arrs = _fixture(40_000, 128, 16, 5, cuda_device)
+    Xs, rn = _scan_corpus(arrs[0], torch.int8 if dtype is torch.int8 else torch.float32)
+    args = (Xs, arrs[0], *arrs[1:5], 10, 64, arrs[5])
+    before = kernels.launch_counts()
+    ref = tso.fused_scan_rescored(*args, scan_rn=rn)
+    torch.cuda.synchronize()
+
+    def producer(*a, **kw):
+        out = trsk.tilemax_only(*a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    try:
+        idx, top = tso.fused_scan_rescored(*args, scan_rn=rn, producer=producer)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["tilemax_only"] == before["tilemax_only"] + 2
+    assert after["slab_dots"] == before["slab_dots"] + 2
+    assert torch.equal(idx, ref[0]) and torch.equal(top, ref[1])
+    # The check this path skips is one such call: the mode catches it.
+    sel = torch.zeros((16, 2), dtype=torch.int64, device=cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            trsk.slab_dots(arrs[0], arrs[3], sel, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

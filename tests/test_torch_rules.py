@@ -145,3 +145,96 @@ def test_full_f32_policy_is_set():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+# -- The public API against the reference's: recall_target and the root's names.
+
+@pytest.fixture(scope="module")
+def small_index():
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
+
+    X = make_energy_test_dataset(400, 16, seed=3).astype(np.float32)
+    aspace, _ = (ArrowSpaceBuilder(device="cpu").with_lambda_graph(1.0, 6)
+                 .with_sparsity_check(False).with_cluster_params(max_clusters=24, radius=6.0)
+                 .with_seed(5).with_sampling(None).build(X))
+    return X, aspace
+
+
+def _same_hits(a, b):
+    return [i for i, _ in a] == [i for i, _ in b] and np.array_equal(
+        np.array([s for _, s in a], np.float32), np.array([s for _, s in b], np.float32))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_arrowspace_search_lambda_aware_takes_recall_target(small_index, quantized):
+    """``recall_target`` by keyword and in its positional place (after
+    ``approx``, before ``quantized``) changes nothing: ``approx`` selects
+    exactly."""
+    X, aspace = small_index
+    q, lam = X[17], float(aspace.lambdas[17])
+    plain = aspace.search_lambda_aware(q, lam, 5, 0.7, False, quantized=quantized)
+    for approx in (False, True):
+        base = aspace.search_lambda_aware(q, lam, 5, 0.7, approx, quantized=quantized)
+        assert _same_hits(base, plain)
+        for target in (0.5, 0.95, 0.999):
+            by_name = aspace.search_lambda_aware(q, lam, 5, alpha=0.7, approx=approx,
+                                                 recall_target=target, quantized=quantized)
+            by_place = aspace.search_lambda_aware(q, lam, 5, 0.7, approx, target, quantized)
+            assert _same_hits(by_name, base) and _same_hits(by_place, base)
+    assert plain[0][0] == 17
+
+
+def test_ops_search_lambda_aware_takes_recall_target(small_index):
+    from matternet_rs_tpu_torch.ops import search as tso
+
+    X, aspace = small_index
+    args = (aspace.data, aspace.norms, aspace.lambdas, torch.from_numpy(X[:6]), aspace.lambdas[:6], 7)
+    idx, top = tso.search_lambda_aware(*args, 0.7, False)
+    for approx in (False, True):
+        for got in (tso.search_lambda_aware(*args, 0.7, approx, 0.8),
+                    tso.search_lambda_aware(*args, alphas=0.7, approx=approx, recall_target=0.99)):
+            assert torch.equal(got[0], idx) and torch.equal(got[1], top)
+
+
+def test_search_lambda_aware_signatures_follow_the_reference():
+    import inspect
+
+    from matternet_rs_tpu.core import ArrowSpace as RefArrowSpace
+    from matternet_rs_tpu.ops import search as jso
+    from matternet_rs_tpu_torch.ops import search as tso
+
+    port = list(inspect.signature(ArrowSpace.search_lambda_aware).parameters)
+    assert port == list(inspect.signature(RefArrowSpace.search_lambda_aware).parameters)
+    assert port[-3:] == ["approx", "recall_target", "quantized"]
+    assert inspect.signature(ArrowSpace.search_lambda_aware).parameters["recall_target"].default == 0.95
+    # The batched port names its query arguments in the plural; the order of
+    # what follows k is the reference's.
+    port_ops = inspect.signature(tso.search_lambda_aware).parameters
+    ref_ops = inspect.signature(jso.search_lambda_aware).parameters
+    assert list(port_ops)[-3:] == ["alphas", "approx", "recall_target"]
+    assert list(ref_ops)[-3:] == ["alpha", "approx", "recall_target"]
+    assert port_ops["recall_target"].default == ref_ops["recall_target"].default == 0.95
+
+
+def test_package_root_exports_what_the_reference_exports(monkeypatch):
+    import logging
+    import types
+
+    import matternet_rs_tpu as ref
+    from matternet_rs_tpu_torch import eigenmaps as tem
+
+    port = matternet_rs_tpu_torch
+    for name in ("TAU_FLOOR", "backend", "eigenmaps", "init", "__version__"):
+        assert name in port.__all__, name
+    assert port.TAU_FLOOR == ref.TAU_FLOOR == 1e-10
+    assert port.__version__ == ref.__version__
+    assert port.backend is backend and isinstance(port.backend, types.ModuleType)
+    assert port.eigenmaps is tem and callable(port.eigenmaps.eigenmaps)
+    calls = []
+    monkeypatch.setattr(logging, "basicConfig", lambda **kw: calls.append(kw))
+    port.init()
+    ref.init()
+    port.init(level="DEBUG")
+    ref.init(level="DEBUG")
+    assert calls[0] == calls[1] and calls[0]["level"] == "INFO"
+    assert calls[2] == calls[3] and calls[2]["level"] == "DEBUG"
