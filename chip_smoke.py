@@ -15,7 +15,16 @@ Phases, one output line each (JSON):
    query's own row is in its top-10 and its top-1 score is at least its
    own blended score less 1e-5; the ids equal those of the same fused
    search run through the kernels' plain versions on the card, up to the
-   near-tie rule (``utils/parity.py``, tolerance 1e-5).
+   near-tie rule (``utils/parity.py``, tolerance 1e-5). At k = 10 the
+   exact tier's candidate stage (sub-tile selection, gather and top-k) is
+   one launch of ``subtile_topk`` a batch (4 in all) and kernel C is not
+   launched. The three timed batches then run again through that stage and
+   through the selection chain it replaced (kernel C's gather and the
+   stable sorts), in turns (stage, chain, chain, stage), each route also
+   once under ``torch.profiler``: ms per batch, device-busy ms and idle
+   share of each go on the phase's line. One more search at k = 40 takes
+   the chain: kernel C launches once, the stage never, and its first ten
+   ids are the k = 10 search's.
    Then ``torch.profiler`` traces the three timed batches again: wall ms
    per batch (host clock), device-busy ms (the union of the traced
    kernels' intervals), the idle share 1 − busy/wall, and the kernels
@@ -99,7 +108,20 @@ Phases, one output line each (JSON):
    ``launch_floor_ms``, an empty kernel of the same library timed the same
    way; it is held bit for bit at k in {1, 10, 16}, 16, 48, 2,112 and 4,112
    candidates, 1, 7 and 256 queries, on shuffled lists, all-equal scores,
-   ±0.0 and −inf fills. The rows of kernels E and F carry ``launch_ms``
+   ±0.0 and −inf fills. The candidate stage's row (``subtile_topk``, on
+   kernel B's scores and maxima of the main path's batch and its ragged
+   tail) carries ``launch_ms`` (its C entry point alone), ``launch_floor_ms``,
+   ``plain_ms`` (the selection chain on the plain gather), ``chain_ms``
+   (the chain with kernel C as its gather) and ``library_ms`` (one
+   ``torch.topk`` over the full [B, n] plane, no id tie-break); kernel C's
+   row keeps the k = 10 shape (c = 14) with its main-path launches (0) and
+   those of the k = 40 search beside them; C is also held bit for bit at
+   c = 44. The stage is held bit for bit (values and ids) against the chain
+   at random, all-equal, ±0.0-only, half −inf and 1% NaN scores and at
+   scores and maxima one element off 16 bytes, for B in {1, 7, 256}, k in
+   {1, 10, 16} and tails of 0, 1 and 2,047 columns (64 sub-tiles); with
+   every sub-tile selected (1 and 8 sub-tiles); and with the maxima staged
+   in two chunks (5,000 sub-tiles). The rows of kernels E and F carry ``launch_ms``
    (the kernel alone) and ``launch_floor_ms`` (the same empty kernel).
    Their launch plans (held equal to the library's) and ptxas reports go to the phase's
    line. Kernel F is held bit for bit at every n in {1, 31, 16384} with
@@ -117,6 +139,7 @@ check exits non-zero. Without a CUDA card it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -128,6 +151,7 @@ import time
 N_MAIN, F_MAIN, SEED_MAIN = 1_000_000, 128, 44
 N_WIDE, F_WIDE, SEED_WIDE = 40_000, 768, 45
 BATCH, K, ALPHA, N_BATCHES = 256, 10, 0.7, 3
+K_CHAIN = 40                  # a k past the candidate stage's 16: the selection chain with kernel C
 TOL_LAMBDA, TOL_SCORE = 1e-5, 1e-5
 # The quantised tiers of phase 3: (tier, extra search_batch arguments).
 TIERS = (
@@ -159,6 +183,9 @@ EDGE_N_A = (1, 63, 64, 65, 1000)
 # The merge's edge cases: k, candidates per query, queries, list contents.
 EDGE_K_G, EDGE_CAND_G, EDGE_B_G = (1, 10, 16), (16, 48, 2112, 4112), (1, 7, 256)
 EDGE_KINDS_G = ("shuffled", "ties", "zeros", "fills")
+# The candidate stage's edge cases: score kinds, queries, tail widths, k.
+EDGE_KINDS_H = ("random", "equal", "zeros", "fills", "nan", "offset")
+EDGE_B_H, EDGE_NR_H, EDGE_K_H = (1, 7, 256), (0, 1, 2047), (1, 10, 16)
 EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
 EDGE_SHAPES_B = ((3, 100), (3, 768), (300, 768))
 # Kernel F's edge cases: every n with every k and m, both forms.
@@ -345,20 +372,17 @@ def main() -> int:
         top_p, idx_p = so.fused_tilemax(
             Xt, norms, lams, Q, ql, K + 1, alphas, so.DEFAULT_TILE,
             producer=tmk.scores_and_tilemax_plain, gather=tmk.gather_subtiles_plain,
+            select=tmk.select_topk_plain,
         )
         plain_mismatch += topk_mismatches(
             idx_p.cpu().numpy(), top_p.cpu().numpy(), idx, sc, TOL_SCORE
         )
-    emit(phase="main", n=N_MAIN, f=F_MAIN, batch=BATCH, k=K, card=card,
-         build_seconds=build_s, stage_seconds=builder.last_stage_timings,
-         n_clusters=aspace.n_clusters, warmup_ms=batch_ms[0],
-         search_ms_per_batch_median=statistics.median(batch_ms[1:]),
-         search_ms_per_batch=batch_ms[1:], launches=main_counts,
-         self_query_failures=self_fail[:10], plain_route_mismatches=plain_mismatch[:10])
     check(not self_fail, f"{len(self_fail)} queries miss their own row")
     check(not plain_mismatch, f"kernel vs plain route: {plain_mismatch[:3]}")
-    for kname in ("taumode", "scores_tilemax", "gather_subtiles"):
+    for kname in ("taumode", "scores_tilemax", "subtile_topk"):
         check(main_counts[kname] > 0, f"kernel {kname} not launched on the main path")
+    check(main_counts["subtile_topk"] == len(batches) and main_counts["gather_subtiles"] == 0,
+          f"k={K}: the candidate stage must launch once a batch and kernel C never: {main_counts}")
 
     def traced(search):
         """Run ``search(r)`` over the timed batches under ``torch.profiler``:
@@ -387,6 +411,56 @@ def main() -> int:
                     top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / N_BATCHES,
                                   "device_ms_per_batch": dev_ms(a) / 1e3 / N_BATCHES}
                                  for a in top if dev_ms(a) > 0])
+
+    # The exact tier's candidate stage against the selection chain it
+    # replaced (kernel C's gather, the stable sorts), the same timed batches
+    # in turns: stage, chain, chain, stage; then a profiled pass of each.
+    def exact_search(route):
+        def search(r):
+            return aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)
+        if route == "stage":
+            return search
+        chain = functools.partial(fused_tilemax, select=tmk.select_topk_plain)
+
+        def via_chain(r):
+            so.fused_tilemax = chain
+            try:
+                return search(r)
+            finally:
+                so.fused_tilemax = fused_tilemax
+        return via_chain
+
+    fused_tilemax = so.fused_tilemax
+    turns = {"stage": [], "chain": []}
+    for route in ("stage", "chain", "chain", "stage"):
+        search = exact_search(route)
+        for r in batches[1:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            search(r)
+            torch.cuda.synchronize()
+            turns[route].append((time.perf_counter() - t1) * 1e3)
+    stage_vs_chain = {route: dict(search_ms_per_batch_median=statistics.median(ms), search_ms_per_batch=ms,
+                                  profile=traced(exact_search(route)))
+                      for route, ms in turns.items()}
+    for route in stage_vs_chain.values():
+        route["profile"].pop("top_kernels")
+
+    # Kernel C's path: k > 16 keeps the selection chain with kernel C.
+    kernels.reset_launches()
+    k40 = aspace.search_batch(X[batches[1]], gl, k=K_CHAIN, alpha=ALPHA)
+    k40_counts = kernels.launch_counts()
+    check(k40[0].shape == (BATCH, K_CHAIN) and np.array_equal(k40[0][:, :K], results[1][1]),
+          f"k={K_CHAIN}: the first {K} ids differ from the k={K} search's")
+    check(k40_counts["gather_subtiles"] == 1 and k40_counts["subtile_topk"] == 0,
+          f"k={K_CHAIN}: kernel C must launch once and the candidate stage never: {k40_counts}")
+    emit(phase="main", n=N_MAIN, f=F_MAIN, batch=BATCH, k=K, card=card,
+         build_seconds=build_s, stage_seconds=builder.last_stage_timings,
+         n_clusters=aspace.n_clusters, warmup_ms=batch_ms[0],
+         search_ms_per_batch_median=statistics.median(batch_ms[1:]),
+         search_ms_per_batch=batch_ms[1:], launches=main_counts,
+         self_query_failures=self_fail[:10], plain_route_mismatches=plain_mismatch[:10],
+         candidate_stage_vs_chain=stage_vs_chain, launches_at_k40=k40_counts)
 
     emit(phase="profile", card=card,
          **traced(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)))
@@ -745,12 +819,15 @@ def main() -> int:
 
     c = min(ns, K + so.SELECT_MARGIN)
     ts = tile // tmk.SUBS
-    sel = torch.sort(so.topk_stable(m_k, c)[1], dim=1).values
-    g_k = tmk.gather_subtiles(s_k, sel, ts)
-    g_p = tmk.gather_subtiles_plain(s_k, sel, ts)
-    err_c = float((g_k - g_p).abs().max())
-    gidx = sel[:, :, None].expand(BATCH, c, ts)
     s3 = s_k.view(BATCH, ns, ts)
+    for c_g in (c, min(ns, K_CHAIN + so.SELECT_MARGIN)):     # the shapes of k = 10 and k = 40
+        sel = torch.sort(so.topk_stable(m_k, c_g)[1], dim=1).values
+        g_k = tmk.gather_subtiles(s_k, sel, ts)
+        g_p = tmk.gather_subtiles_plain(s_k, sel, ts)
+        check(bool(torch.equal(g_k, g_p)), f"gather_subtiles c={c_g}: kernel vs plain")
+    sel = torch.sort(so.topk_stable(m_k, c)[1], dim=1).values
+    err_c = float((tmk.gather_subtiles(s_k, sel, ts) - tmk.gather_subtiles_plain(s_k, sel, ts)).abs().max())
+    gidx = sel[:, :, None].expand(BATCH, c, ts)
     bms, by = bound(2 * 4 * BATCH * c * ts + 8 * BATCH * c, 0)
     rows_out.append(dict(
         name="gather_subtiles", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
@@ -761,9 +838,52 @@ def main() -> int:
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.gather(s3, 1, gidx), reps=20),
         shape=f"B={BATCH} c={c} ts={ts}",
+        launches_at_k40=k40_counts["gather_subtiles"],
     ))
-    check(bool(torch.equal(g_k, g_p)), f"gather_subtiles: kernel vs plain {err_c}")
-    del s_k, s_p, g_k, g_p, s3
+
+    # The candidate stage on the same batch: kernel B's scores and maxima,
+    # the ragged tail as fused_tilemax scores it.
+    tail = so._batched_scores(Xt[n0:], norms[n0:], lams[n0:], Q, ql, alphas)
+    nr = tail.shape[1]
+    stage_args = (s3, m_k, tail, N_MAIN, K, so.SELECT_MARGIN)
+    top_k, idx_k = tmk.select_topk(*stage_args)
+    top_p, idx_p = tmk.select_topk_plain(*stage_args, gather=lambda sel: tmk.gather_subtiles_plain(s_k, sel, ts))
+    check(bool(torch.equal(idx_k, idx_p)) and bit_equal(top_k, top_p), "subtile_topk: kernel vs plain")
+    lib_t = _cuda.library("tilemax")
+    top_o, idx_o = torch.empty_like(top_k), torch.empty_like(idx_k)
+    stream = _cuda.stream_ptr(dev)
+
+    def stage_launch():
+        _cuda.check(lib_t, lib_t.mrs_subtile_topk(
+            s3.data_ptr(), m_k.data_ptr(), tail.data_ptr(), BATCH, ns, nr, c, K,
+            top_o.data_ptr(), idx_o.data_ptr(), stream), "subtile_topk kernel")
+
+    full = torch.cat([s_k, tail], dim=1)
+    bms, by = bound(4 * BATCH * (ns + c * ts + nr) + 12 * BATCH * K, 0)
+    rows_out.append(dict(
+        name="subtile_topk", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
+        replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
+        launches=main_counts["subtile_topk"], max_abs_err=float((top_k - top_p).abs().max()),
+        ms=cuda_ms(lambda: tmk.select_topk(*stage_args), reps=20),
+        launch_ms=cuda_ms(stage_launch, reps=20),
+        launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
+        plain_ms=cuda_ms(lambda: tmk.select_topk_plain(
+            *stage_args, gather=lambda sel: tmk.gather_subtiles_plain(s_k, sel, ts)), reps=20),
+        chain_ms=cuda_ms(lambda: tmk.select_topk_plain(
+            *stage_args, gather=lambda sel: tmk.gather_subtiles(s_k, sel, ts)), reps=20),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.topk(full, K, dim=1), reps=20),
+        shape=f"B={BATCH} ns={ns} c={c} ts={ts} tail={nr} k={K}",
+        replaces_also="matternet_rs_tpu/ops/search.py:290 (_tilemax_select, the XLA selection around the gather)",
+        chain="the selection chain with kernel C as its gather",
+        library="torch.topk over the full [B, n] score plane (no id tie-break)",
+        launch_floor="an empty kernel, timed the same way",
+    ))
+    log = buildcache.BUILD_LOG.get("tilemax")
+    resources["subtile_topk"] = dict(ptxas=ptxas_resources(log, "subtile_topk_kernel"))
+    check(log is None or resources["subtile_topk"]["ptxas"] is not None,
+          "subtile_topk: no ptxas report in the build log")
+    del s_k, s_p, s3, full, tail
 
     # Kernel D in its three modes, on the tiers' own inputs; the bf16x3 and
     # int8 maxima also give kernel E's slab selections.
@@ -1148,6 +1268,45 @@ def main() -> int:
                     what = f"search_fused_merge B={b_e} candidates={cand_e} k={k_e} {kind}"
                     edge.append(dict(case=what, bit_equal=same))
                     check(same, f"{what}: kernel vs plain")
+    # The candidate stage at edge cases, bit for bit against the chain:
+    # every kind with every B, k and tail (ns = 64), every sub-tile selected
+    # (c = ns), maxima staged in two chunks (ns = 5000), and scores and
+    # maxima one element off 16 bytes (the element-wise loaders; a tail of
+    # 1 or 2,047 columns puts every row but the first there too).
+    gen_h = torch.Generator(device=dev).manual_seed(15)
+
+    def stage_scores(b_e, ns_e, nr_e, kind):
+        n_e = ns_e * 256 + nr_e
+        u = torch.rand((b_e, n_e), device=dev, generator=gen_h)
+        v = torch.randn((b_e, n_e), device=dev, generator=gen_h)
+        if kind == "equal":
+            v = torch.full_like(v, 0.25)
+        elif kind == "zeros":
+            v = torch.where(u < 0.5, -0.0, 0.0)
+        elif kind == "fills":
+            v = torch.where(u < 0.5, -float("inf"), v)
+        elif kind == "nan":
+            v = torch.where(u < 0.01, float("nan"), v)
+        main = v[:, :ns_e * 256].contiguous()
+        tmax = main.view(b_e, ns_e, 256).amax(dim=2)
+        if kind == "offset":
+            main, tmax = misaligned(main), misaligned(tmax)
+        return main.view(b_e, ns_e, 256), tmax, (v[:, ns_e * 256:].contiguous() if nr_e else None), n_e
+
+    stage_cases = [(b_e, 64, nr_e, kind, k_e) for kind in EDGE_KINDS_H for b_e in EDGE_B_H
+                   for nr_e in EDGE_NR_H for k_e in EDGE_K_H]
+    stage_cases += [(b_e, ns_e, nr_e, kind, 16) for ns_e in (1, 8) for kind in ("random", "equal")
+                    for b_e in EDGE_B_H for nr_e in EDGE_NR_H]
+    stage_cases += [(7, 5000, 576, "random", k_e) for k_e in EDGE_K_H]
+    for b_e, ns_e, nr_e, kind, k_e in stage_cases:
+        main_e, tmax_e, tail_e, n_e = stage_scores(b_e, ns_e, nr_e, kind)
+        tk_, ik_ = tmk.select_topk(main_e, tmax_e, tail_e, n_e, k_e, so.SELECT_MARGIN)
+        tp_, ip_ = tmk.select_topk_plain(main_e, tmax_e, tail_e, n_e, k_e, so.SELECT_MARGIN)
+        same = bool(torch.equal(ik_, ip_)) and bit_equal(tk_, tp_)
+        what = (f"subtile_topk B={b_e} ns={ns_e} c={min(ns_e, k_e + so.SELECT_MARGIN)} tail={nr_e} "
+                f"k={k_e} {kind}")
+        edge.append(dict(case=what, bit_equal=same))
+        check(same, f"{what}: kernel vs plain")
     torch.cuda.synchronize()
     emit(phase="kernels", card=card, rows=len(rows_out), resources=resources, edge_cases=edge)
 

@@ -52,13 +52,15 @@
 //   networks over shuffles (21 steps, whatever the data); the eight lists
 //   then merge pairwise through shared memory. The serial chain is a
 //   warp's share of batches, each bounded, not the query's candidates one
-//   by one.
+//   by one. The selection is csrc/warp_topk.cuh, shared with the exact
+//   tier's candidate stage (csrc/tilemax.cu).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "f32_tile_product.cuh"
+#include "warp_topk.cuh"
 
 namespace {
 
@@ -170,123 +172,15 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
   }
 }
 
-// The merge. One block per query; its 8 warps share the query's candidates.
-// Each candidate becomes a 64-bit key that orders as before() does: the f32
-// score mapped to an unsigned integer that grows with the score (−0.0 taken
-// as +0.0, since before() holds them equal; every NaN above +inf, as a
-// descending sort puts them), then the id, flipped so that a smaller id
-// gives a larger key. Equal keys (the same score and id twice) fall to the
-// candidate's position, as the stable sorts of the plain version do, so
-// the order is total on any input and the result is the plain version's
-// bit for bit: the values and ids are read back by position.
-struct Cand {
-  uint64_t key;
-  uint32_t pos;
-};
+// The merge. One block per query; its 8 warps share the query's candidates,
+// ranked by csrc/warp_topk.cuh: a 64-bit key that orders as before() does
+// (−0.0 as +0.0, every NaN above +inf), equal keys by position, so the
+// result is the plain version's bit for bit (read back by position).
+using warptopk::Cand;
+using warptopk::nothing;
 
-__device__ __forceinline__ uint64_t order_key(float v, int id) {
-  uint32_t u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;                 // −0.0 → +0.0
-  if (isnan(v)) u = 0x7fffffffu;                // every NaN → above +inf
-  const uint32_t m = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((uint64_t)m << 32) | (uint64_t)(~((uint32_t)id ^ 0x80000000u));
-}
-__device__ __forceinline__ bool ranks_before(const Cand& a, const Cand& b) {
-  return a.key > b.key || (a.key == b.key && a.pos < b.pos);
-}
-// Below every candidate: (−inf, EMPTY_ID) has key 0x007fffff'00000000.
-__device__ __forceinline__ Cand nothing() { return Cand{0ull, 0xffffffffu}; }
-
-__device__ __forceinline__ Cand shfl_cand(const Cand& c, int src) {
-  return Cand{__shfl_sync(0xffffffffu, c.key, src), __shfl_sync(0xffffffffu, c.pos, src)};
-}
-// Lane keeps the better (or, !take_better, the worse) of its candidate and
-// that of lane ^ m.
-__device__ __forceinline__ void exchange(Cand& c, int m, bool take_better) {
-  const Cand o = Cand{__shfl_xor_sync(0xffffffffu, c.key, m), __shfl_xor_sync(0xffffffffu, c.pos, m)};
-  if (ranks_before(o, c) == take_better) c = o;
-}
-// Bitonic sort of the warp's 32 candidates, best in lane 0.
-__device__ __forceinline__ void sort32(Cand& c, int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1)
-#pragma unroll
-    for (int m = size >> 1; m > 0; m >>= 1) exchange(c, m, ((lane & m) == 0) == ((lane & size) == 0));
-}
-// Insert c (the same on every lane) into the sorted list: the entries that
-// rank before it are a prefix; those behind it move down a lane.
-__device__ __forceinline__ void insert_one(Cand& list, const Cand& c, int lane) {
-  const int at = __popc(__ballot_sync(0xffffffffu, ranks_before(list, c)));
-  const Cand up = shfl_cand(list, lane > 0 ? lane - 1 : 0);
-  if (lane == at) list = c;
-  else if (lane > at) list = up;
-}
-// list := the best 32 of list ∪ x, both sorted best first: the better of
-// list[l] and x[31 − l] is a bitonic sequence holding them; sort it.
-__device__ __forceinline__ void merge32(Cand& list, const Cand& x, int lane) {
-  const Cand r = shfl_cand(x, 31 - lane);
-  if (ranks_before(r, list)) list = r;
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) exchange(list, m, (lane & m) == 0);
-}
-
-constexpr int MERGE_THREADS = 256;                   // 8 warps, one query per block
-constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+constexpr int MERGE_THREADS = 32 * warptopk::WARPS;  // 8 warps, one query per block
 constexpr int MERGE_CHUNK = 4096;                    // candidates staged at a time
-constexpr int INSERT_MAX = 4;                        // passing candidates a batch inserts one by one
-
-// The warps' lists (each sorted) meet pairwise through shared memory,
-// log2(MERGE_WARPS) rounds of one bitonic merge; lists[0] ends with the
-// block's best k.
-__device__ __forceinline__ void tree_merge(Cand& list, Cand (*lists)[KP], int k, int warp, int lane) {
-  if (lane < k) lists[warp][lane] = list;
-#pragma unroll 1
-  for (int half = MERGE_WARPS / 2; half >= 1; half >>= 1) {
-    __syncthreads();
-    if (warp < half) {
-      merge32(list, lane < k ? lists[warp + half][lane] : nothing(), lane);
-      if (lane < k) lists[warp][lane] = list;
-    }
-  }
-  __syncthreads();
-}
-
-// The k-th best of what the warps' lists hold now (every warp calls it;
-// the lists themselves are kept): a candidate that does not beat it is
-// beaten by k others and cannot be among the best k.
-__device__ __forceinline__ Cand block_kth(const Cand& list, Cand (*lists)[KP], int k, int warp,
-                                          int lane) {
-  Cand copy = list;
-  tree_merge(copy, lists, k, warp, lane);
-  const Cand kth = lists[0][k - 1];
-  __syncthreads();                                   // lists is rewritten later
-  return kth;
-}
-
-// One batch of 32 staged candidates (positions b0 + lane of the chunk at
-// c0) into the warp's list. A candidate can enter the best k only if it
-// beats both the list's k-th entry and `floor` (the block's k-th at some
-// earlier point, or nothing), so the better of the two is the bar; once
-// the lists have filled, few pass it: up to INSERT_MAX of a
-// batch are inserted one by one; more, and the batch is sorted and merged
-// into the list (21 shuffle steps, whatever the data).
-__device__ __forceinline__ void take_batch(Cand& list, const Cand& floor, const float* sv,
-                                           const int* si, int c0, int len, int b0, int k, int lane) {
-  const int e = b0 + lane;
-  Cand x = e < len ? Cand{order_key(sv[e], si[e]), (uint32_t)(c0 + e)} : nothing();
-  const Cand own = shfl_cand(list, k - 1);
-  unsigned pass = __ballot_sync(0xffffffffu, ranks_before(x, ranks_before(own, floor) ? own : floor));
-  if (__popc(pass) > INSERT_MAX) {
-    sort32(x, lane);
-    merge32(list, x, lane);
-    return;
-  }
-  while (pass) {                // one that no longer beats the risen k-th lands behind it: harmless
-    const int src = __ffs(pass) - 1;
-    pass &= pass - 1;
-    insert_one(list, shfl_cand(x, src), lane);
-  }
-}
 
 __global__ void __launch_bounds__(MERGE_THREADS)
 search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict__ pids,
@@ -294,7 +188,7 @@ search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict
                           int* __restrict__ ids) {
   __shared__ __align__(16) float sv[MERGE_CHUNK];
   __shared__ __align__(16) int si[MERGE_CHUNK];
-  __shared__ Cand lists[MERGE_WARPS][KP];
+  __shared__ Cand lists[warptopk::WARPS][KP];
   const int64_t bq = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* pv = pvals + bq * cand;
@@ -320,19 +214,14 @@ search_fused_merge_kernel(const float* __restrict__ pvals, const int* __restrict
       }
     }
     __syncthreads();
-    // Warp w takes batches w, w + MERGE_WARPS, ... of 32; after the first
-    // ones the block's k-th so far becomes every warp's floor.
-    int b0 = warp * 32;
-    if (c0 == 0 && cand > MERGE_WARPS * 32) {          // block-uniform
-      take_batch(list, floor, sv, si, c0, len, b0, k, lane);
-      b0 += MERGE_WARPS * 32;
-      floor = block_kth(list, lists, k, warp, lane);
-    }
-    for (; b0 < len; b0 += MERGE_WARPS * 32) take_batch(list, floor, sv, si, c0, len, b0, k, lane);
+    // After the first round of batches the block's k-th so far becomes
+    // every warp's floor.
+    warptopk::take_staged(list, floor, lists, c0 == 0 && cand > MERGE_THREADS, len, k, warp, lane,
+                          [&](int e) { return Cand{warptopk::order_key(sv[e], si[e]), (uint32_t)(c0 + e)}; });
     __syncthreads();
   }
 
-  tree_merge(list, lists, k, warp, lane);
+  warptopk::tree_merge(list, lists, k, warp, lane);
   if (warp == 0 && lane < k) {
     vals[bq * k + lane] = pv[list.pos];
     ids[bq * k + lane] = pi[list.pos];

@@ -49,13 +49,46 @@
 //   B = 256, c = 14, ts = 256). Design: one block per (query, selected
 //   sub-tile) copies ts contiguous floats with coalesced 16-byte loads
 //   and stores. The TPU's 8-row DMA band and masked sublane sum existed
-//   for Mosaic's alignment rules and do not carry over; any B works.
+//   for Mosaic's alignment rules and do not carry over; any B works. The
+//   exact tier calls it only for kk > 16; below, the stage that follows
+//   takes its place.
+//
+// The exact tier's candidate stage (subtile_topk_kernel) replaces
+// tilemax_fused.py:622 `gather_subtiles` together with the XLA selection
+// around it (matternet_rs_tpu/ops/search.py:290-326, `_tilemax_select`):
+// per query, the c = min(ns, kk + 4) sub-tiles with the largest maxima
+// under (maximum descending, sub-tile id ascending), then the best kk ≤ 16
+// of their scores and the ragged tail under (score descending, global id
+// ascending) — the order of the plain chain's stable sorts, so values and
+// ids are its own bit for bit.
+//   What bounds it: bytes, 4·B·(ns + c·ts + nr) + 12·B·kk (8.3 MB, 2.5 µs
+//   at B = 256, ns = 3,904, c = 14, ts = 256, nr = 576, kk = 10): less than
+//   one launch. The stage is launch-bound, and the design answers that: one
+//   launch takes the place of some fifteen PyTorch calls (two full stable
+//   sorts, the gather, the concatenation, the index arithmetic) and of the
+//   [B, c·ts] candidate plane. One block of 8 warps per query: (a) the
+//   maxima row, staged 4,096 at a time by 16-byte cp.async (the tail's
+//   copies already in flight), goes through csrc/warp_topk.cuh's
+//   take_filtered with k = c, the sub-tile id in the key; (b) one warp sorts
+//   the c ids ascending; (c) the c sub-tiles arrive in shared memory by
+//   16-byte cp.async, all in flight before any ranking, so the candidates
+//   lie in the plain chain's order; (d) take_filtered ranks them and the
+//   tail with k = kk, the global id in the key; (e) warp 0 writes the best
+//   kk. Nothing is read back to the host, nothing allocated. A row whose
+//   address is not a multiple of 16 bytes is read element by element.
+//   Where the time goes (clock64 per step, one block a query, two blocks an
+//   SM): every warp of the SM runs the same selection code at once, so its
+//   steps are bound by the issue of instructions, not by their latency;
+//   take_filtered keeps the per-candidate work to one 32-bit compare and
+//   lets only the few candidates that reach its bar (about c, then kk, on
+//   the main path) into the bitonic networks, ranked by warp 0 alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "f32_tile_product.cuh"
+#include "warp_topk.cuh"
 
 namespace {
 
@@ -170,6 +203,109 @@ __global__ void gather_subtiles_kernel(const float* __restrict__ scores,
   }
 }
 
+constexpr int TOPK_TS = 256;                          // sub-tile width (kernel B's)
+constexpr int TOPK_MAX_C = 20;                        // c ≤ kk + SELECT_MARGIN = 16 + 4
+constexpr int TOPK_MAX_K = 16;
+constexpr int TOPK_MAX_TAIL = 2048;                   // the ragged tail: less than a tile
+constexpr int TOPK_CHUNK = 4096;                      // maxima staged at a time
+constexpr int TOPK_THREADS = 32 * warptopk::WARPS;
+constexpr int TOPK_TAIL_AT = TOPK_MAX_C * TOPK_TS;    // the tail's place in the staging buffer
+static_assert(TOPK_CHUNK <= TOPK_TAIL_AT, "a maxima chunk must not reach the tail");
+
+// len floats from src into shared dst (16-byte aligned): 16-byte cp.async
+// when src is 16-byte aligned, element by element otherwise and for what
+// is left past the last whole unit.
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int len, int tid) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int u = tid; u < len / 4; u += TOPK_THREADS) f32tile::cp_async16(dst + 4 * u, src + 4 * u, true);
+    done = len & ~3;
+  }
+  for (int e = done + tid; e < len; e += TOPK_THREADS) dst[e] = src[e];
+}
+
+__global__ void __launch_bounds__(TOPK_THREADS)
+subtile_topk_kernel(const float* __restrict__ scores, const float* __restrict__ submax,
+                    const float* __restrict__ tail, int ns, int nr, int c, int k,
+                    float* __restrict__ top, int64_t* __restrict__ idx) {
+  using warptopk::Cand;
+  __shared__ __align__(16) float buf[TOPK_TAIL_AT + TOPK_MAX_TAIL];
+  __shared__ Cand lists[warptopk::WARPS][32];
+  __shared__ int sel[TOPK_MAX_C];
+  __shared__ uint16_t picked[TOPK_TAIL_AT + TOPK_MAX_TAIL];   // positions that reach a bar
+  __shared__ int npicked;
+  __shared__ Cand kth;
+  const int64_t bq = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = ns * TOPK_TS;
+  const float* mrow = submax + bq * ns;
+  const float* srow = scores + bq * n0;
+
+  // The tail does not depend on the selection: its copies fly during it.
+  if (nr > 0) stage_row(buf + TOPK_TAIL_AT, tail + bq * nr, nr, tid);
+
+  // (a) The c sub-tiles with the largest maxima, into warp 0's list.
+  Cand list = warptopk::nothing(), floor = warptopk::nothing();
+  for (int c0 = 0; c0 < ns; c0 += TOPK_CHUNK) {
+    const int len = min(TOPK_CHUNK, ns - c0);
+    stage_row(buf, mrow + c0, len, tid);
+    f32tile::cp_async_commit();
+    f32tile::cp_async_wait<0>();
+    __syncthreads();
+    warptopk::take_filtered(list, floor, lists, picked, &npicked, len, c, tid,
+                            [&](int e) { return buf[e]; }, [&](int e) { return c0 + e; });
+    if (c0 + TOPK_CHUNK < ns) {                       // the next chunk's floor; its copies wait
+      if (warp == 0 && lane == c - 1) kth = list;
+      __syncthreads();
+      floor = kth;
+    }
+  }
+
+  // (b) Their ids ascending (warp 0 holds the best c in lanes 0 .. c-1).
+  if (warp == 0) {
+    uint32_t s = lane < c ? (uint32_t)warptopk::key_id(list.key) : 0xffffffffu;
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+      for (int m = size >> 1; m > 0; m >>= 1) {
+        const uint32_t o = __shfl_xor_sync(0xffffffffu, s, m);
+        s = (((lane & m) == 0) == ((lane & size) == 0)) ? min(s, o) : max(s, o);
+      }
+    if (lane < c) sel[lane] = (int)s;
+  }
+  __syncthreads();
+
+  // (c) The selected sub-tiles, all in flight at once.
+  const bool vec = (reinterpret_cast<uintptr_t>(srow) & 15) == 0;
+  for (int u = tid; u < c * (TOPK_TS / 4); u += TOPK_THREADS) {
+    const int i = u / (TOPK_TS / 4), a = (u % (TOPK_TS / 4)) * 4;
+    const float* src = srow + (int64_t)sel[i] * TOPK_TS + a;
+    if (vec) {
+      f32tile::cp_async16(buf + i * TOPK_TS + a, src, true);
+    } else {
+      for (int j = 0; j < 4; ++j) buf[i * TOPK_TS + a + j] = src[j];
+    }
+  }
+  f32tile::cp_async_commit();
+  f32tile::cp_async_wait<0>();
+  __syncthreads();
+
+  // (d) The best k of the c·ts candidates and the tail; candidate e is
+  // what the plain chain's candidate row holds at position e.
+  const int main_len = c * TOPK_TS;
+  auto at = [&](int e) { return e < main_len ? e : TOPK_TAIL_AT + (e - main_len); };
+  auto gid = [&](int e) { return e < main_len ? sel[e / TOPK_TS] * TOPK_TS + e % TOPK_TS : n0 + (e - main_len); };
+  list = warptopk::nothing();
+  warptopk::take_filtered(list, warptopk::nothing(), lists, picked, &npicked, main_len + nr, k, tid,
+                          [&](int e) { return buf[at(e)]; }, gid);
+
+  // (e)
+  if (warp == 0 && lane < k) {
+    top[bq * k + lane] = buf[at(list.pos)];
+    idx[bq * k + lane] = gid(list.pos);
+  }
+}
+
 // 16-byte copies need f a multiple of 4 floats and both addresses aligned.
 inline int vec_copies(const float* X, const float* Q, int f) {
   return f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
@@ -228,6 +364,23 @@ int mrs_gather_subtiles(const float* scores, const int64_t* sel, float* out,
   const int64_t blocks = (int64_t)b * c;
   gather_subtiles_kernel<<<(unsigned)blocks, 64, 0, (cudaStream_t)stream>>>(
       scores, sel, out, c, ts, n0);
+  return (int)cudaGetLastError();
+}
+
+// scores [b, ns·256], submax [b, ns], tail [b, nr] (null when nr = 0),
+// float32 contiguous → top [b, k] float32 and idx [b, k] int64: per query
+// the best k (≤ 16) of the c (≤ 20, ≤ ns) sub-tiles with the largest maxima
+// and the tail (nr ≤ 2048), under (score descending, global id ascending),
+// the tail's ids following n0 = ns·256; n0 + nr < 2^31. Returns
+// cudaGetLastError() after the launch.
+int mrs_subtile_topk(const float* scores, const float* submax, const float* tail, int b, int ns,
+                     int nr, int c, int k, float* top, int64_t* idx, void* stream) {
+  if (b <= 0 || ns <= 0 || c < 1 || c > TOPK_MAX_C || c > ns || k < 1 || k > TOPK_MAX_K ||
+      nr < 0 || nr > TOPK_MAX_TAIL || (nr > 0 && tail == nullptr) ||
+      (int64_t)ns * TOPK_TS + nr > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  subtile_topk_kernel<<<b, TOPK_THREADS, 0, (cudaStream_t)stream>>>(scores, submax, tail, ns, nr,
+                                                                     c, k, top, idx);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,7 @@ nowhere else, so a run can show its path went through the kernels.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {
-    "taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0,
+    "taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0, "subtile_topk": 0,
     "tilemax_only": 0, "slab_dots": 0,
     "spmv_ell": 0, "search_fused": 0, "search_fused_merge": 0,
 }

@@ -43,6 +43,8 @@ SIGNATURES = {
         "mrs_scores_tilemax_plan": [_P, _P, _I, _P, _P, _P],
         # scores, sel, out, b, c, ts, n0, stream
         "mrs_gather_subtiles": [_P, _P, _P, _I, _I, _I, _I64, _P],
+        # scores, submax, tail (or null), b, ns, nr, c, k, top, idx, stream
+        "mrs_subtile_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "rescored": {
         # X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, n0, f, b, ts,
@@ -76,8 +78,8 @@ SIGNATURES = {
 # library → headers under csrc/ that its source includes (they enter the
 # build's hash; nvcc is given the .cu alone).
 HEADERS = {
-    "tilemax": ("f32_tile_product.cuh",),
-    "search_fused": ("f32_tile_product.cuh",),
+    "tilemax": ("f32_tile_product.cuh", "warp_topk.cuh"),
+    "search_fused": ("f32_tile_product.cuh", "warp_topk.cuh"),
     "rescored": ("wgmma_bf16_rs.cuh",),
 }
 

@@ -1,4 +1,4 @@
-"""Kernels B and C of the exact batched search (``csrc/tilemax.cu``).
+"""Kernels of the exact batched search (``csrc/tilemax.cu``).
 
 * :func:`scores_and_tilemax` — kernel B, in place of the TPU kernel
   ``tilemax_fused.scores_and_tilemax``: blended scores for the first
@@ -7,6 +7,12 @@
 * :func:`gather_subtiles` — kernel C, in place of
   ``tilemax_fused.gather_subtiles``: each query's selected sub-tiles copied
   into one contiguous candidate row.
+* :func:`select_topk` — the candidate stage in one launch
+  (``subtile_topk``), in place of ``gather_subtiles`` and the selection
+  around it: the sub-tiles with the largest maxima, their scores and the
+  ragged tail ranked to the best ``kk ≤ 16``. Its plain version is the
+  selection chain, :func:`select_topk_plain`, which larger ``kk`` take
+  (with kernel C as their gather).
 
 Each has its plain PyTorch version beside it, taken only for CPU tensors.
 """
@@ -26,6 +32,10 @@ SUBS = 8
 # Kernel B's limit: a block owns one sub-tile of exactly KERNEL_TS corpus
 # rows, so it serves tile = SUBS * KERNEL_TS = 2048 (the default tile).
 KERNEL_TS = 256
+# The candidate stage's limits: kk up to kernel G's merge width, at most
+# kk + 4 (the search's SELECT_MARGIN) sub-tiles, a tail shorter than a tile.
+TOPK_MAX_K = 16
+_TOPK_MAX_C, _TOPK_MAX_TAIL = 20, 2048
 # Kernel B's block: 64 queries × 256 corpus rows, 32 features a chunk, a
 # ring of 3 chunks in dynamic shared memory (``csrc/f32_tile_product.cuh``).
 _BLOCK_QUERIES, _CHUNK_FEATURES, _RING = 64, 32, 3
@@ -165,3 +175,72 @@ def gather_subtiles(scores, sel, ts: int):
     _cuda.check(lib, rc, "gather_subtiles kernel")
     kernels.LAUNCHES["gather_subtiles"] += 1
     return out
+
+
+def select_topk_plain(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
+    """The selection chain. ``main [B, nt0, t]`` full-tile (or sub-tile)
+    scores, ``tmax [B, nt0]`` their maxima, ``tail [B, n - nt0·t]`` the
+    ragged remainder (always a candidate) or None. The ``c = min(nt0, kk +
+    margin)`` tiles with the largest maxima (ties lowest id first) are
+    sorted into id order so ties break by global index. ``gather(sel) ->
+    [B, c·t]`` overrides the candidate gather (kernel C on the fused path).
+    Returns ``(top [B, kk], idx [B, kk])``, ties lowest index first."""
+    b, nt0, t = main.shape
+    n0 = nt0 * t
+    c = min(nt0, kk + margin)
+    _, order = torch.sort(tmax, dim=-1, descending=True, stable=True)
+    sel = torch.sort(order[:, :c], dim=1).values
+    if gather is not None:
+        cand = gather(sel)
+    else:
+        cand = torch.gather(main, 1, sel[:, :, None].expand(b, c, t)).reshape(b, c * t)
+    if tail is not None:
+        cand = torch.cat([cand, tail], dim=1)
+    top, pos = torch.sort(cand, dim=-1, descending=True, stable=True)
+    top, pos = top[:, :kk], pos[:, :kk]
+    in_main = pos < c * t
+    tile_of = torch.gather(sel, 1, torch.clamp(pos, max=c * t - 1) // t)
+    gidx = torch.where(in_main, tile_of * t + pos % t, n0 + pos - c * t)
+    return top, gidx
+
+
+def select_route(device: torch.device, kk: int) -> str:
+    """Which way :func:`select_topk` goes: ``"kernel"`` (the one-launch
+    stage) for a tensor off the CPU and ``kk ≤ 16``, else ``"chain"``."""
+    return "kernel" if device.type != "cpu" and kk <= TOPK_MAX_K else "chain"
+
+
+def select_topk(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
+    """:func:`select_topk_plain`'s result, values and ids bit for bit. CPU
+    tensors and ``kk > 16`` take the chain (``gather`` its candidate
+    gather); otherwise one launch of the candidate stage, which needs
+    sub-tiles of ``KERNEL_TS`` rows, ``c = min(nt0, kk + margin) ≤ 20`` and
+    a tail of at most 2,048 columns, and raises on anything else."""
+    if select_route(main.device, kk) == "chain":
+        return select_topk_plain(main, tmax, tail, n, kk, margin, gather)
+    lib = _cuda.library("tilemax")
+    b, ns, ts = main.shape
+    nr = 0 if tail is None else tail.shape[1]
+    c = min(ns, kk + margin)
+    if ts != KERNEL_TS or tmax.shape != (b, ns) or n != ns * ts + nr \
+            or (tail is not None and tail.shape[0] != b):
+        raise ValueError(f"subtile_topk kernel: main {tuple(main.shape)}, maxima "
+                         f"{tuple(tmax.shape)}, tail {None if tail is None else tuple(tail.shape)}, n {n}")
+    if c > _TOPK_MAX_C or nr > _TOPK_MAX_TAIL or n >= 2**31:
+        raise ValueError(f"subtile_topk kernel: c={c}, tail {nr}, n {n} beyond its limits")
+    tensors = dict(main=main, tmax=tmax) | ({} if tail is None else dict(tail=tail))
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"subtile_topk kernel: {name} must be float32, got {t.dtype}")
+    dev = _cuda.require_cuda("subtile_topk kernel", **tensors)
+    top = torch.empty((b, kk), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, kk), dtype=torch.int64, device=dev)
+    if b == 0 or kk == 0:
+        return top, idx
+    rc = lib.mrs_subtile_topk(
+        main.data_ptr(), tmax.data_ptr(), None if tail is None else tail.data_ptr(),
+        b, ns, nr, c, kk, top.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev),
+    )
+    _cuda.check(lib, rc, "subtile_topk kernel")
+    kernels.LAUNCHES["subtile_topk"] += 1
+    return top, idx

@@ -8,8 +8,10 @@ cosine. Exact routes, with the reference's thresholds:
 * tile-max (``N >= TILEMAX_MIN_N``) — per-tile maxima prune the top-k to a
   few candidate tiles (:func:`tilemax_topk`);
 * fused (``N >= FUSED_TILEMAX_MIN_N`` when :func:`fused_fast_path` holds) —
-  kernel B writes the scores and the sub-tile maxima in one pass, kernel C
-  gathers the selected sub-tiles (:func:`fused_tilemax`).
+  kernel B writes the scores and the sub-tile maxima in one pass; one
+  launch selects the sub-tiles and ranks their scores and the ragged tail
+  (``k ≤ 16``), or kernel C gathers the selected sub-tiles for the
+  selection chain (:func:`fused_tilemax`).
 
 Rescored route (:func:`fused_scan_rescored`, where
 :func:`fused_rescored_path` holds): kernel D scans at reduced precision and
@@ -120,6 +122,10 @@ def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
     return (idx[0], top[0]) if single else (idx, top)
 
 
+# The selection chain, in one copy beside the kernel that replaces it.
+_tilemax_select = tmk.select_topk_plain
+
+
 def tilemax_topk(scores: torch.Tensor, k: int, tile: int = DEFAULT_TILE,
                  margin: int = SELECT_MARGIN):
     """Exact top-k over ``scores [B, N]`` via tile-max pruned selection:
@@ -136,30 +142,6 @@ def tilemax_topk(scores: torch.Tensor, k: int, tile: int = DEFAULT_TILE,
     main = scores[:, :n0].reshape(b, nt0, t)
     tail = scores[:, n0:] if n0 < n else None
     return _tilemax_select(main, main.amax(dim=2), tail, n, kk, margin)
-
-
-def _tilemax_select(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
-    """Selection core: ``main [B, nt0, t]`` full-tile scores, ``tmax
-    [B, nt0]`` their maxima, ``tail [B, n - nt0·t]`` the ragged remainder
-    (always a candidate). Selected tiles are sorted into id order so ties
-    break by global index. ``gather(sel) -> [B, c·t]`` overrides the
-    candidate gather (kernel C on the fused path)."""
-    b, nt0, t = main.shape
-    n0 = nt0 * t
-    c = min(nt0, kk + margin)
-    _, sel = topk_stable(tmax, c)
-    sel = torch.sort(sel, dim=1).values
-    if gather is not None:
-        cand = gather(sel)
-    else:
-        cand = torch.gather(main, 1, sel[:, :, None].expand(b, c, t)).reshape(b, c * t)
-    if tail is not None:
-        cand = torch.cat([cand, tail], dim=1)
-    top, pos = topk_stable(cand, kk)
-    in_main = pos < c * t
-    tile_of = torch.gather(sel, 1, torch.clamp(pos, max=c * t - 1) // t)
-    gidx = torch.where(in_main, tile_of * t + pos % t, n0 + pos - c * t)
-    return top, gidx
 
 
 def search_lambda_aware_tilemax(X, norms, lambdas, queries, query_lambdas, k: int,
@@ -179,13 +161,17 @@ def search_lambda_aware_tilemax(X, norms, lambdas, queries, query_lambdas, k: in
 
 def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
                   t: int = DEFAULT_TILE, mask_from: int | None = None,
-                  producer=tmk.scores_and_tilemax, gather=tmk.gather_subtiles):
+                  producer=tmk.scores_and_tilemax, gather=tmk.gather_subtiles,
+                  select=tmk.select_topk):
     """Fused-producer tile-max top-k: kernel B for the scores and sub-tile
-    maxima, the ragged tail scored by :func:`_batched_scores`, kernel C for
-    the candidate gather, selection at sub-tile granularity. ``producer``
-    and ``gather`` default to the kernel wrappers; passing their plain
-    versions runs the same path without the kernels (a comparison run).
-    Rows ≥ ``mask_from`` score -inf. Returns ``(top [B, kk], idx [B, kk])``."""
+    maxima, the ragged tail scored by :func:`_batched_scores`, then
+    ``select`` at sub-tile granularity — on the card the candidate stage in
+    one launch for ``kk ≤ 16``, the selection chain with kernel C as its
+    ``gather`` beyond. ``producer``, ``gather`` and ``select`` default to
+    the kernel wrappers; passing their plain versions runs the same path
+    without the kernels (a comparison run; ``select=tmk.select_topk_plain``
+    alone takes the selection chain with kernel C). Rows ≥ ``mask_from``
+    score -inf. Returns ``(top [B, kk], idx [B, kk])``."""
     b, n = queries.shape[0], X.shape[0]
     nt0 = n // t
     n0 = nt0 * t
@@ -201,7 +187,7 @@ def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
             tail = torch.where(col[None, :] >= mask_from, torch.full_like(tail, -float("inf")), tail)
     ts = t // tmk.SUBS
     ns = nt0 * tmk.SUBS
-    return _tilemax_select(
+    return select(
         smain.view(b, ns, ts), submax, tail, n, kk, SELECT_MARGIN,
         gather=lambda sel: gather(smain, sel, ts),
     )

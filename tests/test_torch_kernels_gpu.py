@@ -6,7 +6,7 @@ one. This file imports no JAX, so it also runs where JAX is absent:
 
 Tolerances: λ |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima ≤ 1e-5 abs (the
 kernels sum the dot products in another order than cuBLAS); the gather
-bit for bit; slab dots ≤ 1e-5·‖q‖·‖x‖; routed results under the same-k
+and the one-launch candidate stage bit for bit (values and ids); slab dots ≤ 1e-5·‖q‖·‖x‖; routed results under the same-k
 rule of ``utils/parity.same_k_mismatches``; the ELL product ≤
 1e-5·Σ_s|w|·|x| (it sums in the plain version's order, so it is in fact
 equal), and bit for bit at the edge shapes; the streamed top-k's ids under
@@ -158,6 +158,81 @@ def test_fused_search_on_card_matches_plain_route(cuda_device):
         gather=ttmk.gather_subtiles_plain,
     )
     assert not topk_mismatches(pidx.cpu(), ptop.cpu(), idx.cpu(), top.cpu())
+
+
+def _stage_inputs(b, ns, nr, kind, device, seed):
+    """Kernel B's outputs as the candidate stage takes them: scores
+    ``[b, ns·256]``, their sub-tile maxima and a tail ``[b, nr]`` (or None),
+    random or integer-valued (ties everywhere); ``misaligned`` puts the
+    scores and maxima one element past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((b, ns * 256 + nr), dtype=np.float32)
+    if kind == "ties":
+        s = rng.integers(0, 4, size=s.shape).astype(np.float32)
+    s = torch.from_numpy(s).to(device)
+    main = s[:, :ns * 256].contiguous()
+    tmax = main.view(b, ns, 256).amax(dim=2)
+    tail = s[:, ns * 256:].contiguous() if nr else None
+    if kind == "misaligned":
+        main, tmax = _misaligned(main), _misaligned(tmax)
+    return main.view(b, ns, 256), tmax, tail
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "misaligned"])
+@pytest.mark.parametrize("b,ns,nr", [(1, 64, 0), (7, 5000, 576), (256, 3904, 576), (256, 200, 0),
+                                     (7, 8, 2047), (7, 40, 1)])
+def test_subtile_topk_kernel_matches_the_chain_bit_for_bit(cuda_device, b, ns, nr, kind):
+    main, tmax, tail = _stage_inputs(b, ns, nr, kind, cuda_device, seed=b + ns + nr)
+    n = ns * 256 + nr
+    for kk in (1, 10, 16):
+        before = kernels.launch_counts()
+        top, idx = ttmk.select_topk(main, tmax, tail, n, kk, tso.SELECT_MARGIN)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["subtile_topk"] == before["subtile_topk"] + 1
+        assert after["gather_subtiles"] == before["gather_subtiles"]
+        ptop, pidx = ttmk.select_topk_plain(main, tmax, tail, n, kk, tso.SELECT_MARGIN)
+        assert idx.dtype == torch.int64 and torch.equal(idx, pidx)
+        assert _bit_equal(top, ptop)
+
+
+@pytest.mark.parametrize("k,kernel,other", [(10, "subtile_topk", "gather_subtiles"),
+                                            (40, "gather_subtiles", "subtile_topk")])
+def test_fused_search_selects_in_one_launch_up_to_k16_and_gathers_beyond(cuda_device, k, kernel, other):
+    arrs = _fixture(40_000, 64, 16, 2, cuda_device)
+    before = kernels.launch_counts()
+    top, idx = tso.fused_tilemax(*arrs[:5], k, arrs[5])
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[kernel] == before[kernel] + 1 and after[other] == before[other]
+    ptop, pidx = tso.fused_tilemax(*arrs[:5], k, arrs[5], select=ttmk.select_topk_plain)
+    assert torch.equal(idx, pidx) and _bit_equal(top, ptop)
+
+
+# mask_from inside a sub-tile, inside the ragged tail (n0 = 38,912).
+@pytest.mark.parametrize("mask_from", [None, 30_000, 39_000])
+def test_fused_search_makes_no_synchronising_call_after_kernel_b(cuda_device, mask_from):
+    """From kernel B's launch to its return, ``fused_tilemax`` (k = 10)
+    makes no call that waits for the card."""
+    arrs = _fixture(40_000, 64, 16, 3, cuda_device)
+    ref = tso.fused_tilemax(*arrs[:5], 10, arrs[5], mask_from=mask_from)
+    torch.cuda.synchronize()
+
+    def producer(*a, **kw):
+        out = ttmk.scores_and_tilemax(*a, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    before = kernels.launch_counts()
+    try:
+        top, idx = tso.fused_tilemax(*arrs[:5], 10, arrs[5], mask_from=mask_from, producer=producer)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["scores_tilemax"] == before["scores_tilemax"] + 1
+    assert after["subtile_topk"] == before["subtile_topk"] + 1
+    assert torch.equal(idx, ref[1]) and torch.equal(top, ref[0])
 
 
 def _scan_corpus(X, dtype):
