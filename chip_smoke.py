@@ -5,8 +5,8 @@
 
 Phases, one output line each (JSON):
 
-1. build — compile the CUDA kernels and the host clustering library from
-   this checkout's sources, all at once; name the card.
+1. build — compile the CUDA kernels, the host clustering library and the
+   shard reader from this checkout's sources, all at once; name the card.
 2. main — the user's main path at the repository's headline size: the
    eigen build of ``make_energy_test_dataset(1_000_000, 128, seed=44)``
    with the benchmark's builder settings, then ``search_batch(k=10,
@@ -47,8 +47,10 @@ Phases, one output line each (JSON):
 4. wide — a build at N = 40,000, F = 768, so the wide-F λ route (the
    TPU's F-tiled kernel range) runs through the builder.
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
-   phase 4, each LOBPCG call of phase 5 and phase 6, and read just after
-   each; every kernel of a path must have launched.
+   phase 4, each LOBPCG call of phase 5, phase 6 and phases 7–9 (build and
+   searches), and read just after each; every kernel of a path must have
+   launched. The kernel rows of A, B and the candidate stage add the
+   launches of phases 7–9 to phase 2's (``launches_by_path``).
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -67,7 +69,36 @@ Phases, one output line each (JSON):
    scores) over row-normalised data and the same batches, against the
    exact tier's ids under the near-tie rule (1e-5); ids distinct, scores
    descending; ms per batch beside the exact tier's.
-7. kernels — each kernel against its plain PyTorch version on the inputs
+7. heuristics — the builder's default k on phase 2's data (no
+   ``max_clusters``, ``with_seed(42)``): ``clustering.compute_optimal_k``
+   timed alone (k bounds, intrinsic dimension, k, radius), one k-means++
+   run and 20 Lloyd iterations on its 1,000-row sample timed apart (both
+   under ``torch.cuda.set_sync_debug_mode("error")``: they read nothing
+   back from the card), then the build (it must take the same k and
+   radius; kernel A launches) and one warm-up and three timed searches
+   (each query finds its own row; kernel B and the candidate stage
+   launch).
+8. jl — ``make_energy_test_dataset(200_000, 768, seed=46)`` (200,000 rows
+   cut from a 1M-row, 768-wide corpus for the run's time limit), phase 2's
+   builder settings (111 clusters at this N) with
+   ``with_dims_reduction(True)`` and ``with_seed(42)``: the
+   reduced width is 384, the card's projection matrix is the host's
+   ``prng.normal`` draw bit for bit, kernel A launches on the projected
+   rows and is held against its plain version there (1e-5·max(1, |λ|)),
+   λ is finite; then one warm-up and three timed searches with phase 2's
+   checks (own row, exact blended scores within 1e-5, the plain route
+   under the near-tie rule). Stage, projection and host-matrix seconds.
+9. persist — if ``pyarrow`` imports (an up-front check, never a caught
+   error): ``save_checkpoint`` of phase 8's index into a temporary
+   directory, ``load_arrowspace(device="cuda")``, the same batches: ids
+   equal, scores and λ bit-equal; save and load seconds, bytes on disk;
+   then ``drop_data()`` and ``prepare_query_item`` gives the same λ.
+   Without ``pyarrow`` the line says ``"pyarrow": "absent"``.
+10. shards — phase 8's rows written as raw shards of 65,536 rows (the last
+   partial), streamed back in 32,768-row blocks by the native reader onto
+   the card (bit for bit against X), ``read_rows`` of a batch's ids; write
+   and read-to-card MB/s.
+11. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -132,8 +163,10 @@ Phases, one output line each (JSON):
    {1, 7, 256}, f32 and int8 rows, X aligned and 4 bytes off; ids out of
    range give exactly their NaN slices.
 
-Then the ``kernels`` line, the card's name and power limit
-(``nvidia-smi``), and last ``{"ok": true, "device": {...}}``. Any failed
+Every phase line carries ``at_seconds``, the time since the script
+started; a ``total`` line gives the whole run's seconds. Then the
+``kernels`` line, the card's name and power limit (``nvidia-smi``), and
+last ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero. Without a CUDA card it exits 2 and prints no result.
 """
 
@@ -195,6 +228,12 @@ EDGE_N_F, EDGE_K_F, EDGE_M_F = (1, 31, 16_384), (1, 14, 40), (1, 15, 16, 17, 256
 EDGE_F_E, EDGE_TS_E, EDGE_C_E, EDGE_B_E, EDGE_SLABS_E = (
     (1, 3, 100, 128, 768, 2048), (128, 256), (1, 14), (1, 7, 256), 40)
 PLAIN_GATHER_BYTES = 1 << 28  # kernel E's plain version gathers at most this much at once
+# Phases heuristics, jl, persist, shards. The jl corpus is 200,000 rows cut
+# from a 1M-row, 768-wide one for the run's time limit; its 111 clusters
+# give the JL width min(jl_dim(111, 768, 0.3) = 419, 768 // 2) = 384.
+SEED_HEURISTICS = 42
+N_JL, F_JL, SEED_JL, JL_DIM = 200_000, 768, 46, 384
+SHARD_ROWS, SHARD_BLOCK_ROWS = 65_536, 32_768
 
 
 class SmokeFailure(RuntimeError):
@@ -206,8 +245,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One phase line; ``at_seconds`` is the time since the script started."""
+    print(json.dumps({**kw, "at_seconds": time.perf_counter() - T_START}), flush=True)
 
 
 def card_line() -> str:
@@ -279,7 +322,13 @@ def main() -> int:
 
     import logging
 
+    import importlib.util
+    import tempfile
+
     from matternet_rs_tpu_torch import ArrowSpace, ArrowSpaceBuilder, GraphParams, buildcache, core, native
+    from matternet_rs_tpu_torch import clustering as clus
+    from matternet_rs_tpu_torch import prng
+    from matternet_rs_tpu_torch.storage import shards
     from matternet_rs_tpu_torch.ops import eigensolver as eig
     from matternet_rs_tpu_torch.ops import kernels
     from matternet_rs_tpu_torch.ops import laplacian as lap
@@ -303,10 +352,11 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
-    specs = _cuda.specs() + ([native.spec()] if native.spec() else [])
+    specs = _cuda.specs() + [sp for sp in (native.spec(), native.shard_reader_spec()) if sp]
     buildcache.build(specs)
     _cuda.build_all()
     check(native.get_lib() is not None, "native clustering library did not load")
+    check(native.get_shard_lib() is not None, "native shard reader did not load")
     ptxas = [
         line.strip() for log in buildcache.BUILD_LOG.values()
         for line in log.splitlines() if "registers" in line or "spill" in line
@@ -713,7 +763,221 @@ def main() -> int:
     for kname in ("search_fused", "search_fused_merge"):
         check(st_counts[kname] == len(results), f"kernel {kname} launched {st_counts[kname]} times")
 
-    # -- 7. kernels against their plain versions -----------------------
+
+    # -- 7. heuristics: the builder's default k on the headline data -------
+    def bit_equal(a, b):
+        """Same shape and the same float32 bits (NaN, inf and ±0 included)."""
+        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+    def blended(sp, Q, ql, ids):
+        """f32 blended scores of rows ``ids [B, k]`` of space ``sp``."""
+        dots = torch.sum(sp.data[ids] * Q[:, None, :], dim=-1)
+        qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+        return tmk.blend(dots, sp.norms[ids] * qn[:, None], sp.lambdas[ids], ql[:, None], ALPHA)
+
+    def search_batches(sp, sgl, Xh, batch_rows):
+        """``search_batch`` over the batches (the first a warm-up): ms per
+        batch, the outputs, the raw query λ, and the queries that miss
+        their own row."""
+        ms, outs, raws, missed = [], [], [], 0
+        for r in batch_rows:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            idx, sc, raw = sp.search_batch(Xh[r], sgl, k=K, alpha=ALPHA, return_raw=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            check(idx.shape == (BATCH, K) and np.all(np.isfinite(sc)), "bad search output")
+            missed += sum(int(r[b] not in idx[b]) for b in range(BATCH))
+            outs.append((idx, sc))
+            raws.append(raw)
+        return ms, outs, raws, missed
+
+    def checked_search(sp, sgl, Xh, batch_rows):
+        """:func:`search_batches` plus the exact-score check and the plain
+        route (the kernels' plain versions) under the near-tie rule."""
+        ms, outs, raws, missed = search_batches(sp, sgl, Xh, batch_rows)
+        mn_s = torch.tensor(sp.min_lambdas, device=dev)
+        rg_s = torch.tensor(sp.range_lambdas, device=dev)
+        score_err, plain_bad = 0.0, []
+        for r, (idx, sc), raw in zip(batch_rows, outs, raws):
+            Q = sp.data[torch.from_numpy(r).to(dev)]
+            ql = torch.clamp((torch.from_numpy(raw).to(dev) - mn_s) / rg_s, 0.0, 1.0)
+            ex = blended(sp, Q, ql, torch.from_numpy(idx).to(dev))
+            score_err = max(score_err, float((torch.from_numpy(sc).to(dev) - ex).abs().max()))
+            top_p, idx_p = so.fused_tilemax(
+                sp.data, sp.norms, sp.lambdas, Q, ql, K + 1, alphas, so.DEFAULT_TILE,
+                producer=tmk.scores_and_tilemax_plain, gather=tmk.gather_subtiles_plain,
+                select=tmk.select_topk_plain,
+            )
+            plain_bad += topk_mismatches(idx_p.cpu().numpy(), top_p.cpu().numpy(), idx, sc, TOL_SCORE)
+        return ms, outs, dict(self_query_failures=missed, max_score_err=score_err,
+                              plain_route_mismatches=plain_bad[:10])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    path_counts = {}          # launches of each new path, by phase
+    (k_opt, radius, id_est), heur_s = timed(lambda: clus.compute_optimal_k(Xt, SEED_HEURISTICS))
+    (k_min, k_max, _), bounds_s = timed(lambda: clus.step1_bounds(Xt, SEED_HEURISTICS))
+    sample = np.random.default_rng(SEED_HEURISTICS).permutation(N_MAIN)[:1000]
+    Xs = torch.from_numpy(X[sample]).to(dev)
+    k0, omu = clus.kmeanspp_uniforms(SEED_HEURISTICS, k_opt)
+    first = int(prng.randint(k0, (), 0, Xs.shape[0]))
+    omu_t = torch.from_numpy(omu).to(dev)
+    draws_s = timed(lambda: clus.kmeanspp_uniforms(SEED_HEURISTICS, k_opt))[1]
+    # The k-means++ loop and Lloyd's iterations read nothing back from the
+    # card: any synchronising call in them raises here.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        init = clus.kmeanspp_steps(Xs, first, omu_t)
+        enqueue_pp_s = time.perf_counter() - t
+        clus.lloyd(Xs, init, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    init, kpp_s = timed(lambda: clus.kmeanspp_steps(Xs, first, omu_t))
+    _, lloyd_s = timed(lambda: clus.lloyd(Xs, init, 20))
+    hbuilder = (ArrowSpaceBuilder().with_lambda_graph(1.0, 6).with_sparsity_check(False)
+                .with_sampling(None).with_seed(SEED_HEURISTICS))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    (haspace, hgl), hbuild_s = timed(lambda: hbuilder.build(X))
+    hms, _, _, hmissed = search_batches(haspace, hgl, X, batches)
+    path_counts["heuristics"] = kernels.launch_counts()
+    emit(phase="heuristics", n=N_MAIN, f=F_MAIN, card=card, seed=SEED_HEURISTICS,
+         k_min=k_min, k_max=k_max, intrinsic_dim=id_est, k_opt=k_opt, radius=radius,
+         compute_optimal_k_seconds=heur_s, bounds_seconds=bounds_s,
+         kmeanspp_host_draws_seconds=draws_s, kmeanspp_seconds=kpp_s,
+         kmeanspp_enqueue_seconds=enqueue_pp_s, lloyd_20_iters_seconds=lloyd_s,
+         build_seconds=hbuild_s, stage_seconds=hbuilder.last_stage_timings,
+         build_k=hbuilder.cluster_max_clusters, build_radius=hbuilder.cluster_radius,
+         n_clusters=haspace.n_clusters, warmup_ms=hms[0],
+         search_ms_per_batch_median=statistics.median(hms[1:]), search_ms_per_batch=hms[1:],
+         self_query_failures=hmissed, launches=path_counts["heuristics"])
+    check(hbuilder.cluster_max_clusters == k_opt and hbuilder.cluster_radius == radius,
+          f"heuristics: the build took k={hbuilder.cluster_max_clusters}, radius="
+          f"{hbuilder.cluster_radius}, not {k_opt}, {radius}")
+    check(k_min <= k_opt <= k_max, f"heuristics: k={k_opt} outside [{k_min}, {k_max}]")
+    check(np.all(np.isfinite(haspace.lambdas.cpu().numpy())), "heuristics: non-finite λ")
+    check(hmissed == 0, f"heuristics: {hmissed} queries miss their own row")
+    for kname in ("taumode", "scores_tilemax", "subtile_topk"):
+        check(path_counts["heuristics"][kname] > 0, f"heuristics: kernel {kname} not launched")
+    del haspace, hgl, Xs
+
+    # -- 8. jl: the JL projection through the builder --------------------
+    Xj = make_energy_test_dataset(N_JL, F_JL, seed=SEED_JL).astype(np.float32)
+    jrows = np.random.default_rng(8).choice(N_JL, BATCH * (N_BATCHES + 1), replace=False)
+    jbatches = jrows.reshape(N_BATCHES + 1, BATCH)
+    jbuilder = make_builder(N_JL).with_dims_reduction(True).with_seed(SEED_HEURISTICS)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    (jaspace, jgl), jbuild_s = timed(lambda: jbuilder.build(Xj))
+    jms, jouts, jchecks = checked_search(jaspace, jgl, Xj, jbatches)
+    path_counts["jl"] = kernels.launch_counts()
+    proj = jaspace.projection
+    check(jaspace.reduced_dim == JL_DIM and proj is not None and tuple(jgl.matrix.shape) == (JL_DIM, JL_DIM),
+          f"jl: reduced_dim {jaspace.reduced_dim}, graph {tuple(jgl.matrix.shape)}, not {JL_DIM}")
+    m_host, host_matrix_s = timed(lambda: prng.normal(prng.PRNGKey(proj.seed), (F_JL, JL_DIM))
+                                  * np.float32(1.0 / np.sqrt(JL_DIM)))
+    matrix_equal = bit_equal(proj.matrix(dev).cpu(), torch.from_numpy(m_host))
+    Pj, project_s = timed(lambda: proj.project(jaspace.data))
+    jplan = tk.taumode_plan_chosen(Pj)
+    # Kernel A at the jl path's shape (the projected rows against the
+    # r × r graph) against its plain version; the path's count is read.
+    Lj = jgl.matrix.contiguous()
+    tau_j = tmo.select_tau(Pj, tmo.TAU_MEDIAN)
+    lam_k, lam_p = tk.taumode_lambdas_fused(Pj, Lj, tau_j), tk.taumode_lambdas_plain(Pj, Lj, tau_j)
+    jlam_rel = float(((lam_k - lam_p).abs() / torch.clamp(lam_p.abs(), min=1.0)).max())
+    del Pj, lam_k, lam_p
+    jlam_finite = bool(torch.all(torch.isfinite(jaspace.lambdas)))
+    emit(phase="jl", n=N_JL, f=F_JL, reduced_dim=jaspace.reduced_dim, card=card,
+         cut="200,000 rows of a 1M-row, 768-wide corpus, for the run's time limit",
+         build_seconds=jbuild_s, stage_seconds=jbuilder.last_stage_timings,
+         n_clusters=jaspace.n_clusters, projection_seconds=project_s,
+         projection_matrix_host_seconds=host_matrix_s, matrix_bit_equal_to_host=matrix_equal,
+         taumode_plan_at_reduced_dim=jplan, taumode_kernel_vs_plain_max_rel=jlam_rel,
+         lambda_finite=jlam_finite, warmup_ms=jms[0],
+         search_ms_per_batch_median=statistics.median(jms[1:]), search_ms_per_batch=jms[1:],
+         checks=jchecks, launches=path_counts["jl"])
+    check(matrix_equal, "jl: the card's projection matrix is not prng.normal's, bit for bit")
+    check(jlam_finite, "jl: non-finite λ")
+    check(jlam_rel <= TOL_LAMBDA, f"jl: kernel A vs plain λ at r = {JL_DIM}: {jlam_rel}")
+    check(jchecks["self_query_failures"] == 0, f"jl: {jchecks['self_query_failures']} queries miss their own row")
+    check(jchecks["max_score_err"] <= TOL_SCORE, f"jl: returned scores off by {jchecks['max_score_err']}")
+    check(not jchecks["plain_route_mismatches"], f"jl: kernel vs plain route: {jchecks['plain_route_mismatches'][:3]}")
+    for kname in ("taumode", "scores_tilemax", "subtile_topk"):
+        check(path_counts["jl"][kname] > 0, f"jl: kernel {kname} not launched")
+
+    # -- 9. persist: a checkpoint of the jl index, reloaded on the card ----
+    have_pyarrow = importlib.util.find_spec("pyarrow") is not None
+    if have_pyarrow:
+        from matternet_rs_tpu_torch.storage import parquet as spq
+
+        with tempfile.TemporaryDirectory(prefix="mrs-checkpoint-") as tmp:
+            _, save_s = timed(lambda: spq.save_checkpoint(jaspace, jgl, jbuilder, tmp, "jl"))
+            disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            (raspace, rgl), load_s = timed(lambda: spq.load_arrowspace(tmp, "jl", device="cuda"))
+            pms, pouts, _, _ = search_batches(raspace, rgl, Xj, jbatches)
+            path_counts["persist"] = kernels.launch_counts()
+        same_ids = all(np.array_equal(a[0], b[0]) for a, b in zip(jouts, pouts))
+        same_scores = all(np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+                          for a, b in zip(jouts, pouts))
+        same_lams = bit_equal(raspace.lambdas, jaspace.lambdas)
+        lam_before = jaspace.prepare_query_item(Xj[jbatches[1][0]], jgl)
+        raspace.drop_data()
+        lam_after = raspace.prepare_query_item(Xj[jbatches[1][0]], rgl)
+        emit(phase="persist", pyarrow="present", card=card, n=N_JL, f=F_JL,
+             save_seconds=save_s, load_seconds=load_s, bytes_on_disk=disk,
+             warmup_ms=pms[0], search_ms_per_batch_median=statistics.median(pms[1:]),
+             search_ms_per_batch=pms[1:], ids_equal=same_ids, scores_bit_equal=same_scores,
+             lambdas_bit_equal=same_lams, query_lambda_after_drop_data=lam_after,
+             query_lambda_before=lam_before, launches=path_counts["persist"])
+        check(same_ids and same_scores and same_lams,
+              "persist: the reloaded index does not search bit for bit as the built one")
+        check(lam_after == lam_before and raspace.data.shape[0] == 0,
+              f"persist: λ after drop_data {lam_after} != {lam_before}")
+        for kname in ("scores_tilemax", "subtile_topk"):
+            check(path_counts["persist"][kname] > 0, f"persist: kernel {kname} not launched")
+        del raspace, rgl
+    else:
+        emit(phase="persist", pyarrow="absent", card=card)
+
+    # -- 10. shards: the raw shard store, streamed onto the card -----------
+    with tempfile.TemporaryDirectory(prefix="mrs-shards-") as tmp:
+        manifest, write_s = timed(lambda: shards.write_shards(Xj, tmp, rows_per_shard=SHARD_ROWS))
+        reader = shards.stream_blocks(tmp, SHARD_BLOCK_ROWS)
+        native_reader = reader.native
+        parts, read_s = timed(lambda: [torch.from_numpy(b).to(dev) for b in reader])
+        streamed_equal = bit_equal(torch.cat(parts), torch.from_numpy(Xj).to(dev))
+        ids = jbatches[1]
+        rows_equal = np.array_equal(shards.read_rows(tmp, ids), Xj[ids])
+    nbytes = Xj.nbytes
+    emit(phase="shards", card=card, n=N_JL, f=F_JL, rows_per_shard=SHARD_ROWS,
+         block_rows=SHARD_BLOCK_ROWS, shard_rows=[sh["rows"] for sh in manifest["shards"]],
+         bytes=nbytes, write_seconds=write_s, write_mb_s=nbytes / write_s / 1e6,
+         read_to_card_seconds=read_s, read_to_card_mb_s=nbytes / read_s / 1e6,
+         native_reader=native_reader, blocks=len(parts), streamed_bit_equal=streamed_equal,
+         read_rows_equal=rows_equal,
+         note="the read follows the write, so the files are likely in the page cache")
+    check(native_reader, "shards: the native reader did not open")
+    check(manifest["n_rows"] == N_JL and manifest["shards"][-1]["rows"] == N_JL % SHARD_ROWS,
+          f"shards: manifest {manifest['shards']}")
+    check(streamed_equal and rows_equal, "shards: streamed or fetched rows differ from X")
+    del parts, jaspace, jgl
+
+    def launches_by_path(kname, main):
+        """A kernel row's launches: the main path's and each new path's."""
+        per = {"main": main, **{p: c[kname] for p, c in path_counts.items()}}
+        return sum(per.values()), per
+
+    # -- 11. kernels against their plain versions -----------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
 
     def cuda_ms(fn, reps=5):
@@ -729,10 +993,6 @@ def main() -> int:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return statistics.median(times)
-
-    def bit_equal(a, b):
-        """Same shape and the same float32 bits (NaN, inf and ±0 included)."""
-        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
@@ -784,8 +1044,12 @@ def main() -> int:
         record_resources(label, "taumode", "taumode_lambda_kernelILb1E",
                          tk.taumode_plan(n, f, Xk.data_ptr() % 16 == 0, sms), tk.taumode_plan_chosen(Xk))
 
+    # The heuristics build (F = 128) and the jl build (r = 384) take the
+    # kernel's ≤ 512-feature range, this row's.
+    tau_launches, tau_by_path = launches_by_path("taumode", main_counts["taumode"])
     lam_row("taumode_lambda", "matternet_rs_tpu/ops/pallas/taumode_fused.py:79",
-            Xt, gl.matrix.contiguous(), main_counts["taumode"])
+            Xt, gl.matrix.contiguous(), tau_launches)
+    rows_out[-1]["launches_by_path"] = tau_by_path
     lam_row("taumode_lambda_wide_f", "matternet_rs_tpu/ops/pallas/taumode_fused.py:231",
             waspace.data, wgl.matrix.contiguous(), wide_counts["taumode"])
 
@@ -803,10 +1067,11 @@ def main() -> int:
         2 * BATCH * n0 * F_MAIN,
     )
     Xn0 = Xt[:n0]
+    b_launches, b_by_path = launches_by_path("scores_tilemax", main_counts["scores_tilemax"])
     rows_out.append(dict(
         name="scores_tilemax", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
         replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:492",
-        launches=main_counts["scores_tilemax"], max_abs_err=err_b,
+        launches=b_launches, launches_by_path=b_by_path, max_abs_err=err_b,
         ms=cuda_ms(lambda: tmk.scores_and_tilemax(Xt, norms, lams, Q, ql, alphas, tile=tile)),
         plain_ms=cuda_ms(lambda: tmk.scores_and_tilemax_plain(Xt, norms, lams, Q, ql, alphas, tile=tile), reps=3),
         bound_ms=bms, bound_by=by,
@@ -860,10 +1125,12 @@ def main() -> int:
 
     full = torch.cat([s_k, tail], dim=1)
     bms, by = bound(4 * BATCH * (ns + c * ts + nr) + 12 * BATCH * K, 0)
+    h_launches, h_by_path = launches_by_path("subtile_topk", main_counts["subtile_topk"])
     rows_out.append(dict(
         name="subtile_topk", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
         replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
-        launches=main_counts["subtile_topk"], max_abs_err=float((top_k - top_p).abs().max()),
+        launches=h_launches, launches_by_path=h_by_path,
+        max_abs_err=float((top_k - top_p).abs().max()),
         ms=cuda_ms(lambda: tmk.select_topk(*stage_args), reps=20),
         launch_ms=cuda_ms(stage_launch, reps=20),
         launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
@@ -1310,6 +1577,7 @@ def main() -> int:
     torch.cuda.synchronize()
     emit(phase="kernels", card=card, rows=len(rows_out), resources=resources, edge_cases=edge)
 
+    emit(phase="total", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ names so each counterpart is easy to find. It imports ``torch`` and
 ``numpy`` only. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit CPU request they raise.
 
-Ported so far: the eigen build (:class:`ArrowSpaceBuilder`) and the
+Ported so far: the eigen build (:class:`ArrowSpaceBuilder`, with the
+optimal-k heuristics, the JL projection and Parquet persistence) and the
 λ-aware batched search (:meth:`ArrowSpace.search_batch`) with its exact and
-quantised tiers; the large-F sparse path (ELL graphs and their direct
-build, sparse λ beyond 2048 features, the LOBPCG eigensolver); and a
+quantised tiers; ``jax.random``'s threefry stream (:mod:`.prng`); the
+Parquet checkpoints and the single-host shard store (:mod:`.storage`,
+which alone imports ``pyarrow``); the large-F sparse path (ELL graphs and
+their direct build, sparse λ beyond 2048 features, the LOBPCG
+eigensolver); and a
 hand-written CUDA kernel for every TPU kernel of the reference — the
 taumode λ, the fused score + sub-tile maxima producer, the sub-tile gather,
 the maxima-first scan, the slab rescore, the ELL sparse product and the

@@ -33,9 +33,10 @@ class Spec:
     sources: tuple[pathlib.Path, ...]
     cmd: tuple[str, ...]          # compiler and flags, without -o / sources
     deps: tuple[pathlib.Path, ...] = ()   # included headers: hashed, not compiled
+    libs: tuple[str, ...] = ()    # linker inputs, after the sources
 
     def target(self) -> pathlib.Path:
-        h = hashlib.sha256("\0".join(self.cmd).encode())
+        h = hashlib.sha256("\0".join(self.cmd + self.libs).encode())
         for src in (*self.sources, *self.deps):
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
@@ -52,7 +53,7 @@ def build(specs: list[Spec]) -> list[pathlib.Path]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        argv = [*spec.cmd, "-o", str(tmp), *map(str, spec.sources)]
+        argv = [*spec.cmd, "-o", str(tmp), *map(str, spec.sources), *spec.libs]
         proc = subprocess.Popen(
             argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

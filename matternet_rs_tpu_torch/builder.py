@@ -1,16 +1,15 @@
 """ArrowSpaceBuilder: the fluent eigen-build API (twin of the reference's
 ``builder.py``).
 
-``build`` runs: incremental clustering (host C++) → feature-space
-Laplacian from the centroids (ELL-backed from 8192 features) → taumode λ
-(kernel A from 32768 rows; the sparse ELL route beyond 2048 features) →
-normalisation → sorted-λ index, all on the builder's device.
-
-Not ported yet, and raising ``NotImplementedError``: the optimal-k
-heuristics (``compute_optimal_k``, k-means++ on ``jax.random``) — set
-``with_cluster_params(max_clusters=...)``; the JL projection
-(``with_dims_reduction(True)``, its matrix comes from ``jax.random``);
-persistence (``with_persistence``). ROADMAP.md Queue 1 item 5 carries them.
+``build`` runs: the optimal-k heuristics unless ``max_clusters`` is set
+(``clustering.compute_optimal_k``, on the builder's device) → incremental
+clustering (host C++) → the centroids' JL projection with
+``with_dims_reduction(True)`` → feature-space Laplacian from the
+centroids (ELL-backed from 8192 features) → taumode λ (kernel A from 32768
+rows; the sparse ELL route beyond 2048 features; of the projected rows
+when the graph is r × r) → normalisation → sorted-λ index, all on the
+builder's device. ``with_persistence`` writes the reference's Parquet
+artifacts along the way (:mod:`.storage.parquet`).
 """
 
 from __future__ import annotations
@@ -28,12 +27,11 @@ from matternet_rs_tpu_torch import eigenmaps as em
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.core import TAUDEFAULT, ArrowSpace, TauMode
 from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
+from matternet_rs_tpu_torch.reduction import ImplicitProjection, compute_jl_dimension, project_matrix
 from matternet_rs_tpu_torch.sampling import InlineSampler, make_sampler
 from matternet_rs_tpu_torch.utils.profiling import StageTimer
 
 log = logging.getLogger(__name__)
-
-SLICE2 = "ROADMAP.md Queue 1 item 5"
 
 
 @dataclasses.dataclass
@@ -57,6 +55,10 @@ class ArrowSpaceBuilder:
     cluster_max_clusters: Optional[int] = None
     cluster_radius: float = 1.0
     clustering_seed: Optional[int] = None
+    deterministic_clustering: bool = False
+
+    use_dims_reduction: bool = False
+    rp_eps: float = 0.3
 
     persistence: Optional[tuple[str, Path]] = None
 
@@ -98,21 +100,30 @@ class ArrowSpaceBuilder:
             self.cluster_max_clusters = max_clusters
         if radius is not None:
             self.cluster_radius = radius
+            # A user radius stays when the heuristics choose k.
+            self._radius_user_set = True
         return self
 
     def with_seed(self, seed: int) -> "ArrowSpaceBuilder":
         self.clustering_seed = seed
         return self
 
+    def with_deterministic_clustering(self, enabled: bool = True) -> "ArrowSpaceBuilder":
+        self.deterministic_clustering = enabled
+        return self
+
     def with_dims_reduction(self, enabled: bool, rp_eps: float = 0.3) -> "ArrowSpaceBuilder":
-        if enabled:
-            raise NotImplementedError(
-                f"the JL projection draws from jax.random and is not ported yet: {SLICE2}"
-            )
+        self.use_dims_reduction = enabled
+        self.rp_eps = rp_eps
         return self
 
     def with_persistence(self, name: str, path) -> "ArrowSpaceBuilder":
         self.persistence = (name, Path(path))
+        return self
+
+    def with_expected_items(self, n: int) -> "ArrowSpaceBuilder":
+        """Dataset-size hint (the energy build's adaptive token count)."""
+        self.nitems = int(n)
         return self
 
     # -- helpers -------------------------------------------------------
@@ -130,22 +141,33 @@ class ArrowSpaceBuilder:
         elif self.lambda_k < 10:
             self.lambda_topk = 4
 
-    def _cluster_working(self, aspace: ArrowSpace, working: np.ndarray) -> np.ndarray:
-        """Sampler → incremental clustering; returns the centroids."""
-        if self.cluster_max_clusters is None:
-            raise NotImplementedError(
-                "compute_optimal_k (k-means++ on jax.random) is not ported yet: "
-                f"set with_cluster_params(max_clusters=...) ({SLICE2})"
-            )
+    def _cluster_working(self, aspace: ArrowSpace, working: np.ndarray,
+                         resident=None) -> np.ndarray:
+        """Sampler → optimal-k heuristics (unless ``max_clusters`` is set) →
+        incremental clustering, in ``working``'s space (raw or JL-reduced);
+        returns the centroids. ``resident`` is ``working``'s copy on the
+        device, if there is one: the heuristics' neighbour search reads it."""
         n_items = working.shape[0]
         sampler: Optional[InlineSampler] = None
         if n_items > 1000 and self.sampling is not None:
             kind, rate = self.sampling
             sampler = make_sampler(kind, rate, seed=self.clustering_seed or 0)
-        radius = self.cluster_radius
+
+        if self.cluster_max_clusters is not None:
+            k_opt, radius = self.cluster_max_clusters, self.cluster_radius
+        else:
+            if self.clustering_seed is None:
+                raise ValueError("clustering_seed must be set for full heuristics")
+            k_opt, radius, _ = clus.compute_optimal_k(
+                working if resident is None else resident, self.clustering_seed, self.device)
+            if getattr(self, "_radius_user_set", False):
+                radius = self.cluster_radius
+            self.cluster_max_clusters, self.cluster_radius = k_opt, radius
+
         out = clus.incremental_clustering(
-            working, max_clusters=self.cluster_max_clusters, radius=radius,
-            sampler=sampler,
+            working, max_clusters=k_opt, radius=radius, sampler=sampler,
+            deterministic=self.deterministic_clustering or n_items <= 4096,
+            device=self.device,
         )
         aspace.n_clusters = len(out.centroids)
         aspace.cluster_assignments = out.assignments
@@ -153,31 +175,111 @@ class ArrowSpaceBuilder:
         aspace.cluster_radius = radius
         return out.centroids
 
+    def _projection(self, n_features: int, target: int) -> ImplicitProjection:
+        # Seed 0 is a user seed: only None means unset.
+        return ImplicitProjection(
+            n_features, target, 42 if self.clustering_seed is None else self.clustering_seed
+        )
+
     def start_clustering(self, rows: np.ndarray) -> tuple[ArrowSpace, np.ndarray]:
+        """Clustering in the raw space; with ``use_dims_reduction`` and
+        F > 64 the centroids are then JL-projected when the target width
+        ``min(jl_dim(C, F, ε), F // 2)`` exceeds the centroid count."""
         rows = np.asarray(rows, np.float32)
+        n_features = rows.shape[1]
         aspace = ArrowSpace.from_items(rows, self.synthesis, device=self.device)
-        return aspace, self._cluster_working(aspace, rows)
+        centroids = self._cluster_working(aspace, rows, resident=aspace.data)
+        if self.use_dims_reduction and n_features > 64:
+            jl_dim = compute_jl_dimension(aspace.n_clusters, n_features, self.rp_eps)
+            target = min(jl_dim, n_features // 2)
+            if target < n_features and target > centroids.shape[0]:
+                proj = self._projection(n_features, target)
+                centroids = project_matrix(centroids, proj, self.device).cpu().numpy()
+                aspace.projection = proj
+                aspace.reduced_dim = target
+        return aspace, centroids
+
+    def start_clustering_dim_reduce(self, rows: np.ndarray) -> tuple[ArrowSpace, np.ndarray]:
+        """Early JL: with ``use_dims_reduction`` and F > 1000, every row is
+        projected to ``max(min(jl_dim(N, F, ε), F // 2), 64)`` columns first
+        (in row blocks of ≈ 64 MB), and the heuristics and the clustering
+        run in the reduced space. The space keeps the original rows and the
+        projection; the centroids come back reduced."""
+        rows = np.asarray(rows, np.float32)
+        n_items, n_features = rows.shape
+        aspace = ArrowSpace.from_items(rows, self.synthesis, device=self.device)
+        working, resident = rows, aspace.data
+        if self.use_dims_reduction and n_features > 1000:
+            jl_dim = compute_jl_dimension(n_items, n_features, self.rp_eps)
+            target = max(min(jl_dim, n_features // 2), 64)
+            proj = self._projection(n_features, target)
+            blk = max(1, (16 << 20) // max(n_features, 1))
+            working = np.concatenate([
+                project_matrix(aspace.data[i:i + blk], proj).cpu().numpy()
+                for i in range(0, n_items, blk)
+            ], axis=0)
+            resident = None
+            aspace.projection = proj
+            aspace.reduced_dim = target
+            log.info("early JL projection: %d → %d dims (ε=%.2f, %.1fx compression)",
+                     n_features, target, self.rp_eps, n_features / target)
+        return aspace, self._cluster_working(aspace, working, resident)
 
     # -- build ---------------------------------------------------------
     def build(self, rows) -> tuple[ArrowSpace, GraphLaplacian]:
-        """Full eigen build; stage times land in ``last_stage_timings``."""
-        if self.persistence is not None:
-            raise NotImplementedError(f"persistence is not ported yet: {SLICE2}")
+        """Full eigen build; stage times land in ``last_stage_timings``.
+        With persistence: the raw rows, the centroids (twice, as the
+        reference names them), the Laplacian, the signals, the λ and the
+        metadata."""
         rows = np.asarray(rows, np.float32)
         n_items = rows.shape[0]
         t0 = time.time()
         self.define_result_k()
+        self._persist_dense("raw_input", rows)
         timer = StageTimer(self.device)
 
         with timer.stage("clustering", items=n_items):
             aspace, centroids = self.start_clustering(rows)
+        self._persist_dense("clustered-dm", centroids)
+        self._persist_dense("laplacian-input", centroids)
         with timer.stage("laplacian", items=int(centroids.shape[1])):
             gl = em.eigenmaps(aspace, self, centroids, n_items)
+        if self.persistence is not None:
+            self._persist_sparse("gl-matrix", gl.dense().cpu().numpy())
+            if self.prebuilt_spectral and aspace.signals is not None:
+                self._persist_sparse("aspace-signals", aspace.signals.cpu().numpy())
         with timer.stage("taumode", items=n_items):
             aspace.compute_taumode(gl)
         with timer.stage("sorted-index", items=n_items):
             aspace.build_lambdas_sorted()
+        self._persist_lambdas(aspace)
         self.last_stage_timings = timer.as_dict()
         log.info("ArrowSpace build complete: %d items, %d centroids, %.3fs",
                  n_items, aspace.n_clusters, time.time() - t0)
         return aspace, gl
+
+    # -- persistence hooks ---------------------------------------------
+    def _persist_dense(self, tag: str, arr: np.ndarray) -> None:
+        if self.persistence is None:
+            return
+        from matternet_rs_tpu_torch.storage import parquet as pq
+
+        name, path = self.persistence
+        pq.save_dense_matrix(arr, path, f"{name}-{tag}", builder=self)
+
+    def _persist_sparse(self, tag: str, arr: np.ndarray) -> None:
+        if self.persistence is None:
+            return
+        from matternet_rs_tpu_torch.storage import parquet as pq
+
+        name, path = self.persistence
+        pq.save_sparse_matrix(arr, path, f"{name}-{tag}", builder=self)
+
+    def _persist_lambdas(self, aspace: ArrowSpace) -> None:
+        if self.persistence is None:
+            return
+        from matternet_rs_tpu_torch.storage import parquet as pq
+
+        name, path = self.persistence
+        pq.save_lambdas(aspace.lambdas.cpu().numpy(), path, f"{name}-lambdas", builder=self)
+        pq.save_arrowspace_metadata(aspace, self, path, name)

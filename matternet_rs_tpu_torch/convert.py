@@ -16,6 +16,7 @@ from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.core import ArrowSpace, TauMode
 from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
 from matternet_rs_tpu_torch.ops.csr import EllLaplacian
+from matternet_rs_tpu_torch.reduction import ImplicitProjection
 
 
 def ell_from_arrays(indices, weights, diag, device=None) -> EllLaplacian:
@@ -66,17 +67,23 @@ def arrowspace_from_arrays(
     tau_mode: tuple[int, float] | TauMode = TauMode.median(),
     init_data=None,
     nnodes: int | None = None,
+    projection: tuple[int, int, int] | None = None,
     device=None,
 ) -> tuple[ArrowSpace, GraphLaplacian]:
     """``data [N, F]``, ``lambdas [N]`` (normalised with the three stats
     given, or raw with ``normalized=False`` — then normalised here),
-    ``laplacian`` the ``[F, F]`` matrix or the ELL arrays ``(indices,
-    weights, diag)``, ``graph_params`` the ``GraphParams`` fields,
-    ``tau_mode`` a ``TauMode`` or ``(mode, param)``. The sorted-λ index is
-    rebuilt. ``device=None`` is the CUDA card."""
+    ``laplacian`` the ``[F, F]`` (or, with a projection, ``[r, r]``) matrix
+    or the ELL arrays ``(indices, weights, diag)``, ``graph_params`` the
+    ``GraphParams`` fields, ``tau_mode`` a ``TauMode`` or ``(mode,
+    param)``, ``projection`` the JL projection as ``(original_dim,
+    reduced_dim, seed)``. The sorted-λ index is rebuilt. ``device=None``
+    is the CUDA card."""
     dev = resolve_device(device)
     taumode = tau_mode if isinstance(tau_mode, TauMode) else TauMode(*tau_mode)
     aspace = ArrowSpace.from_items(data, taumode, device=dev)
+    if projection is not None:
+        aspace.projection = ImplicitProjection(*(int(v) for v in projection))
+        aspace.reduced_dim = aspace.projection.reduced_dim
     lam = torch.from_numpy(np.array(lambdas, np.float32)).to(dev)
     if normalized:
         if None in (min_lambdas, max_lambdas, range_lambdas):

@@ -8,8 +8,10 @@ requested tier: the exact scan (flat → tile-max → fused, see
 :mod:`..ops.search`), the bf16-copy scan (``quantized=True``), the int8
 pool-cut tier or one of the maxima-first rescored tiers (kernels D and E),
 with the reference's ``auto`` routing. ``approx=True`` selects exactly
-(:mod:`..ops.search` says why). Energy mode and the JL projection come in
-later slices.
+(:mod:`..ops.search` says why). With a JL projection the data stays
+F-wide and the scores are cosine over it; λ (items and queries) is taken
+of the projected rows against the r × r graph. Energy mode comes in a
+later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from matternet_rs_tpu_torch.ops import taumode as taumode_ops
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
 from matternet_rs_tpu_torch.ops.csr import ell_from_dense_laplacian
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
+from matternet_rs_tpu_torch.reduction import ImplicitProjection
 
 log = logging.getLogger(__name__)
 
@@ -218,6 +221,12 @@ class ArrowSpace:
     cluster_sizes: Optional[np.ndarray] = None
     cluster_radius: float = 0.0
 
+    # JL projection: λ is taken of the projected rows when the graph is
+    # r × r; the data keeps its F columns.
+    projection: Optional[ImplicitProjection] = None
+    reduced_dim: Optional[int] = None
+    extra_reduced_dim: bool = False
+
     _norms: Optional[torch.Tensor] = None
     # ELL form of ``signals`` beyond SPARSE_F_THRESHOLD, with the signals
     # tensor it was extracted from (a replaced ``signals`` re-extracts).
@@ -255,9 +264,45 @@ class ArrowSpace:
         return cls(data=data, nfeatures=int(data.shape[1]),
                    nitems=int(data.shape[0]), taumode=taumode)
 
+    @classmethod
+    def empty_with_projection(cls, proj_data: dict, nrows: int, ncols: int,
+                              taumode: Optional[TauMode] = None, device=None) -> "ArrowSpace":
+        """An empty space carrying the projection of a typed config map (the
+        format of ``storage.parquet.arrowspace_config_typed``). Raises
+        ``ValueError`` for ``extra_reduced_dim``, as the reference does."""
+        if proj_data.get("extra_reduced_dim"):
+            raise ValueError("Reconstructing with extra dim reduction is not implemented")
+        sp = cls(
+            data=torch.zeros((0, int(ncols)), dtype=torch.float32, device=resolve_device(device)),
+            nfeatures=int(ncols), nitems=int(nrows), taumode=taumode or TAUDEFAULT,
+        )
+        if proj_data.get("projection_original_dim") is not None:
+            sp.projection = ImplicitProjection(
+                int(proj_data["projection_original_dim"]), int(proj_data["reduced_dim"]),
+                int(proj_data.get("projection_seed") or 0),
+            )
+            sp.reduced_dim = int(proj_data["reduced_dim"])
+        return sp
+
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    def drop_data(self) -> None:
+        """Free the item matrix once it is persisted: λ, the sorted index
+        and the metadata stay; searches over the features need a reload."""
+        log.info("Freeing raw input memory, should have been persisted to file")
+        self.data = torch.zeros((0, self.nfeatures), dtype=torch.float32, device=self.device)
+        self._norms = None
+        self._data_bf16 = None
+        self._i8_pair = None
+
+    def _projects(self, x: torch.Tensor, graph) -> bool:
+        """Whether λ of ``x`` is taken of its projection: an original-width
+        ``x`` against the r × r graph."""
+        p = self.projection
+        return (p is not None and x.shape[-1] == p.original_dim
+                and graph.shape[0] == p.reduced_dim)
 
     @property
     def norms(self) -> torch.Tensor:
@@ -286,10 +331,14 @@ class ArrowSpace:
         return gl.matrix.to(self.device)
 
     def compute_taumode(self, gl: GraphLaplacian) -> None:
-        """Raw λ for all items, then min-max normalisation."""
-        raw = taumode_ops.taumode_lambdas_auto(
-            self.data, self.graph_for_taumode(gl), self.taumode.mode, self.taumode.param
-        )
+        """Raw λ for all items, then min-max normalisation. With a JL
+        projection and an r × r graph, λ is that of the projected rows
+        (one full-f32 product); the stored data stays F-wide."""
+        graph = self.graph_for_taumode(gl)
+        X = self.data
+        if self._projects(X, graph):
+            X = self.projection.project(X)
+        raw = taumode_ops.taumode_lambdas_auto(X, graph, self.taumode.mode, self.taumode.param)
         self.update_lambdas(raw)
 
     def update_lambdas(self, raw: torch.Tensor) -> None:
@@ -327,20 +376,34 @@ class ArrowSpace:
             self.lambdas_sorted = SortedLambdas.build_from(self.lambdas.cpu().numpy())
 
     # -- query preparation --------------------------------------------
+    def project_query(self, query) -> torch.Tensor:
+        """The query in the λ space: projected with a projection, else as
+        given. ``ValueError`` unless it has the original width."""
+        q = torch.from_numpy(np.array(query, np.float32)).to(self.device)
+        if q.shape[-1] != self.nfeatures:
+            raise ValueError(
+                f"Query dimension {q.shape[-1]} doesn't match index "
+                f"original dimension {self.nfeatures}"
+            )
+        return self.projection.project(q) if self.projection else q
+
     def prepare_query_item(self, query, gl: GraphLaplacian) -> float:
-        """The query's normalised λ. Raises :class:`UndecidableQueryError`
-        when its raw λ is ~0, ``ValueError`` on a non-finite value or a
-        dimension mismatch."""
+        """The query's normalised λ (of its projection, when the space has
+        one and the query has the original width). Raises
+        :class:`UndecidableQueryError` when its raw λ is ~0, ``ValueError``
+        on a non-finite value or a dimension mismatch."""
         q_host = np.asarray(query, np.float32)
         if not np.all(np.isfinite(q_host)):
             raise ValueError("query item has non-finite values")
+        q = torch.from_numpy(q_host.copy()).to(self.device)
+        if self.projection is not None and q.shape[-1] == self.projection.original_dim:
+            q = self.projection.project(q)
         graph = self.graph_for_taumode(gl)
-        if q_host.shape[-1] != graph.shape[0]:
+        if q.shape[-1] != graph.shape[0]:
             raise ValueError(
                 f"Query dimension {q_host.shape[-1]} doesn't match index "
                 f"dimension {graph.shape[0]} (original F={self.nfeatures})"
             )
-        q = torch.from_numpy(q_host.copy()).to(self.device)
         raw = float(taumode_ops.synthetic_lambda(
             q, graph, self.taumode.mode, self.taumode.param
         ))
@@ -456,7 +519,8 @@ class ArrowSpace:
         if Q.ndim == 1:
             Q = Q[None, :]
         graph = self.graph_for_taumode(gl)
-        if Q.shape[-1] != graph.shape[0]:
+        projects = self._projects(Q, graph)
+        if not projects and Q.shape[-1] != graph.shape[0]:
             raise ValueError(
                 f"Query dimension {Q.shape[-1]} doesn't match index "
                 f"dimension {graph.shape[0]}"
@@ -483,7 +547,10 @@ class ArrowSpace:
         if b_pad != b:
             Q = torch.nn.functional.pad(Q, (0, 0, 0, b_pad - b))
 
-        raw = taumode_ops.taumode_lambdas_auto(Q, graph, self.taumode.mode, self.taumode.param)
+        # λ of the projected batch when the graph is r × r; the scores
+        # below stay on the F-wide rows.
+        Qw = self.projection.project(Q) if projects else Q
+        raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode, self.taumode.param)
         mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
         rng = torch.tensor(self.range_lambdas, dtype=torch.float32, device=self.device)
         q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from matternet_rs_tpu_torch import prng
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.csr import EllLaplacian
@@ -104,9 +105,9 @@ def lobpcg_smallest(A, k: int, iters: int = 60, seed: int = 0, X0=None,
     the CUDA card). Returns numpy ``(eigenvalues [k] ascending,
     eigenvectors [n, k])``.
 
-    Without ``X0`` the start block is drawn from a CPU ``torch.Generator``
-    seeded with ``seed`` — not the reference's ``jax.random`` stream, so
-    the two packages start alike only when given the same ``X0``."""
+    Without ``X0`` the start block is ``prng.normal(PRNGKey(seed), (n,
+    k))``, the reference's ``jax.random`` draw (to the ulp bound of
+    :func:`..prng.normal`), made on the host."""
     if isinstance(A, EllLaplacian):
         dev = A.device
     elif isinstance(A, torch.Tensor):
@@ -117,8 +118,7 @@ def lobpcg_smallest(A, k: int, iters: int = 60, seed: int = 0, X0=None,
     n = A.shape[0]
     k = min(k, n)
     if X0 is None:
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        X0 = torch.randn((n, k), generator=gen, dtype=torch.float32)
+        X0 = prng.normal(prng.PRNGKey(seed), (n, k))
     X0 = torch.as_tensor(X0, dtype=torch.float32).to(dev)
     if isinstance(A, EllLaplacian):
         theta, X = _lobpcg_ell(A, X0, k, iters)

@@ -83,6 +83,26 @@ def test_lobpcg_default_start_is_deterministic_per_seed(problem):
     assert few.shape == (3,) and vecs.shape == (3, 3)                      # k clamps to n
 
 
+@pytest.mark.parametrize("seed", [0, 3, 2**32 + 5])
+def test_lobpcg_default_start_is_the_reference_draw(problem, monkeypatch, seed):
+    """Without ``X0`` both packages start from ``normal(PRNGKey(seed), (n,
+    k))``: the port's block is the reference's within 4 ulp
+    (``tests/test_torch_prng.py``), and the eigenvalues agree."""
+    import jax
+
+    L, _, true = problem
+    seen = []
+    core = teig._lobpcg_core
+    monkeypatch.setattr(teig, "_lobpcg_core", lambda mv, X0, k, it: seen.append(X0) or core(mv, X0, k, it))
+    vals, _ = teig.lobpcg_smallest(torch.from_numpy(L), 4, iters=60, seed=seed)
+    ref = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (L.shape[0], 4), jnp.float32))
+    got = seen[0].numpy()
+    gap = np.abs(ref.view(np.int32).astype(np.int64) - got.view(np.int32).astype(np.int64))
+    assert got.shape == ref.shape and gap.max() <= 4
+    ref_vals, _ = jeig.lobpcg_smallest(jnp.asarray(L), 4, iters=60, seed=seed)
+    assert np.allclose(vals, ref_vals, atol=1e-4) and np.allclose(vals, true[:4], atol=1e-3)
+
+
 def test_lobpcg_on_the_direct_ell_build_with_minus_one_slots():
     """An ELL graph from the direct build (empty slots at −1) as operator,
     in both its unnormalised and its ``L_sym`` form (diagonal 1)."""

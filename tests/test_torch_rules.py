@@ -238,3 +238,84 @@ def test_package_root_exports_what_the_reference_exports(monkeypatch):
     ref.init(level="DEBUG")
     assert calls[0] == calls[1] and calls[0]["level"] == "INFO"
     assert calls[2] == calls[3] and calls[2]["level"] == "DEBUG"
+
+
+# -- The builder's fluent methods, the storage functions, pyarrow.
+
+def _params(fn):
+    import inspect
+
+    return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
+
+
+def test_builder_fluent_methods_follow_the_reference():
+    from matternet_rs_tpu.builder import ArrowSpaceBuilder as RefBuilder
+
+    ref = [n for n in dir(RefBuilder) if n.startswith("with_")]
+    assert ref and ref == [n for n in dir(ArrowSpaceBuilder) if n.startswith("with_")]
+    for name in ref:
+        assert _params(getattr(ArrowSpaceBuilder, name)) == _params(getattr(RefBuilder, name)), name
+    for field in ("deterministic_clustering", "use_dims_reduction", "rp_eps"):
+        assert getattr(ArrowSpaceBuilder, field) == getattr(RefBuilder, field), field
+
+
+@pytest.mark.parametrize("module", ["parquet", "shards"])
+def test_storage_functions_follow_the_reference(module):
+    """The reference's parameters in its order; the port may add ``device``
+    at the end (where it places what it loads)."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"matternet_rs_tpu.storage.{module}")
+    port = importlib.import_module(f"matternet_rs_tpu_torch.storage.{module}")
+    names = [n for n, f in vars(ref).items() if inspect.isfunction(f) and f.__module__ == ref.__name__
+             and not n.startswith("_")]
+    assert names
+    for name in names:
+        want, got = _params(getattr(ref, name)), _params(getattr(port, name))
+        assert got[:len(want)] == want, name
+        assert [n for n, _ in got[len(want):]] in ([], ["device"]), name
+
+
+def test_package_imports_without_pyarrow():
+    """``pyarrow`` is imported by ``storage.parquet`` alone: the package, the
+    builder and the shard store import (and build) where it cannot."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['pyarrow'] = None\n"
+        "import numpy as np\n"
+        "import matternet_rs_tpu_torch as m\n"
+        "from matternet_rs_tpu_torch.storage import shards\n"
+        "from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset\n"
+        "X = make_energy_test_dataset(300, 8, seed=1).astype(np.float32)\n"
+        "m.ArrowSpaceBuilder(device='cpu').with_seed(3).build(X)\n"
+        "try:\n"
+        "    import matternet_rs_tpu_torch.storage.parquet\n"
+        "except ImportError:\n"
+        "    print('parquet needs pyarrow')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "parquet needs pyarrow" in out.stdout
+
+
+def test_load_arrowspace_and_projection_raise_without_a_card(tmp_path):
+    _no_cuda()
+    from matternet_rs_tpu_torch.reduction import ImplicitProjection
+    from matternet_rs_tpu_torch.storage import parquet as tpq
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
+
+    X = make_energy_test_dataset(300, 8, seed=1).astype(np.float32)
+    b = ArrowSpaceBuilder(device="cpu").with_seed(3)
+    aspace, gl = b.build(X)
+    tpq.save_checkpoint(aspace, gl, b, tmp_path, "ck")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpq.load_arrowspace(tmp_path, "ck")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpq.load_graph_laplacian(tmp_path, "ck")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ImplicitProjection(8, 4, 1).matrix()
+    assert tpq.load_arrowspace(tmp_path, "ck", device="cpu")[0].device.type == "cpu"

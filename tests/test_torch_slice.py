@@ -158,15 +158,24 @@ def test_tier_names_validate_then_unported_tiers_raise(built):
         assert np.all(np.isfinite(sc)), kw
 
 
-def test_unported_builder_options_raise():
+def test_unported_builder_options_raise(tmp_path):
+    """Every builder option is ported now (``tests/test_torch_optimal_k.py``,
+    ``test_torch_reduction.py`` and ``test_torch_storage.py`` hold them
+    against the reference). What still raises, as in the reference: the
+    heuristic k without a seed, and persistence into a directory that
+    cannot be made."""
+    from matternet_rs_tpu_torch.storage import StorageError
+
     b = tbuilder.ArrowSpaceBuilder(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.with_dims_reduction(True)
+    assert b.with_dims_reduction(True, rp_eps=0.4) is b
+    assert (b.use_dims_reduction, b.rp_eps) == (True, 0.4)
     X = make_energy_test_dataset(200, 8, seed=1)
-    with pytest.raises(NotImplementedError, match="max_clusters"):
+    with pytest.raises(ValueError, match="clustering_seed"):
         tbuilder.ArrowSpaceBuilder(device="cpu").build(X)
-    with pytest.raises(NotImplementedError, match="persistence"):
-        tbuilder.ArrowSpaceBuilder(device="cpu").with_persistence("x", "unused").build(X)
+    (tmp_path / "file").write_text("x")
+    with pytest.raises(StorageError, match="cannot create"):
+        (tbuilder.ArrowSpaceBuilder(device="cpu").with_seed(1)
+         .with_persistence("x", tmp_path / "file" / "sub").build(X))
 
 
 def test_search_without_lambdas_raises():
