@@ -47,8 +47,9 @@ Phases, one output line each (JSON):
 4. wide — a build at N = 40,000, F = 768, so the wide-F λ route (the
    TPU's F-tiled kernel range) runs through the builder.
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
-   phase 4, each LOBPCG call of phase 5, phase 6 and phases 7–9 (build and
-   searches), and read just after each; every kernel of a path must have
+   phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
+   searches) and phase 11 (build and searches), and read just after each;
+   every kernel of a path must have
    launched. The kernel rows of A, B and the candidate stage add the
    launches of phases 7–9 to phase 2's (``launches_by_path``).
 5. largef — the large-F sparse path at the reference benchmark's shapes,
@@ -98,7 +99,35 @@ Phases, one output line each (JSON):
    partial), streamed back in 32,768-row blocks by the native reader onto
    the card (bit for bit against X), ``read_rows`` of a batch's ids; write
    and read-to-card MB/s.
-11. kernels — each kernel against its plain PyTorch version on the inputs
+11. streaming — the out-of-core index (``index/streaming.py``) at the
+   resident-sketch tier's own scale, 10,000,000 × 96 (cut, never below
+   ``MAXFIRST_MIN_ROWS``, only when the temporary disk cannot hold the
+   store and the sketch: the line says ``cut=``): 256 Gaussian centres × 4
+   plus unit noise from the seed, written block by block as 1M-row shards;
+   ``build_from_store`` with the headline graph settings (λ-graph (1.0, 6),
+   250 clusters, radius 25, 131,072-row blocks, 200,000 sample rows,
+   ``emit_sketch=True``; kernel A on every block); ``build_sketch`` from
+   ``sketch.bin``; 256-query batches of corpus rows, k = 10, α = 0.7, the
+   default candidates: one warm-up and three timed batches of each of
+   maxima-first (the auto route at this N) and the carry scan, refined or
+   not, in turns; a profile of the maxima-first refined batches; recall@10
+   of each against the streamed exact scan, whose ms/batch and MB/s are
+   taken over two batches in f32 and in bf16. Kernel E's ring and pair
+   designs are timed at this shape launched alone and inside the
+   maxima-first scan, in turns. Checks: kernel A on the first block within
+   1e-5·max(|λ|, 1) of its plain version (and the λ file's block), finite
+   stats; kernel D in int8 mode against its plain version on the first 1M
+   flat rows and on the tile that holds ``mask_from`` (sub-tiles past
+   ``n_items`` −inf); kernel E's int8 rows against the plain version on the
+   path's own slab selection (≤ 1e-5 on the cosine scale); with 64 slabs
+   of candidates (the most the maxima-first scan takes) the refined
+   maxima-first results equal the carry scan's, ids and score bits; the
+   streamed exact scan over the first 1M rows against the in-memory exact
+   tier under the near-tie rule; a reload (``load`` + ``build_sketch``)
+   searches bit for bit as before; the maxima-first scan makes no
+   synchronising call from the query λ to its candidate ids
+   (``set_sync_debug_mode("error")``). Kernels A, D and E must launch.
+12. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -159,9 +188,10 @@ Phases, one output line each (JSON):
    every k in {1, 14, 40} and m in {1, 15, 16, 17, 256}, both forms, with
    rows of empty slots only, empty slots at −1 or naming a row of inf that
    no live slot names. Kernel E is held at every F
-   in {1, 3, 100, 128, 768, 2048} with ts in {128, 256}, c in {1, 14}, B in
-   {1, 7, 256}, f32 and int8 rows, X aligned and 4 bytes off; ids out of
-   range give exactly their NaN slices.
+   in {1, 3, 96, 100, 128, 768, 2048} with ts in {128, 256}, c in {1, 14},
+   B in {1, 7, 256}, f32 and int8 rows (the ring where it applies), X
+   aligned and 4 bytes off, each query's last slab the corpus's last whole
+   one; ids out of range give exactly their NaN slices.
 
 Every phase line carries ``at_seconds``, the time since the script
 started; a ``total`` line gives the whole run's seconds. Then the
@@ -176,6 +206,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -226,7 +257,7 @@ EDGE_N_F, EDGE_K_F, EDGE_M_F = (1, 31, 16_384), (1, 14, 40), (1, 15, 16, 17, 256
 # Kernel E's edge cases: every F, ts, c and B, both row types, X aligned and
 # 4 bytes off; EDGE_SLABS_E slabs of corpus.
 EDGE_F_E, EDGE_TS_E, EDGE_C_E, EDGE_B_E, EDGE_SLABS_E = (
-    (1, 3, 100, 128, 768, 2048), (128, 256), (1, 14), (1, 7, 256), 40)
+    (1, 3, 96, 100, 128, 768, 2048), (128, 256), (1, 14), (1, 7, 256), 40)
 PLAIN_GATHER_BYTES = 1 << 28  # kernel E's plain version gathers at most this much at once
 # Phases heuristics, jl, persist, shards. The jl corpus is 200,000 rows cut
 # from a 1M-row, 768-wide one for the run's time limit; its 111 clusters
@@ -234,6 +265,18 @@ PLAIN_GATHER_BYTES = 1 << 28  # kernel E's plain version gathers at most this mu
 SEED_HEURISTICS = 42
 N_JL, F_JL, SEED_JL, JL_DIM = 200_000, 768, 46, 384
 SHARD_ROWS, SHARD_BLOCK_ROWS = 65_536, 32_768
+# Phase streaming: the resident-sketch tier at the reference's own scale
+# (DESIGN.md: 10M × 96, the Deep1B width): 1M-row shards, 256 Gaussian
+# centres × 4 plus unit noise, the headline build's graph settings.
+N_STREAM, F_STREAM, SEED_STREAM = 10_000_000, 96, 47
+STREAM_SHARD_ROWS, STREAM_CENTRES, STREAM_CLUSTERS, STREAM_SAMPLE = 1_000_000, 256, 250, 200_000
+STREAM_CHECK_ROWS = 1_000_000    # rows of the kernel-D and in-memory checks
+
+
+def stream_disk_bytes(n: int) -> int:
+    """Temporary disk the streaming phase needs at n rows: the f32 store,
+    the int8 sketch (and its tmp), λ and multipliers, 5% and 256 MB spare."""
+    return int(n * (4 * F_STREAM + F_STREAM + 8) * 1.05) + (256 << 20)
 
 
 class SmokeFailure(RuntimeError):
@@ -434,32 +477,35 @@ def main() -> int:
     check(main_counts["subtile_topk"] == len(batches) and main_counts["gather_subtiles"] == 0,
           f"k={K}: the candidate stage must launch once a batch and kernel C never: {main_counts}")
 
-    def traced(search):
-        """Run ``search(r)`` over the timed batches under ``torch.profiler``:
-        wall ms per batch (host clock), device-busy ms per batch (the union
-        of the traced kernels' intervals), idle share, top kernels."""
+    def traced(search, items=None):
+        """Run ``search(r)`` over the timed batches (or ``items``) under
+        ``torch.profiler``: wall ms per batch (host clock), device-busy ms
+        per batch (the union of the traced kernels' intervals), idle share,
+        top kernels."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
+        items = batches[1:] if items is None else items
+        nb = len(items)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for r in batches[1:]:
+            for r in items:
                 search(r)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / N_BATCHES
-        dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / N_BATCHES
+            wall_ms = (time.perf_counter() - t0) * 1e3 / nb
+        dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / nb
 
         def dev_ms(a):
             return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
 
         kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
         top = sorted(kern, key=dev_ms, reverse=True)[:TOP_KERNELS]
-        return dict(batches=N_BATCHES, wall_ms_per_batch=wall_ms,
+        return dict(batches=nb, wall_ms_per_batch=wall_ms,
                     device_busy_ms_per_batch=dev_busy,
                     idle_share=1.0 - dev_busy / wall_ms if wall_ms > 0 else None,
-                    top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / N_BATCHES,
-                                  "device_ms_per_batch": dev_ms(a) / 1e3 / N_BATCHES}
+                    top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / nb,
+                                  "device_ms_per_batch": dev_ms(a) / 1e3 / nb}
                                  for a in top if dev_ms(a) > 0])
 
     # The exact tier's candidate stage against the selection chain it
@@ -977,7 +1023,6 @@ def main() -> int:
         per = {"main": main, **{p: c[kname] for p, c in path_counts.items()}}
         return sum(per.values()), per
 
-    # -- 11. kernels against their plain versions -----------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)   # > 50 MB L2
 
     def cuda_ms(fn, reps=5):
@@ -994,6 +1039,314 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
+    # -- 11. streaming: the out-of-core index at the sketch tier's scale ---
+    from matternet_rs_tpu_torch.index import streaming as sti
+
+    sketch_rows = []          # kernel rows of the sketch path, for the kernels line
+    with tempfile.TemporaryDirectory(prefix="mrs-stream-") as sdir:
+        n_s = N_STREAM
+        free = shutil.disk_usage(sdir).free
+        while n_s > sti.MAXFIRST_MIN_ROWS and stream_disk_bytes(n_s) > free:
+            n_s -= STREAM_SHARD_ROWS
+        check(stream_disk_bytes(n_s) <= free,
+              f"streaming: {free} bytes free, {stream_disk_bytes(n_s)} needed at {n_s} rows")
+        cut = None if n_s == N_STREAM else (
+            f"{n_s:,} of {N_STREAM:,} rows: {free:,} bytes free on the temporary disk")
+        rng_s = np.random.default_rng(SEED_STREAM)
+        centres = (rng_s.standard_normal((STREAM_CENTRES, F_STREAM), dtype=np.float32) * 4.0)
+        gen_s = [0.0]
+
+        def corpus_blocks():
+            for start in range(0, n_s, STREAM_SHARD_ROWS):
+                t = time.perf_counter()
+                m = min(STREAM_SHARD_ROWS, n_s - start)
+                block = centres[rng_s.integers(0, STREAM_CENTRES, m)]
+                block += rng_s.standard_normal((m, F_STREAM), dtype=np.float32)
+                gen_s[0] += time.perf_counter() - t
+                yield block
+
+        t0 = time.perf_counter()
+        shards.write_shards(corpus_blocks(), sdir, rows_per_shard=STREAM_SHARD_ROWS)
+        store_bytes = n_s * F_STREAM * 4
+        write_s = time.perf_counter() - t0 - gen_s[0]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sidx = sti.StreamingIndex.build_from_store(
+            sdir, GraphParams(eps=1.0, k=6, topk=6, sparsity_check=False),
+            max_clusters=STREAM_CLUSTERS, radius=25.0, block_rows=sti.DEFAULT_BLOCK_ROWS,
+            sample_rows=STREAM_SAMPLE, emit_sketch=True)
+        torch.cuda.synchronize()
+        stream_build_s = time.perf_counter() - t0
+        (_, sketch_s) = timed(lambda: sidx.build_sketch())
+        X8s, mults_s, lams_s, valids_s = sidx._sketch
+        sketch_bytes = sum(t.numel() * t.element_size() for t in sidx._sketch)
+        # Queries: corpus rows, uploaded before the path runs.
+        srows = np.sort(np.random.default_rng(9).choice(n_s, BATCH * (N_BATCHES + 1), replace=False))
+        srows = np.random.default_rng(10).permutation(srows).reshape(N_BATCHES + 1, BATCH)
+        Qs = [torch.from_numpy(shards.read_rows(sdir, r)).to(dev) for r in srows]
+        modes = {"maxfirst_refined": (None, True), "maxfirst_sketch_only": (None, False),
+                 "carry_refined": (False, True), "carry_sketch_only": (False, False)}
+
+        def sketch_search(mode, Q):
+            sidx.sketch_maxfirst, refine = modes[mode]
+            try:
+                return sidx.search_batch_sketch(Q, K, alpha=ALPHA, refine=refine)
+            finally:
+                sidx.sketch_maxfirst = None
+
+        sk_ms = {m: [] for m in modes}
+        sk_out = {}
+        for m in modes:                            # one warm-up batch each
+            sketch_search(m, Qs[0])
+        for m in list(modes) + list(reversed(modes)):
+            for i, Q in enumerate(Qs[1:]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                sk_out[m, i] = sketch_search(m, Q)
+                torch.cuda.synchronize()
+                sk_ms[m].append((time.perf_counter() - t1) * 1e3)
+        path_counts["streaming"] = kernels.launch_counts()
+        flat_n = X8s.shape[0] * X8s.shape[1]
+        check(sidx._sketch_fused_ok(BATCH, K, sidx._candidate_width(K, None)[1]),
+              f"streaming: the auto route at {flat_n} flat rows does not take the maxima-first scan")
+        for kname in ("taumode", "tilemax_only", "slab_dots"):
+            check(path_counts["streaming"][kname] > 0, f"streaming: kernel {kname} not launched")
+        profile_s = traced(lambda Q: sketch_search("maxfirst_refined", Q), items=Qs[1:])
+
+        # Streamed exact scan, f32 and bf16, over two batches; recall of
+        # each sketch mode against it on the same queries.
+        exact, exact_ms = {}, {}
+        for quant in (False, True):
+            outs, ms = [], []
+            for Q in Qs[1:3]:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                outs.append(sidx.search_batch(Q, K + 1, alpha=ALPHA, quantized=quant))
+                ms.append((time.perf_counter() - t1) * 1e3)
+            exact[quant], exact_ms[quant] = outs, ms
+        recall = {m: sum(len(set(sk_out[m, i][0][b].tolist()) & set(exact[False][i][0][b, :K].tolist()))
+                         for i in range(2) for b in range(BATCH)) / (2 * BATCH * K) for m in modes}
+        bf16_recall = sum(len(set(exact[True][i][0][b, :K].tolist()) & set(exact[False][i][0][b, :K].tolist()))
+                          for i in range(2) for b in range(BATCH)) / (2 * BATCH * K)
+
+        # Check 1: kernel A on the first block against its plain version.
+        blk0 = torch.from_numpy(shards.read_rows(sdir, np.arange(sti.DEFAULT_BLOCK_ROWS))).to(dev)
+        L_s = sidx.gl.matrix.contiguous()
+        tau_s = tmo.select_tau(blk0, sidx.taumode.mode, sidx.taumode.param)
+        lam_a = tk.taumode_lambdas_fused(blk0, L_s, tau_s)
+        lam_p = tk.taumode_lambdas_plain(blk0, L_s, tau_s)
+        lam_a_rel = float(((lam_a - lam_p).abs() / torch.clamp(lam_p.abs(), min=1.0)).max())
+        lam_file = np.fromfile(os.path.join(sdir, sti.LAMBDA_FILE), np.float32, count=sti.DEFAULT_BLOCK_ROWS)
+        lam_file_rel = float(np.max(np.abs(lam_file - lam_p.cpu().numpy())
+                                    / np.maximum(np.abs(lam_p.cpu().numpy()), 1.0)))
+        stats_finite = bool(np.isfinite(sidx.min_lambdas) and np.isfinite(sidx.range_lambdas))
+
+        # Checks 2 and 3: kernels D and E at the path's shapes.
+        X8f, mult_f, lam_f = sidx._sketch_flat_views()
+        Q1 = Qs[1]
+        ql1 = sidx._query_lambdas(Q1)
+        a1 = torch.full((BATCH,), ALPHA, device=dev)
+        tile, subs = so.DEFAULT_TILE, so.RESCORE_SUBS
+        ts_s = tile // subs
+        ns_s = flat_n // ts_s
+        kwd = dict(tile=tile, subs=subs)
+        sub_k = rsk.tilemax_only(X8f, mult_f, lam_f, Q1, ql1, a1, rn=mult_f, mask_from=n_s, **kwd)
+        n1 = STREAM_CHECK_ROWS
+        d_first = float((rsk.tilemax_only(X8f[:n1], mult_f[:n1], lam_f[:n1], Q1, ql1, a1, rn=mult_f[:n1], **kwd)
+                         - rsk.tilemax_only_plain(X8f[:n1], mult_f[:n1], lam_f[:n1], Q1, ql1, a1,
+                                                  rn=mult_f[:n1], **kwd)).abs().max())
+        t_last = (n_s // tile) * tile              # the tile that holds mask_from
+        sl = slice(t_last, t_last + tile)
+        last_k = rsk.tilemax_only(X8f[sl], mult_f[sl], lam_f[sl], Q1, ql1, a1, rn=mult_f[sl],
+                                  mask_from=n_s - t_last, **kwd)
+        last_p = rsk.tilemax_only_plain(X8f[sl], mult_f[sl], lam_f[sl], Q1, ql1, a1, rn=mult_f[sl],
+                                        mask_from=n_s - t_last, **kwd)
+        fin = torch.isfinite(last_p)
+        d_last = float((last_k[fin] - last_p[fin]).abs().max())
+        same_inf = bool(torch.equal(fin, torch.isfinite(last_k)))
+        whole_past = -(-n_s // ts_s)               # first sub-tile wholly past n_items
+        past_inf = bool(torch.all(sub_k[:, whole_past:] == -float("inf")))
+        in_path = float((sub_k[:, t_last // ts_s:t_last // ts_s + subs] - last_k)[fin].abs().max())
+        kk_s, C_s = sidx._candidate_width(K, None)
+        c_s = min(ns_s, max(kk_s + so.SELECT_MARGIN, -(-C_s // ts_s)))
+        sel_s = torch.sort(so.topk_stable(sub_k, c_s)[1], dim=1).values
+        de = rsk.slab_dots(X8f, Q1, sel_s, ts_s, checked=True)
+        dp = rsk.slab_dots_plain(X8f, Q1, sel_s, ts_s)
+        rows_e = sel_s[:, :, None] * ts_s + torch.arange(ts_s, device=dev)
+        scale_e = torch.linalg.norm(Q1, dim=1)[:, None, None] * torch.linalg.norm(X8f[rows_e].float(), dim=-1)
+        err_e = float(((de - dp).abs() / torch.clamp(scale_e, min=1e-30)).max())
+
+        # Kernel E's designs at this shape: launched alone, and inside the
+        # maxima-first refined scan, in turns (ring, pair, pair, ring).
+        out_e = torch.empty_like(de)
+        e_alone = {"ring": [], "pair": []}
+        e_scan = {"ring": [], "pair": []}
+        slab_reader = so._slab_dots_checked
+
+        def forced(design):
+            def reader(X, Q, sel, ts):
+                out = torch.empty((Q.shape[0], sel.shape[1], ts), dtype=torch.float32, device=X.device)
+                rsk._slab_dots_launch(X, Q, sel, ts, out, design=design)
+                return out
+            return reader
+
+        for design in ("ring", "pair", "pair", "ring"):
+            e_alone[design].append(cuda_ms(lambda: rsk._slab_dots_launch(X8f, Q1, sel_s, ts_s, out_e,
+                                                                          design=design), reps=20))
+            so._slab_dots_checked = forced(design)
+            try:
+                for Q in Qs[1:]:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    sketch_search("maxfirst_refined", Q)
+                    torch.cuda.synchronize()
+                    e_scan[design].append((time.perf_counter() - t1) * 1e3)
+            finally:
+                so._slab_dots_checked = slab_reader
+        sketch_plan_e = rsk.slab_dots_plan(BATCH, c_s, F_STREAM, torch.int8, x_addr=X8f.data_ptr(),
+                                           ts=ts_s, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        sketch_plan_e_chosen = rsk.slab_dots_plan_chosen(X8f, BATCH, c_s, ts_s)
+
+        # Check 4: with the most candidates the maxima-first scan takes (64
+        # slabs), its refined results equal the carry scan's.
+        C4 = so.MAX_RESCORE_SLABS * ts_s
+        sidx.sketch_maxfirst = True
+        try:
+            check(sidx._sketch_fused_ok(BATCH, K, C4), "streaming: maxima-first refuses 64 slabs")
+            mf4 = sidx.search_batch_sketch(Q1, K, alpha=ALPHA, candidates=C4)
+            sidx.sketch_maxfirst = False
+            cs4 = sidx.search_batch_sketch(Q1, K, alpha=ALPHA, candidates=C4)
+        finally:
+            sidx.sketch_maxfirst = None
+        carry_equal = bool(np.array_equal(mf4[0], cs4[0]) and np.array_equal(mf4[1].view(np.int32),
+                                                                               cs4[1].view(np.int32)))
+        carry_overlap = float(np.mean(mf4[0] == cs4[0]))
+
+        # Check 5: the streamed exact scan on the first rows against the
+        # in-memory exact tier (same λ, same normalisation).
+        sub = os.path.join(sdir, "first")
+        os.makedirs(sub)
+        man = shards.read_manifest(sdir)
+        first_shards = man["shards"][:max(1, STREAM_CHECK_ROWS // STREAM_SHARD_ROWS)]
+        n_first = sum(sh["rows"] for sh in first_shards)
+        for sh in first_shards:
+            os.symlink(os.path.join(sdir, sh["file"]), os.path.join(sub, sh["file"]))
+        with open(os.path.join(sub, shards.MANIFEST), "w") as fh:
+            json.dump({**man, "n_rows": n_first, "shards": first_shards}, fh)
+        np.fromfile(os.path.join(sdir, sti.LAMBDA_FILE), np.float32, count=n_first).tofile(
+            os.path.join(sub, sti.LAMBDA_FILE))
+        meta = json.load(open(os.path.join(sdir, sti.INDEX_FILE)))
+        with open(os.path.join(sub, sti.INDEX_FILE), "w") as fh:
+            json.dump({**meta, "n_items": n_first}, fh)
+        os.symlink(os.path.join(sdir, sti.GRAPH_FILE), os.path.join(sub, sti.GRAPH_FILE))
+        first_idx = sti.StreamingIndex.load(sub)
+        q_first = torch.from_numpy(shards.read_rows(sdir, srows[1] % n_first)).to(dev)
+        st_ids, st_sc = first_idx.search_batch(q_first, K, alpha=ALPHA)
+        X1 = torch.from_numpy(shards.read_rows(sdir, np.arange(n_first))).to(dev)
+        lam1 = torch.clamp((torch.from_numpy(np.fromfile(os.path.join(sub, sti.LAMBDA_FILE), np.float32))
+                            .to(dev) - sidx.min_lambdas) / sidx.range_lambdas, 0.0, 1.0)
+        mem_ids, mem_sc = so.search_lambda_aware_tilemax(
+            X1, torch.linalg.norm(X1, dim=1), lam1, q_first, first_idx._query_lambdas(q_first),
+            K + 1, torch.full((BATCH,), ALPHA, device=dev))
+        first_bad = topk_mismatches(mem_ids.cpu().numpy(), mem_sc.cpu().numpy(), st_ids, st_sc, TOL_SCORE)
+        del X1, lam1, first_idx
+
+        # Check 6: a reload (load + the sketch from sketch.bin) searches bit
+        # for bit as before.
+        re_idx = sti.StreamingIndex.load(sdir)
+        re_idx.build_sketch()
+        a6, b6 = sketch_search("maxfirst_refined", Q1), re_idx.search_batch_sketch(Q1, K, alpha=ALPHA)
+        reload_equal = bool(np.array_equal(a6[0], b6[0]) and np.array_equal(a6[1].view(np.int32),
+                                                                             b6[1].view(np.int32)))
+        del re_idx
+
+        # Check 7: no synchronising call from the query λ to the id download.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ql7 = sidx._query_lambdas(Q1)
+            s7, i7 = sidx._sketch_candidates(Q1, ql7, kk_s, C_s, ALPHA)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del s7, i7
+
+        # The kernel rows of the sketch path (the kernels line).
+        ops_d = rsk._tilemax_only_operands(X8f, mult_f, lam_f, Q1, ql1, a1, rn=mult_f, mask_from=n_s, **kwd)
+        Xb_s = X8f.to(torch.bfloat16)
+        Qb_s = Q1.to(torch.bfloat16)
+        bms, by = bound(flat_n * F_STREAM + 8 * flat_n + 4 * BATCH * F_STREAM + 4 * BATCH * ns_s,
+                        2 * BATCH * flat_n * F_STREAM, PEAK_BF16_FLOP_S)
+        d_all = max(d_first, d_last)
+        sketch_rows.append(dict(
+            name="tilemax_only_int8_sketch", route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
+            replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
+            launches=path_counts["streaming"]["tilemax_only"], max_abs_err=d_all,
+            ms=cuda_ms(lambda: rsk.tilemax_only(X8f, mult_f, lam_f, Q1, ql1, a1, rn=mult_f,
+                                                mask_from=n_s, **kwd)),
+            launch_ms=cuda_ms(lambda: rsk._tilemax_only_launch(ops_d), reps=20),
+            launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
+            plain_ms=cuda_ms(lambda: rsk.tilemax_only_plain(X8f[:n1], mult_f[:n1], lam_f[:n1], Q1, ql1, a1,
+                                                            rn=mult_f[:n1], **kwd), reps=3),
+            plain_rows=n1,
+            bound_ms=bms, bound_by=by, library_ms=cuda_ms(lambda: torch.matmul(Qb_s, Xb_s.T), reps=3),
+            shape=f"B={BATCH} N={flat_n} F={F_STREAM} subs={subs} int8 mask_from={n_s}",
+            library="torch.matmul(Q bf16, X bf16ᵀ) over the flat sketch (the product alone)",
+            plain="the plain version over the first plain_rows flat rows (its [B, N] scores)",
+        ))
+        del Xb_s
+        check(d_all <= TOL_SCORE and same_inf and past_inf and in_path <= TOL_SCORE,
+              f"streaming: kernel D int8 vs plain {d_first}, {d_last}, -inf {same_inf}/{past_inf}, "
+              f"path {in_path}")
+        distinct = int(torch.unique(sel_s).numel())
+        bms, by = bound(distinct * ts_s * F_STREAM + 4 * BATCH * F_STREAM + 4 * BATCH * c_s * ts_s
+                        + 8 * BATCH * c_s, 2 * BATCH * c_s * ts_s * F_STREAM, PEAK_BF16_FLOP_S)
+        sketch_rows.append(dict(
+            name="slab_dots_int8_sketch", route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
+            replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:417",
+            launches=path_counts["streaming"]["slab_dots"], max_abs_err=err_e,
+            ms=cuda_ms(lambda: rsk.slab_dots(X8f, Q1, sel_s, ts_s, checked=True), reps=20),
+            launch_ms=cuda_ms(lambda: rsk._slab_dots_launch(X8f, Q1, sel_s, ts_s, out_e), reps=20),
+            launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
+            plain_ms=cuda_ms(lambda: rsk.slab_dots_plain(X8f, Q1, sel_s, ts_s), reps=5),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            design=sketch_plan_e["design"], ring_launch_ms=e_alone["ring"], pair_launch_ms=e_alone["pair"],
+            shape=f"B={BATCH} c={c_s} ts={ts_s} F={F_STREAM} int8 flat={flat_n} distinct_slabs={distinct}",
+            err_scale="cosine (|Δd|/(‖q‖·‖x‖))",
+        ))
+        check(err_e <= TOL_SCORE, f"streaming: kernel E int8 vs plain {err_e} on the cosine scale")
+        emit(phase="streaming", card=card, n=n_s, f=F_STREAM, cut=cut, shard_rows=STREAM_SHARD_ROWS,
+             centres=STREAM_CENTRES, block_rows=sti.DEFAULT_BLOCK_ROWS, batch=BATCH, k=K,
+             candidates=C_s, slabs=c_s,
+             store_bytes=store_bytes, generate_seconds=gen_s[0], store_write_seconds=write_s,
+             store_write_mb_s=store_bytes / write_s / 1e6,
+             build_seconds=stream_build_s, build_timings=sidx.build_timings,
+             lambda_pass_mb_s=store_bytes / sidx.build_timings["lambda_pass_s"] / 1e6,
+             build_sketch_seconds=sketch_s, sketch_device_bytes=sketch_bytes,
+             sketch_ms_per_batch_median={m: statistics.median(v) for m, v in sk_ms.items()},
+             sketch_ms_per_batch=sk_ms, profile_maxfirst_refined=profile_s,
+             recall_at_10_vs_exact=recall, bf16_stream_recall_at_10=bf16_recall,
+             exact_ms_per_batch={"f32": exact_ms[False], "bf16": exact_ms[True]},
+             exact_mb_s={"f32": [store_bytes / ms * 1e-3 for ms in exact_ms[False]],
+                         "bf16": [store_bytes / ms * 1e-3 for ms in exact_ms[True]]},
+             kernel_e_designs=dict(launch_ms=e_alone, scan_ms_per_batch=e_scan,
+                                   scan_ms_per_batch_median={d: statistics.median(v) for d, v in e_scan.items()}),
+             checks=dict(kernel_a_vs_plain_rel=lam_a_rel, lambda_file_vs_plain_rel=lam_file_rel,
+                         stats_finite=stats_finite, kernel_d_first_rows=d_first, kernel_d_last_tile=d_last,
+                         kernel_d_past_n_items_inf=past_inf, kernel_e_rel=err_e,
+                         maxfirst_equals_carry_at_64_slabs=carry_equal, maxfirst_carry_id_overlap=carry_overlap,
+                         exact_vs_in_memory_first_rows=first_bad[:5], first_rows=n_first,
+                         reload_bit_equal=reload_equal, no_sync_maxfirst=True),
+             launches=path_counts["streaming"])
+        check(lam_a_rel <= TOL_LAMBDA and lam_file_rel <= TOL_LAMBDA and stats_finite,
+              f"streaming: kernel A vs plain {lam_a_rel}, λ file {lam_file_rel}, stats finite {stats_finite}")
+        check(carry_equal, f"streaming: maxima-first refined ≠ carry refined (id overlap {carry_overlap})")
+        check(not first_bad, f"streaming: exact scan vs in-memory tier: {first_bad[:3]}")
+        check(reload_equal, "streaming: the reloaded index does not search bit for bit as before")
+        del sidx, X8s, mults_s, lams_s, valids_s, X8f, mult_f, lam_f, Qs, blk0
+        torch.cuda.empty_cache()
+
+    # -- 12. kernels against their plain versions -----------------------
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
@@ -1190,23 +1543,26 @@ def main() -> int:
             f"tilemax_only_kernelILi{rsk._SCAN_MODES[Xs.dtype]}ELi{plan['queries_per_block']}ELb1E",
             plan, rsk.tilemax_only_plan_chosen(Xs, BATCH))
 
-    # Kernel E in both row modes. The maxima-first tiers read f32 rows; the
-    # int8-row mode serves the sketch callers of a later slice, so its row
-    # carries the wrapper's count and its own mode's count (0) beside it.
-    # The main path calls the wrapper with checked=True (no read-back of
-    # the slab ids), and so is it timed here.
+    # Kernel E in both row modes at the 1M × 128 shape. The maxima-first
+    # tiers read f32 rows (one block a pair); int8 rows take the ring and
+    # come from phase streaming's sketch, so that row carries the wrapper's
+    # count and its own mode's count (phase streaming's) beside it; its row
+    # at the sketch's own shape is slab_dots_int8_sketch. The main path
+    # calls the wrapper with checked=True (no read-back of the slab ids),
+    # and so is it timed here.
     e_launches = sum(tier_counts[t]["slab_dots"] for t in scan_of)
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
     for label, Xr, sel_e, peak, mode_launches, entry in (
         ("slab_dots_f32", Xt, sels["bf16x3_rescored"], PEAK_F32_FLOP_S, e_launches, "slab_dots_kernelILb0E"),
-        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, 0, "slab_dots_kernelILb1E"),
+        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, path_counts["streaming"]["slab_dots"],
+         "slab_dots_ring_kernel"),
     ):
         de, dp = rsk.slab_dots(Xr, Q, sel_e, ts_r, checked=True), rsk.slab_dots_plain(Xr, Q, sel_e, ts_r)
         rows_e = sel_e[:, :, None] * ts_r + torch.arange(ts_r, device=dev)
         scale = qnorm[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows_e]
         err_e = float(((de - dp).abs() / torch.clamp(scale, min=1e-30)).max())
-        plan_e = rsk.slab_dots_plan(BATCH, c_r, F_MAIN, Xr.dtype, x_addr=Xr.data_ptr())
+        plan_e = rsk.slab_dots_plan(BATCH, c_r, F_MAIN, Xr.dtype, x_addr=Xr.data_ptr(), ts=ts_r, sms=sms)
         distinct = int(torch.unique(sel_e).numel())
         bms, by = bound(distinct * ts_r * F_MAIN * Xr.element_size() + 4 * BATCH * F_MAIN
                         + 4 * BATCH * c_r * ts_r + 8 * BATCH * c_r,
@@ -1225,7 +1581,10 @@ def main() -> int:
             launch_floor="an empty kernel, timed the same way",
         ))
         check(err_e <= TOL_SCORE, f"{label}: kernel vs plain dots {err_e} on the cosine scale")
-        record_resources(label, "rescored", entry, plan_e, rsk.slab_dots_plan_chosen(Xr, BATCH, c_r))
+        record_resources(label, "rescored", entry, plan_e, rsk.slab_dots_plan_chosen(Xr, BATCH, c_r, ts_r))
+    rows_out += sketch_rows
+    record_resources("slab_dots_int8_sketch", "rescored", "slab_dots_ring_kernel",
+                     sketch_plan_e, sketch_plan_e_chosen)
 
     # Kernel F on the direct-ELL graph of phase largef (n = 16384): the
     # Laplacian form LOBPCG applies to its [n, 3k] block, and one vector.
@@ -1485,6 +1844,7 @@ def main() -> int:
                         Qe = torch.from_numpy(rng_e.standard_normal((b_e, f_e), dtype=np.float32)).to(dev)
                         sel_e = torch.sort(torch.from_numpy(
                             rng_e.integers(0, EDGE_SLABS_E, (b_e, c_e))).to(dev), dim=1).values
+                        sel_e[:, -1] = EDGE_SLABS_E - 1          # the last whole slab
                         per = max(1, PLAIN_GATHER_BYTES // (c_e * ts_e * f_e * 4))
                         rows_e = sel_e[:, :, None] * ts_e + torch.arange(ts_e, device=dev)
                         scale = torch.linalg.norm(Qe, dim=1)[:, None, None] * xnorm[rows_e]
@@ -1493,12 +1853,13 @@ def main() -> int:
                                              for q0 in range(0, b_e, per)])
                             got = rsk.slab_dots(Xv, Qe, sel_e, ts_e, checked=True)
                             gap = float(((got - ref).abs() / torch.clamp(scale, min=1e-30)).max())
-                            plan = rsk.slab_dots_plan(b_e, c_e, f_e, Xv.dtype, x_addr=Xv.data_ptr())
+                            plan = rsk.slab_dots_plan(b_e, c_e, f_e, Xv.dtype, x_addr=Xv.data_ptr(),
+                                                      ts=ts_e, sms=sms)
                             what = (f"slab_dots F={f_e} ts={ts_e} c={c_e} B={b_e} {Xv.dtype} "
                                     f"{'offset' if Xv is Xo else 'aligned'} {plan['reads']}")
                             edge.append(dict(case=what, max_rel_err=gap))
                             check(gap <= TOL_SCORE, f"{what}: kernel vs plain {gap} on the cosine scale")
-                            check(plan == rsk.slab_dots_plan_chosen(Xv, b_e, c_e), f"{what}: unexpected plan")
+                            check(plan == rsk.slab_dots_plan_chosen(Xv, b_e, c_e, ts_e), f"{what}: unexpected plan")
     bad_sel = torch.tensor([[0, 5], [7, EDGE_SLABS_E], [-1, 2]], device=dev)
     d_bad = rsk.slab_dots(Xf, torch.ones((3, Xf.shape[1]), device=dev), bad_sel, EDGE_TS_E[-1], checked=True)
     nan_ok = bool(torch.isnan(d_bad[1, 1]).all() and torch.isnan(d_bad[2, 0]).all()

@@ -87,14 +87,20 @@
 //   of f32 rows at B = 256, c = 14, ts = 128, F = 128 on the main path
 //   (0.056 ms at 3.35 TB/s; 47 MB, 0.015 ms, for int8 rows). The work per
 //   byte is one FMA, so a design has only to keep enough bytes in flight.
-//   Design: one block a (query, slab) pair. The query sits in shared
-//   memory, each warp takes one slab row at a time, its lanes read the row
-//   with 16-byte loads (4-byte for int8 rows) straight to registers,
-//   multiply in f32 and sum with a shuffle tree; the main path's 3,584
-//   blocks keep the loads in flight. A persistent ring of bulk copies
-//   through shared memory was measured beside it and was slower for the
-//   f32 rows the main path reads (PERF.md, NVIDIA H100 80GB HBM3, 700 W;
-//   chip_smoke.py). An out-of-range slab id is not read and yields a NaN
+//   Two designs, chosen by mrs_slab_dots_plan (never by catching a
+//   failure). f32 rows, and int8 rows the ring does not take: one block a
+//   (query, slab) pair. The query sits in shared memory, each warp takes
+//   one slab row at a time, its lanes read the row with 16-byte loads
+//   (4-byte for int8 rows) straight to registers, multiply in f32 and sum
+//   with a shuffle tree; the main path's 3,584 blocks keep the loads in
+//   flight. A ring of bulk copies was measured beside it and was slower
+//   for f32 rows (PERF.md, NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py).
+//   int8 rows (the resident sketch's; F % 4 == 0, F ≤ 384, a slab ≤ 48 KB, X on
+//   16 bytes): the ring (slab_dots_ring_kernel, below), a persistent grid
+//   whose blocks keep up to eight slab copies in flight by cp.async.bulk on
+//   mbarriers while they sum the slab that has landed: one block a pair
+//   kept one 4-byte load in flight per warp and reached a quarter of the
+//   bytes bound. An out-of-range slab id is not read and yields a NaN
 //   slice (the public wrapper refuses such ids unless its caller made them
 //   in range). mrs_slab_dots_plan reports the launch
 //   (ops/kernels/rescored.slab_dots_plan mirrors it).
@@ -649,6 +655,217 @@ inline int slab_vec(const void* X, int f, int int8_rows) {
   return f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % (int8_rows ? 4 : 16) == 0;
 }
 
+// ---- Kernel E, int8 rows: the ring ------------------------------------------
+//
+// A persistent grid (RING_BLOCKS_PER_SM blocks an SM); block j takes the
+// items [j·per, (j+1)·per) in order, so consecutive items mostly share a
+// query, and stages their slab ids in shared memory first (a global read
+// per item put a cold load on every item's path). Each item's slab (ts
+// rows × F int8, contiguous) arrives by one cp.async.bulk into a stage of
+// the block's ring, completed on the stage's mbarrier; thread 0 keeps
+// `stages` slabs in flight and refills a stage as soon as the block has
+// finished with it, so the copies of the next slabs run while the block
+// sums the current one. Eight lanes share a row: lane g reads words g,
+// g + 8, ... of it (conflict-free at F = 96), upcasts the four int8 of a
+// word exactly (a byte permute onto 2^23, one subtraction), multiplies by
+// the query's bf16-rounded values, held in registers for the item, and sums
+// in f32; a lane group takes four rows at once (one row at a time left the
+// FMA and shuffle latencies exposed), and three shuffles close each row.
+constexpr int RING_THREADS = 256;
+constexpr int RING_BLOCKS_PER_SM = 2;
+constexpr int RING_BYTES = 96 * 1024;          // the stages of one block
+constexpr int RING_MAX_STAGES = 8;
+constexpr int RING_MAX_SLAB = 48 * 1024;       // a stage holds one slab
+constexpr int RING_MAX_F = 384;                // the query's words of a lane live in registers
+constexpr int RING_QW = RING_MAX_F / 4 / 8;    // 12 words a lane
+constexpr int RING_UNROLL = 4;                 // rows a lane group sums at once
+constexpr int RING_MAX_ITEMS = 1024;           // slab ids a block stages in shared memory
+
+// The ring takes int8 rows whose slabs can be bulk-copied whole: F % 4 == 0
+// (rows on 4-byte words), the slab a multiple of 16 bytes and at most one
+// stage, X on 16 bytes.
+inline bool ring_ok(const void* X, int ts, int f, int int8_rows) {
+  const int64_t slab = (int64_t)ts * f;
+  return int8_rows && f % 4 == 0 && f <= RING_MAX_F && slab % 16 == 0 && slab <= RING_MAX_SLAB &&
+         reinterpret_cast<uintptr_t>(X) % 16 == 0;
+}
+inline int ring_stages(int ts, int f) {
+  const int s = RING_BYTES / (ts * f);
+  return s > RING_MAX_STAGES ? RING_MAX_STAGES : s;
+}
+
+__device__ __forceinline__ void ring_bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void ring_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void ring_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void ring_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "RING_WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra RING_WAIT_%=;\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void ring_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Byte `SEL & 3` of w (int8 biased by 128) as the exact float value.
+template <int SEL>
+__device__ __forceinline__ float int8_at(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | SEL)) - 8388736.0f;
+}
+
+__global__ void __launch_bounds__(RING_THREADS)
+slab_dots_ring_kernel(const int8_t* __restrict__ X, const float* __restrict__ Q,
+                      const int64_t* __restrict__ sel, float* __restrict__ out, int items,
+                      int c, int ts, int f, int64_t nslabs, int stages) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  const int slab_bytes = ts * f;
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  const uint32_t bars_s = ring_s + stages * slab_bytes;      // 16-byte multiple: 8-byte aligned
+  const int per = (items + gridDim.x - 1) / gridDim.x;     // 32-bit: b·c < 2^31 (the entry checks)
+  const int first = blockIdx.x * per;
+  const int count = (first + per < items ? first + per : items) - first;
+  if (count <= 0) return;
+  const int tid = threadIdx.x;
+  // The block's slab ids, read once: a global read per item would put a
+  // cold load on every item's path.
+  int64_t* sel_s = reinterpret_cast<int64_t*>(ring + stages * (slab_bytes + 8));
+  for (int i = tid; i < count; i += RING_THREADS) sel_s[i] = sel[first + i];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) ring_bar_init(bars_s + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Thread 0: item `it` into stage s (an out-of-range id copies nothing and
+  // completes the stage's phase at once).
+  auto issue = [&](int it, int s) {
+    const int64_t slab = sel_s[it];
+    const uint32_t bar = bars_s + 8 * s;
+    if (slab >= 0 && slab < nslabs) {
+      ring_expect(bar, (uint32_t)slab_bytes);
+      ring_copy(ring_s + s * slab_bytes, X + slab * slab_bytes, (uint32_t)slab_bytes, bar);
+    } else {
+      ring_arrive(bar);
+    }
+  };
+  if (tid == 0)
+    for (int s = 0; s < stages && s < count; ++s) issue(s, s);
+
+  const int warp = tid >> 5, lane = tid & 31, grp = lane >> 3, g = lane & 7;
+  const int words = f >> 2;
+  int qrow = -1;
+  float4 q[RING_QW];
+  int s = 0, phase = 0;                            // the stage of item `it` and its parity
+  for (int it = 0; it < count; ++it) {
+    const int item = first + it;
+    const int b = item / c;
+    if (b != qrow) {                               // the item's query, bf16-rounded, in registers
+      const float* qb = Q + (int64_t)b * f;                 // scalar reads: Q may sit off 16 bytes
+#pragma unroll
+      for (int m = 0; m < RING_QW; ++m) {
+        const int j = 4 * (g + 8 * m);
+        q[m] = j < f ? make_float4(bf16_round(qb[j]), bf16_round(qb[j + 1]), bf16_round(qb[j + 2]),
+                                   bf16_round(qb[j + 3]))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      qrow = b;
+    }
+    const int64_t slab = sel_s[it];
+    ring_wait(bars_s + 8 * s, (uint32_t)phase);
+    float* dst = out + (int64_t)item * ts;
+    if (slab < 0 || slab >= nslabs) {
+      for (int r = tid; r < ts; r += RING_THREADS) dst[r] = NAN;
+    } else {
+      const unsigned char* st = ring + s * slab_bytes;
+      // A group takes rows r, r + 32, r + 64, r + 96 at once: four
+      // independent sums keep the FMA and shuffle latencies overlapped.
+      for (int r0 = warp * 4 + grp; r0 < ts; r0 += RING_UNROLL * (RING_THREADS / 8)) {
+        float acc[RING_UNROLL];
+#pragma unroll
+        for (int u = 0; u < RING_UNROLL; ++u) acc[u] = 0.f;
+#pragma unroll
+        for (int m = 0; m < RING_QW; ++m) {
+          const int j = g + 8 * m;
+          if (j < words) {
+#pragma unroll
+            for (int u = 0; u < RING_UNROLL; ++u) {
+              const int r = r0 + u * (RING_THREADS / 8);
+              if (r < ts) {
+                const uint32_t w = reinterpret_cast<const uint32_t*>(st + r * f)[j] ^ 0x80808080u;
+                acc[u] = fmaf(q[m].x, int8_at<0>(w), acc[u]);
+                acc[u] = fmaf(q[m].y, int8_at<1>(w), acc[u]);
+                acc[u] = fmaf(q[m].z, int8_at<2>(w), acc[u]);
+                acc[u] = fmaf(q[m].w, int8_at<3>(w), acc[u]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RING_UNROLL; ++u) {
+          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 4);
+          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 2);
+          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], 1);
+          const int r = r0 + u * (RING_THREADS / 8);
+          if (g == 0 && r < ts) dst[r] = acc[u];
+        }
+      }
+    }
+    __syncthreads();                               // the block is done with stage s
+    if (tid == 0 && it + stages < count) issue(it + stages, s);
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// Kernel E's plan: the ring (design 1) for int8 rows it takes, one block a
+// (query, slab) pair (design 0) otherwise.
+struct SlabPlan {
+  int design, vec, smem, stages;
+  int64_t blocks;
+};
+
+inline int slab_sms() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+inline SlabPlan slab_plan_of(const void* X, int b, int c, int ts, int f, int int8_rows, int sms) {
+  SlabPlan p = {0, 0, 0, 0, 0};
+  if (ring_ok(X, ts, f, int8_rows) && (int64_t)b * c < (1LL << 31)) {
+    p.design = 1;
+    p.stages = ring_stages(ts, f);
+    const int64_t items = (int64_t)b * c;
+    int64_t grid = (int64_t)sms * RING_BLOCKS_PER_SM;      // persistent, unless a block
+    const int64_t need = (items + RING_MAX_ITEMS - 1) / RING_MAX_ITEMS;   // would stage
+    if (grid < need) grid = need;                           // more than RING_MAX_ITEMS ids
+    p.blocks = items < grid ? items : grid;
+    const int64_t per = (items + p.blocks - 1) / p.blocks;
+    p.smem = (int)(p.stages * (ts * f + 8) + 8 * per);
+  } else {
+    p.vec = slab_vec(X, f, int8_rows);
+    p.smem = f * (int)sizeof(float);
+    p.blocks = (int64_t)b * c;
+  }
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -698,35 +915,59 @@ int mrs_tilemax_only_plan(const void* X, int f, int b, int mode, int* vec, int* 
 // X [N, f] f32 (int8_rows = 0) or int8 (int8_rows = 1), Q [b, f] f32 (for
 // int8 rows the kernel rounds it to bf16), sel [b, c] int64 slab ids → out
 // [b, c, ts] f32, contiguous; an id outside [0, nslabs) gives a NaN slice.
+// design -1 takes mrs_slab_dots_plan's choice; 0 forces one block a (query,
+// slab) pair, 1 the ring (for timing one against the other).
 // cudaErrorInvalidValue where the query passes 48 KB (past 12,288
-// features). Returns cudaGetLastError().
+// features) or the ring is forced where it does not apply. Returns
+// cudaGetLastError().
 int mrs_slab_dots(const void* X, const float* Q, const int64_t* sel, float* out, int b, int c,
-                  int ts, int f, int64_t nslabs, int int8_rows, void* stream) {
+                  int ts, int f, int64_t nslabs, int int8_rows, int design, void* stream) {
   if (b <= 0 || c <= 0) return 0;
   if (ts <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = f * (int)sizeof(float);
-  if (smem > E_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const int vec = slab_vec(X, f, int8_rows);
-  const unsigned blocks = (unsigned)((int64_t)b * c);
+  const int sms = slab_sms();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  SlabPlan p = slab_plan_of(X, b, c, ts, f, int8_rows, sms);
+  if (design == 1 && p.design != 1) return (int)cudaErrorInvalidValue;
+  if (design == 0 && p.design == 1) {
+    p.design = 0;
+    p.vec = slab_vec(X, f, int8_rows);
+    p.smem = f * (int)sizeof(float);
+    p.blocks = (int64_t)b * c;
+  }
   cudaStream_t st = (cudaStream_t)stream;
+  if (p.design == 1) {
+    const cudaError_t rc = cudaFuncSetAttribute(slab_dots_ring_kernel,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (rc != cudaSuccess) return (int)rc;
+    slab_dots_ring_kernel<<<(unsigned)p.blocks, RING_THREADS, p.smem, st>>>(
+        reinterpret_cast<const int8_t*>(X), Q, sel, out, b * c, c, ts, f, nslabs, p.stages);
+    return (int)cudaGetLastError();
+  }
+  if (p.smem > E_MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (int8_rows)
-    slab_dots_kernel<true><<<blocks, E_THREADS, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
+    slab_dots_kernel<true><<<(unsigned)p.blocks, E_THREADS, p.smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, p.vec);
   else
-    slab_dots_kernel<false><<<blocks, E_THREADS, smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, vec);
+    slab_dots_kernel<false><<<(unsigned)p.blocks, E_THREADS, p.smem, st>>>(X, Q, sel, out, c, ts, f, nslabs, p.vec);
   return (int)cudaGetLastError();
 }
 
-// What mrs_slab_dots chooses for these arguments: *vec 1 for 16-byte (f32
-// rows) or 4-byte (int8 rows) reads, 0 for element reads; *blocks; *smem
-// the dynamic shared memory. cudaErrorInvalidValue where mrs_slab_dots
-// refuses the launch.
-int mrs_slab_dots_plan(const void* X, int b, int c, int f, int int8_rows, int* vec, int64_t* blocks,
-                       int* smem) {
-  if (b <= 0 || c <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
-  *vec = slab_vec(X, f, int8_rows);
-  *blocks = (int64_t)b * c;
-  *smem = f * (int)sizeof(float);
-  return *smem > E_MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
+// What mrs_slab_dots chooses for these arguments: *design 1 for the ring, 0
+// for one block a pair; *vec 1 for 16-byte (f32 rows) or 4-byte (int8 rows)
+// reads of the pair design, 0 for element reads or the ring; *blocks;
+// *smem the dynamic shared memory; *stages the ring's stages (0 for the
+// pair design). cudaErrorInvalidValue where mrs_slab_dots refuses the launch.
+int mrs_slab_dots_plan(const void* X, int b, int c, int ts, int f, int int8_rows, int* design,
+                       int* vec, int64_t* blocks, int* smem, int* stages) {
+  if (b <= 0 || c <= 0 || f <= 0 || ts <= 0) return (int)cudaErrorInvalidValue;
+  const int sms = slab_sms();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const SlabPlan p = slab_plan_of(X, b, c, ts, f, int8_rows, sms);
+  *design = p.design;
+  *vec = p.vec;
+  *blocks = p.blocks;
+  *smem = p.smem;
+  *stages = p.stages;
+  return p.design == 0 && p.smem > E_MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // extern "C"

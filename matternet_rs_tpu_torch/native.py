@@ -200,17 +200,36 @@ class ShardReader:
     def __next__(self) -> np.ndarray:
         if self._handle is not None:
             out = np.empty((self.block_rows, self.f), self.dtype)
+            rows = self.read_into(out)
+            if rows == 0:
+                raise StopIteration
+            return out[:rows]
+        if self._py_iter is None:          # the native stream ended: stay ended
+            raise StopIteration
+        return next(self._py_iter)
+
+    def read_into(self, out: np.ndarray) -> int:
+        """Copy the next block into the first rows of ``out`` (C-contiguous,
+        the reader's type, room for ``block_rows`` rows: for example a
+        pinned staging buffer, so the block is copied once on the host);
+        returns its rows, 0 at the end of the stream."""
+        if out.dtype != self.dtype or not out.flags.c_contiguous \
+                or out.size < self.block_rows * self.f:
+            raise ValueError(f"read_into needs a C-contiguous {self.dtype} buffer of "
+                             f"{self.block_rows} x {self.f}")
+        if self._handle is not None:
             rows = self._lib.mrs_shard_reader_next(self._handle, out.ctypes.data)
             if rows < 0:
                 self.close()
                 raise IOError("native shard reader IO error")
             if rows == 0:
                 self.close()
-                raise StopIteration
-            return out[:rows]
-        if self._py_iter is None:          # the native stream ended: stay ended
-            raise StopIteration
-        return next(self._py_iter)
+            return int(rows)
+        block = next(self, None)
+        if block is None:
+            return 0
+        out.reshape(-1, self.f)[:len(block)] = block
+        return len(block)
 
     def close(self) -> None:
         if self._handle is not None:

@@ -53,10 +53,11 @@ SIGNATURES = {
                              _I, _P, _P],
         # X, f, b, mode, vec (out), nq (out), smem (out)
         "mrs_tilemax_only_plan": [_P, _I, _I, _I, _P, _P, _P],
-        # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, stream
-        "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _P],
-        # X, b, c, f, int8_rows, vec (out), blocks (out, int64), smem (out)
-        "mrs_slab_dots_plan": [_P, _I, _I, _I, _I, _P, _P, _P],
+        # X, Q, sel, out, b, c, ts, f, nslabs, int8_rows, design, stream
+        "mrs_slab_dots": [_P, _P, _P, _P, _I, _I, _I, _I, _I64, _I, _I, _P],
+        # X, b, c, ts, f, int8_rows, design (out), vec (out), blocks (out,
+        # int64), smem (out), stages (out)
+        "mrs_slab_dots_plan": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "spmv_ell": {
         # idx, w, X, d (or null), out, n, k, m, stream

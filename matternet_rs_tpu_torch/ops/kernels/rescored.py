@@ -205,46 +205,74 @@ def slab_dots_plain(X, queries, sel, ts: int):
     return d.view(b, c, ts)
 
 
-_SLAB_MAX_SMEM = 48 * 1024            # kernel E's query in shared memory
+_SLAB_MAX_SMEM = 48 * 1024            # kernel E's query in shared memory (the pair design)
+# The ring of kernel E for int8 rows (csrc/rescored.cu): blocks an SM, the
+# bytes of a block's stages, its most stages, the largest slab and F.
+_RING_BLOCKS_PER_SM, _RING_BYTES, _RING_MAX_STAGES = 2, 96 * 1024, 8
+_RING_MAX_SLAB, _RING_MAX_F = 48 * 1024, 384
+_RING_MAX_ITEMS = 1024               # slab ids a ring block stages in shared memory
+_H100_SMS = 132
+_DESIGNS = {"pair": 0, "ring": 1}
 
 
-def slab_dots_plan(b: int, c: int, f: int, dtype: torch.dtype, x_addr: int = 0) -> dict:
+def slab_dots_plan(b: int, c: int, f: int, dtype: torch.dtype, x_addr: int = 0, ts: int = 128,
+                   sms: int = _H100_SMS) -> dict:
     """What the C entry point of kernel E chooses for ``b`` queries of ``c``
-    slabs, ``f`` features of ``dtype`` rows (float32 or int8) at address
-    ``x_addr``: the ``reads`` of the rows (``"vector"``: 16-byte reads of
-    f32 rows or 4-byte reads of int8 rows, when F % 4 = 0 and the address
-    allows it; ``"element"`` otherwise), the ``blocks`` (one a (query,
-    slab) pair) and the ``smem_bytes`` (the query). Raises ``ValueError``
-    where the launch would be refused: the query past 48 KB (past 12,288
+    slabs of ``ts`` rows, ``f`` features of ``dtype`` rows (float32 or
+    int8) at address ``x_addr``, on a card of ``sms`` SMs: the ``design``
+    (``"ring"``: int8 rows with F % 4 = 0, F ≤ 384, a slab of at most 48 KB
+    and a multiple of 16 bytes, X on 16 bytes — a persistent grid of
+    ``blocks`` = min(b·c, 2·sms) whose ``stages`` slab copies are in flight
+    by ``cp.async.bulk`` (more blocks where one would take more than 1,024
+    items); ``"pair"`` otherwise — one block a (query, slab)
+    pair), its ``reads`` (the ring's ``"bulk"``; the pair design's
+    ``"vector"``, 16-byte reads of f32 rows or 4-byte reads of int8 rows
+    when F % 4 = 0 and the address allows it, else ``"element"``) and the
+    ``smem_bytes`` it asks for (the pair design: the query; the ring: its
+    stages, their barriers and its slab ids). Raises ``ValueError`` where the launch
+    would be refused: the pair design's query past 48 KB (past 12,288
     features), or an empty shape."""
-    if min(b, c, f) < 1:
-        raise ValueError(f"slab_dots kernel: b={b}, c={c}, f={f} must all be >= 1")
+    if min(b, c, f, ts) < 1:
+        raise ValueError(f"slab_dots kernel: b={b}, c={c}, f={f}, ts={ts} must all be >= 1")
+    slab = ts * f
+    if (dtype == torch.int8 and f % 4 == 0 and f <= _RING_MAX_F and slab % 16 == 0
+            and slab <= _RING_MAX_SLAB and x_addr % 16 == 0 and b * c < 2**31):
+        stages = min(_RING_MAX_STAGES, _RING_BYTES // slab)
+        blocks = min(b * c, max(_RING_BLOCKS_PER_SM * sms, -(-b * c // _RING_MAX_ITEMS)))
+        return dict(design="ring", reads="bulk", blocks=blocks,
+                    smem_bytes=stages * (slab + 8) + 8 * -(-b * c // blocks), stages=stages)
     if 4 * f > _SLAB_MAX_SMEM:
         raise ValueError(f"slab_dots kernel: a query of {f} features passes {_SLAB_MAX_SMEM} bytes")
     vec = f % 4 == 0 and x_addr % (4 if dtype == torch.int8 else 16) == 0
-    return dict(reads="vector" if vec else "element", blocks=b * c, smem_bytes=4 * f)
+    return dict(design="pair", reads="vector" if vec else "element", blocks=b * c,
+                smem_bytes=4 * f, stages=0)
 
 
-def slab_dots_plan_chosen(X, b: int, c: int) -> dict:
+def slab_dots_plan_chosen(X, b: int, c: int, ts: int = 128) -> dict:
     """:func:`slab_dots_plan` as the built library itself reports it for the
     rows ``X`` on the card."""
     lib = _cuda.library("rescored")
-    vec, smem = ctypes.c_int(), ctypes.c_int()
+    design, vec, smem, stages = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     blocks = ctypes.c_int64()
-    rc = lib.mrs_slab_dots_plan(X.data_ptr(), b, c, X.shape[1], int(X.dtype == torch.int8),
-                                ctypes.byref(vec), ctypes.byref(blocks), ctypes.byref(smem))
+    rc = lib.mrs_slab_dots_plan(X.data_ptr(), b, c, ts, X.shape[1], int(X.dtype == torch.int8),
+                                ctypes.byref(design), ctypes.byref(vec), ctypes.byref(blocks),
+                                ctypes.byref(smem), ctypes.byref(stages))
     _cuda.check(lib, rc, "slab_dots kernel plan")
-    return dict(reads="vector" if vec.value else "element", blocks=blocks.value, smem_bytes=smem.value)
+    reads = "bulk" if design.value else "vector" if vec.value else "element"
+    return dict(design="ring" if design.value else "pair", reads=reads, blocks=blocks.value,
+                smem_bytes=smem.value, stages=stages.value)
 
 
-def _slab_dots_launch(X, queries, sel, ts: int, out) -> None:
+def _slab_dots_launch(X, queries, sel, ts: int, out, design: str | None = None) -> None:
     """Launch kernel E into ``out [B, c, ts]`` on arguments that
-    :func:`slab_dots` has checked."""
+    :func:`slab_dots` has checked; ``design`` (``"pair"`` or ``"ring"``)
+    overrides the plan, for timing one design against the other."""
     lib = _cuda.library("rescored")
     b, c = sel.shape
     rc = lib.mrs_slab_dots(
         X.data_ptr(), queries.data_ptr(), sel.data_ptr(), out.data_ptr(), b, c, ts, X.shape[1],
-        X.shape[0] // ts, int(X.dtype == torch.int8), _cuda.stream_ptr(out.device),
+        X.shape[0] // ts, int(X.dtype == torch.int8), -1 if design is None else _DESIGNS[design],
+        _cuda.stream_ptr(out.device),
     )
     _cuda.check(lib, rc, "slab_dots kernel")
     kernels.LAUNCHES["slab_dots"] += 1
@@ -254,8 +282,8 @@ def slab_dots(X, queries, sel, ts: int, *, checked: bool = False):
     """``d[b, i, r] = queries[b] · X[sel[b, i]·ts + r]`` → ``[B, c, ts]``.
     ``X`` f32 (full-f32 dots) or int8 (lossless upcast, the query rounded
     to bf16); ``sel [B, c]`` int64 slab ids, each in ``[0, N // ts)``. CPU
-    tensors take the plain version; CUDA tensors launch kernel E (one block
-    a (query, slab) pair, :func:`slab_dots_plan`). Unless
+    tensors take the plain version; CUDA tensors launch kernel E (the design
+    :func:`slab_dots_plan` names). Unless
     ``checked`` (the caller made the ids in range itself), an out-of-range
     id raises ``ValueError`` before the launch, which reads the ids back to
     the host; with ``checked=True`` nothing is read back, and the kernel

@@ -299,30 +299,58 @@ def test_spmv_ell_plan_pins_groups_and_passes(m):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8], ids=str)
 @pytest.mark.parametrize("f", [1, 3, 100, 128, 768, 2048])
 def test_slab_dots_plan_fits_and_respects_alignment(f, dtype):
-    """Kernel E's launch at every F and (B, c), aligned and offset X: one
-    block a (query, slab) pair, the query in shared memory, vector reads
-    only where F and the address allow them."""
+    """Kernel E's launch at every F and (B, c), aligned and offset X: int8
+    rows with F % 4 = 0, F ≤ 384 and X on 16 bytes take the ring (a
+    persistent grid of min(B·c, 2·132) blocks, 96 KB of 128-row stages, at
+    most 8); everything else one block a (query, slab) pair, the query in
+    shared memory, vector reads only where F and the address allow them."""
     esz = torch.empty((), dtype=dtype).element_size()
     for b, c in ((1, 1), (7, 14), (256, 14)):
         for x_addr in (0, 4):                      # X aligned, and 4 bytes off
+            got = rsk.slab_dots_plan(b, c, f, dtype, x_addr=x_addr)
+            if esz == 1 and f % 4 == 0 and f <= 384 and x_addr == 0:
+                stages, blocks = min(8, 96 * 1024 // (128 * f)), min(b * c, 264)
+                assert got == dict(design="ring", reads="bulk", blocks=blocks, stages=stages,
+                                   smem_bytes=stages * (128 * f + 8) + 8 * -(-b * c // blocks))
+                continue
             # 16-byte reads of f32 rows need X on 16 bytes, 4-byte reads of
             # int8 rows X on 4; both need F % 4 == 0.
             vector = f % 4 == 0 and (x_addr == 0 or esz == 1)
-            assert rsk.slab_dots_plan(b, c, f, dtype, x_addr=x_addr) == dict(
-                reads="vector" if vector else "element", blocks=b * c, smem_bytes=4 * f)
+            assert got == dict(design="pair", reads="vector" if vector else "element",
+                               blocks=b * c, smem_bytes=4 * f, stages=0)
     assert rsk.slab_dots_plan(1, 1, f, dtype, x_addr=8)["reads"] == \
         ("vector" if f % 4 == 0 and esz == 1 else "element")
 
 
 def test_slab_dots_plan_at_the_main_path_shape_and_past_the_fused_range():
-    for dtype in (torch.float32, torch.int8):
-        assert rsk.slab_dots_plan(256, 14, 128, dtype) == dict(reads="vector", blocks=3584, smem_bytes=512)
+    assert rsk.slab_dots_plan(256, 14, 128, torch.float32) == dict(
+        design="pair", reads="vector", blocks=3584, smem_bytes=512, stages=0)
+    assert rsk.slab_dots_plan(256, 14, 128, torch.int8) == dict(
+        design="ring", reads="bulk", blocks=264, smem_bytes=6 * (16_384 + 8) + 8 * 14, stages=6)
+    # Past 1,024 items a block the grid grows instead.
+    big = rsk.slab_dots_plan(8192, 64, 96, torch.int8)
+    assert big["blocks"] == 512 and big["smem_bytes"] == 8 * (12_288 + 8) + 8 * 1024
     assert rsk.slab_dots_plan(3, 2, 12_288, torch.float32)["smem_bytes"] == 49_152
     with pytest.raises(ValueError, match="passes 49152 bytes"):
         rsk.slab_dots_plan(3, 2, 12_289, torch.float32)
     for bad in ((0, 2, 128), (3, 0, 128), (3, 2, 0)):
         with pytest.raises(ValueError, match="must all be >= 1"):
             rsk.slab_dots_plan(*bad, torch.float32)
+
+
+@pytest.mark.parametrize("ts,f,sms,want", [
+    (128, 96, 132, dict(design="ring", reads="bulk", blocks=264, smem_bytes=8 * (12_288 + 8) + 112, stages=8)),
+    (256, 96, 132, dict(design="ring", reads="bulk", blocks=264, smem_bytes=4 * (24_576 + 8) + 112, stages=4)),
+    (128, 384, 132, dict(design="ring", reads="bulk", blocks=264, smem_bytes=2 * (49_152 + 8) + 112, stages=2)),
+    (256, 384, 132, dict(design="pair", reads="vector", blocks=3584, smem_bytes=1536, stages=0)),
+    (128, 388, 132, dict(design="pair", reads="vector", blocks=3584, smem_bytes=1552, stages=0)),
+    (128, 96, 114, dict(design="ring", reads="bulk", blocks=228, smem_bytes=8 * (12_288 + 8) + 128, stages=8)),
+])
+def test_slab_dots_plan_of_the_sketch_path(ts, f, sms, want):
+    """The sketch path's shape (B = 256, c = 14, int8 rows of F = 96): the
+    ring, its stages from the slab's bytes, its grid from the SM count; a
+    slab past 48 KB or F past 384 keeps the pair design."""
+    assert rsk.slab_dots_plan(256, 14, f, torch.int8, ts=ts, sms=sms) == want
 
 
 def test_rescored_route_tells_kernel_e_its_ids_are_in_range(monkeypatch):

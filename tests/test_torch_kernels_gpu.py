@@ -551,8 +551,9 @@ def test_slab_dots_kernel_matches_plain_at_edge_shapes(cuda_device, f, dtype, of
                 rows = sel[:, :, None] * ts + torch.arange(ts, device=cuda_device)
                 scale = torch.linalg.norm(Q, dim=1)[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows]
                 assert bool(torch.all((d - pd).abs() <= 1e-5 * scale)), (ts, c, b)
-                assert trsk.slab_dots_plan_chosen(Xr, b, c) == trsk.slab_dots_plan(
-                    b, c, f, dtype, x_addr=Xr.data_ptr())
+                assert trsk.slab_dots_plan_chosen(Xr, b, c, ts) == trsk.slab_dots_plan(
+                    b, c, f, dtype, x_addr=Xr.data_ptr(), ts=ts,
+                    sms=torch.cuda.get_device_properties(cuda_device).multi_processor_count)
     bad = torch.tensor([[0, 3], [4, nslabs], [-1, 2]], device=cuda_device)
     d = trsk.slab_dots(Xr, torch.ones((3, f), device=cuda_device), bad, 256, checked=True)
     assert bool(torch.isnan(d[1, 1]).all() and torch.isnan(d[2, 0]).all())
@@ -592,3 +593,83 @@ def test_rescored_route_makes_no_synchronising_call_after_kernel_d(cuda_device, 
             trsk.slab_dots(arrs[0], arrs[3], sel, 128)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("offset", [0, 16, 4], ids=["aligned", "offset16", "offset4"])
+@pytest.mark.parametrize("f", [1, 96, 130])
+@pytest.mark.parametrize("c", [1, 14, 64])
+@pytest.mark.parametrize("b", [1, 7, 256])
+def test_slab_dots_int8_rows_match_plain(cuda_device, b, c, f, offset):
+    """Kernel E on int8 rows (the ring where the plan takes it: F = 96 with
+    X on 16 bytes; the pair design at F = 1 and 130 and 4 bytes off), each
+    query's last slab the corpus's last whole one, against the plain
+    version; the plan is the library's."""
+    rng = np.random.default_rng(b * 1000 + c * 10 + f)
+    ts, nslabs = 128, 70
+    X8 = quantize_rows(torch.from_numpy(
+        rng.standard_normal((nslabs * ts + 5, f), dtype=np.float32)).to(cuda_device))[0]
+    buf = torch.empty(X8.numel() + offset, dtype=torch.int8, device=cuda_device)
+    Xr = buf[offset:].view(X8.shape)
+    Xr.copy_(X8)
+    Q = torch.from_numpy(rng.standard_normal((b, f), dtype=np.float32)).to(cuda_device)
+    sel = torch.sort(torch.from_numpy(rng.integers(0, nslabs, (b, c))).to(cuda_device), dim=1).values
+    sel[:, -1] = nslabs - 1
+    d = trsk.slab_dots(Xr, Q, sel, ts, checked=True)
+    pd = trsk.slab_dots_plain(Xr, Q, sel, ts)
+    rows = sel[:, :, None] * ts + torch.arange(ts, device=cuda_device)
+    scale = torch.linalg.norm(Q, dim=1)[:, None, None] * torch.linalg.norm(Xr.float(), dim=1)[rows]
+    assert bool(torch.all((d - pd).abs() <= 1e-5 * scale))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = trsk.slab_dots_plan(b, c, f, torch.int8, x_addr=Xr.data_ptr(), ts=ts, sms=sms)
+    assert trsk.slab_dots_plan_chosen(Xr, b, c, ts) == plan
+    assert plan["design"] == ("ring" if f == 96 and offset != 4 else "pair")
+
+
+def test_slab_dots_designs_agree_on_int8_rows(cuda_device):
+    """The ring and the pair design, forced, give the same dots up to the
+    order of summation."""
+    rng = np.random.default_rng(3)
+    X8 = quantize_rows(torch.from_numpy(rng.standard_normal((300 * 128, 96), dtype=np.float32))
+                       .to(cuda_device))[0]
+    Q = torch.from_numpy(rng.standard_normal((256, 96), dtype=np.float32)).to(cuda_device)
+    sel = torch.sort(torch.from_numpy(rng.integers(0, 300, (256, 14))).to(cuda_device), dim=1).values
+    outs = {}
+    for design in ("ring", "pair"):
+        outs[design] = torch.empty((256, 14, 128), device=cuda_device)
+        trsk._slab_dots_launch(X8, Q, sel, 128, outs[design], design=design)
+    rows = sel[:, :, None] * 128 + torch.arange(128, device=cuda_device)
+    scale = torch.linalg.norm(Q, dim=1)[:, None, None] * torch.linalg.norm(X8.float(), dim=1)[rows]
+    assert bool(torch.all((outs["ring"] - outs["pair"]).abs() <= 1e-5 * scale))
+
+
+def test_sketch_search_launches_d_and_e_once_a_batch_without_a_read_back(cuda_device, tmp_path):
+    """``search_batch_sketch`` on a suffix-padded sketch takes the
+    maxima-first scan: one launch of kernel D and one of kernel E a batch,
+    and nothing is read back from the query λ to the candidate ids."""
+    from matternet_rs_tpu_torch.index.streaming import StreamingIndex
+    from matternet_rs_tpu_torch.storage import shards
+
+    rng = np.random.default_rng(19)
+    centres = rng.normal(size=(16, 48)) * 4.0
+    data = (centres[rng.integers(0, 16, 70_000)] + rng.normal(size=(70_000, 48))).astype(np.float32)
+    shards.write_shards(data, tmp_path, rows_per_shard=30_000)
+    idx = StreamingIndex.build_from_store(tmp_path, GraphParams(eps=1.0, k=6, topk=6, sparsity_check=False),
+                                          32, 25.0, block_rows=32_768, sample_rows=20_000)
+    idx.build_sketch(persist=False)
+    assert idx._sketch_suffix_pad
+    idx.sketch_maxfirst = True
+    Q = torch.from_numpy(data[rng.choice(70_000, 64, replace=False)]).to(cuda_device)
+    kernels.reset_launches()
+    for refine in (True, False):
+        ids, _ = idx.search_batch_sketch(Q, 10, refine=refine)
+        assert ids.shape == (64, 10)
+    counts = kernels.launch_counts()
+    assert counts["tilemax_only"] == 2 and counts["slab_dots"] == 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ql = idx._query_lambdas(Q)
+        _, cand = idx._sketch_candidates(Q, ql, 10, 40)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cand.shape == (64, 40)

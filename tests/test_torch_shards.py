@@ -99,3 +99,25 @@ def test_distributed_half_waits_for_parallel():
         tshards.shard_items_from_store(None, "unused")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tshards.distributed_build_from_store("unused", None, 4)
+
+
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("start_row", [0, 299, 950])
+def test_read_into_fills_a_given_buffer(tmp_path, monkeypatch, native_lib, start_row):
+    """``ShardReader.read_into`` copies each block into the caller's buffer
+    (a staging buffer) and returns its rows, 0 at the end; the blocks are
+    those of the iterator."""
+    m = tshards.write_shards(ROWS, tmp_path, 300)
+    paths = [tmp_path / s["file"] for s in m["shards"]]
+    if not native_lib:
+        monkeypatch.setattr(native, "get_shard_lib", lambda: None)
+    reader = native.ShardReader(paths, 128, 24, start_row=start_row)
+    assert reader.native == native_lib
+    buf = np.full((128, 24), np.nan, np.float32)
+    got = []
+    while (rows := reader.read_into(buf)):
+        got.append(buf[:rows].copy())
+    assert reader.read_into(buf) == 0
+    assert np.array_equal(np.concatenate(got), ROWS[start_row:])
+    with pytest.raises(ValueError, match="C-contiguous"):
+        native.ShardReader(paths, 128, 24).read_into(np.zeros((64, 24), np.float32))
