@@ -48,10 +48,11 @@ Phases, one output line each (JSON):
    TPU's F-tiled kernel range) runs through the builder.
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
    phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
-   searches) and phase 11 (build and searches), and read just after each;
-   every kernel of a path must have
+   searches), phase 11 (build and searches) and each tier of phase 12,
+   and read just after each; every kernel of a path must have
    launched. The kernel rows of A, B and the candidate stage add the
-   launches of phases 7–9 to phase 2's (``launches_by_path``).
+   launches of phases 7–9, 11 and 12 to phase 2's (``launches_by_path``);
+   those of D (bf16x3) and E add phase 12's to phase 3's.
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -127,7 +128,40 @@ Phases, one output line each (JSON):
    searches bit for bit as before; the maxima-first scan makes no
    synchronising call from the query λ to its candidate ids
    (``set_sync_debug_mode("error")``). Kernels A, D and E must launch.
-12. kernels — each kernel against its plain PyTorch version on the inputs
+12. energy — the energy pipeline at the reference benchmark's size
+   (``bench.py`` ``bench_energy``): ``build_energy`` of
+   ``make_energy_test_dataset(1_000_000, 128, seed=43)`` with phase 2's
+   builder settings, ``with_expected_items`` and
+   ``with_dims_reduction(True)``: stage seconds, S, the largest equal-λ
+   group and the largest groups, the build's launches (none: the
+   sub-centroid λ is the plain closed form, as the reference's); checks
+   that each item's λ is its sub-centroid's and the item norms are ‖x‖.
+   ``search_energy_batch`` over one warm-up and three timed batches of 256
+   corpus rows, k = 10: the full scan (self-retrieval@10),
+   ``candidates="auto"`` (must take the full scan), a forced window of the
+   largest group plus k (its route printed), the full scan and ``auto`` at
+   B = 8, 16 serial ``search_energy`` calls; every route against the full
+   scan under the same-k rule at 1e-14 (``ENERGY_TIE_TOL``: the tie-break
+   term 1e-9·(1 − cos) at a cosine tolerance of 1e-5). The same on the
+   reference's banded benchmark index (``bench_energy_banded_1m``: 1M
+   normal rows, 2,048 sorted sub-centroid λ at random), where ``auto``
+   must take the full scan at B = 256 and band at B = 8 and the forced
+   window must band. Energy-mode ``search_batch`` on the exact tier and on
+   ``bf16x3_rescored`` (counts set to 0 before each and read after: B and
+   the candidate stage, D and E must launch), each held against its plain
+   route as phases 2 and 3 hold theirs, the returned scores exact (1e-5),
+   the query λ the nearest sub-centroid's; profiles of the full energy
+   scan and of both tiers. A checkpoint of a 100,000-row build of the
+   same fixture (a cut for the time limit) saved, reloaded on the card and
+   searched bit for bit. The 1M index written as an energy store (shards,
+   raw λ, graph, ``energy.npz``, ``index.json``: the layout of the
+   reference's ``ShardedArrowSpace.to_store``), loaded by
+   ``StreamingIndex``, searched streamed and on the resident sketch
+   (refined), both against the in-memory scan under the same-k rule at the
+   store's λ round trip (twice its largest error plus the tie-break term's
+   span 2e-9, or 1e-14 when exact) and, for the sketch, 1e-9·2δ more (δ
+   the int8 sketch's cosine bound over the rows); recall@10 of each.
+13. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -271,6 +305,12 @@ SHARD_ROWS, SHARD_BLOCK_ROWS = 65_536, 32_768
 N_STREAM, F_STREAM, SEED_STREAM = 10_000_000, 96, 47
 STREAM_SHARD_ROWS, STREAM_CENTRES, STREAM_CLUSTERS, STREAM_SAMPLE = 1_000_000, 256, 250, 200_000
 STREAM_CHECK_ROWS = 1_000_000    # rows of the kernel-D and in-memory checks
+# Phase energy: the reference benchmark's energy build (bench.py bench_energy,
+# 1M × 128, seed 43), its checkpoint cut to 100,000 rows, and the
+# reference's banded benchmark index (bench_energy_banded_1m: seed 5, 2048
+# sub-centroid λ at random).
+N_ENERGY, SEED_ENERGY, N_ENERGY_CKPT, N_ENERGY_SERIAL = 1_000_000, 43, 100_000, 16
+SEED_SPREAD, SPREAD_SUBCENTROIDS = 5, 2048
 
 
 def stream_disk_bytes(n: int) -> int:
@@ -354,6 +394,372 @@ def busy_ms(events, device_type) -> float:
     return busy / 1e3                       # µs → ms
 
 
+def profiled(search, items):
+    """Run ``search(r)`` for each of ``items`` under ``torch.profiler``:
+    wall ms per item (host clock), device-busy ms per item (the union of
+    the traced kernels' intervals), idle share, top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    nb = len(items)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in items:
+            search(r)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / nb
+    dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / nb
+
+    def dev_ms(a):
+        return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
+
+    kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    top = sorted(kern, key=dev_ms, reverse=True)[:TOP_KERNELS]
+    return dict(batches=nb, wall_ms_per_batch=wall_ms,
+                device_busy_ms_per_batch=dev_busy,
+                idle_share=1.0 - dev_busy / wall_ms if wall_ms > 0 else None,
+                top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / nb,
+                              "device_ms_per_batch": dev_ms(a) / 1e3 / nb}
+                             for a in top if dev_ms(a) > 0])
+
+
+def make_builder(n):
+    """The reference benchmark's builder settings (``bench.py:_make_builder``)."""
+    from matternet_rs_tpu_torch import ArrowSpaceBuilder
+
+    return (
+        ArrowSpaceBuilder()
+        .with_lambda_graph(1.0, 6)
+        .with_sparsity_check(False)
+        .with_cluster_params(max_clusters=max(64, int(2 * n**0.5) // 8), radius=25.0)
+        .with_sampling(None)
+    )
+
+
+def energy_phase(dev, card):
+    """Phase 12, ``energy`` (module docstring). Returns the launches of
+    energy-mode ``search_batch`` by tier, each counted from 0 just before
+    its batches and read just after."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import convert
+    from matternet_rs_tpu_torch import energymaps as em
+    from matternet_rs_tpu_torch.graph import GraphLaplacian
+    from matternet_rs_tpu_torch.index import streaming as sti
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops import search as so
+    from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
+    from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
+    from matternet_rs_tpu_torch.storage import shards
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
+    from matternet_rs_tpu_torch.utils.parity import (
+        ENERGY_TIE_TOL,
+        energy_store_tolerance,
+        same_k_mismatches,
+        topk_mismatches,
+    )
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def over(fn, items):
+        """``fn(item)`` over ``items`` (the first a warm-up): ms each, outputs."""
+        ms, outs = [], []
+        for it in items:
+            out, s = timed(lambda: fn(it))
+            ms.append(s * 1e3)
+            outs.append(out)
+        return ms, outs
+
+    def mismatches(ref, got, tol):
+        return [m for (ri, rd), (gi, gd) in zip(ref, got) for m in same_k_mismatches(ri, rd, gi, gd, tol)]
+
+    def timing(ms):
+        return dict(warmup_ms=ms[0], ms_per_batch_median=statistics.median(ms[1:]), ms_per_batch=ms[1:])
+
+    # Count the banded program's launches, to read each call's route.
+    banded_calls = [0]
+    banded = em._banded_search
+
+    def counting_banded(*a, **kw):
+        banded_calls[0] += 1
+        return banded(*a, **kw)
+
+    def routed(fn, items):
+        before = banded_calls[0]
+        ms, outs = over(fn, items)
+        return ms, outs, ("banded" if banded_calls[0] > before else "full scan")
+
+    em._banded_search = counting_banded
+    try:
+        # -- build (the reference benchmark's bench_energy) ------------------
+        X = make_energy_test_dataset(N_ENERGY, F_MAIN, seed=SEED_ENERGY).astype(np.float32)
+        builder = make_builder(N_ENERGY).with_expected_items(N_ENERGY).with_dims_reduction(True)
+        kernels.reset_launches()
+        (aspace, gl), build_s = timed(lambda: builder.build_energy(X))
+        build_counts = kernels.launch_counts()
+        n_sub = int(aspace.sub_centroids.shape[0])
+        tie = aspace.max_lambda_tie_group()
+        cmap = aspace.centroid_map
+        sc_lam32 = torch.from_numpy(aspace.subcentroid_lambdas.astype(np.float32)).to(dev)
+        state_ok = bool(
+            cmap.shape == (N_ENERGY,) and cmap.min() >= 0 and cmap.max() < n_sub
+            and torch.isfinite(aspace.lambdas).all()
+            and torch.equal(aspace.lambdas, sc_lam32[torch.from_numpy(cmap).to(dev)])
+            and torch.equal(aspace.item_norms, torch.sqrt(torch.sum(aspace.data * aspace.data, dim=1))))
+        check(state_ok, "energy: the built state is inconsistent (map, λ or item norms)")
+        group_sizes = np.sort(np.bincount(cmap, minlength=n_sub))[::-1]
+
+        rows = np.random.default_rng(11).choice(N_ENERGY, BATCH * (N_BATCHES + 1), replace=False)
+        batches = rows.reshape(N_BATCHES + 1, BATCH)
+        rows8 = np.random.default_rng(12).choice(N_ENERGY, 8 * (N_BATCHES + 1), replace=False)
+        batches8 = rows8.reshape(N_BATCHES + 1, 8)
+
+        def scan(sp, Xh, **kw):
+            return lambda r: em.search_energy_batch(sp, Xh[r], gl, K, **kw)
+
+        # -- search_energy_batch ------------------------------------------
+        full_ms, full_out, full_route = routed(scan(aspace, X), batches)
+        self_hits = float(np.mean([r[b] in idx[b] for r, (idx, _) in zip(batches[1:], full_out[1:])
+                                   for b in range(BATCH)]))
+        auto_ms, auto_out, auto_route = routed(scan(aspace, X, candidates="auto"), batches)
+        forced = tie + K
+        forced_ms, forced_out, forced_route = routed(scan(aspace, X, candidates=forced), batches)
+        f8_ms, f8_out, _ = routed(scan(aspace, X), batches8)
+        a8_ms, a8_out, a8_route = routed(scan(aspace, X, candidates="auto"), batches8)
+        serial_rows = batches[1][:N_ENERGY_SERIAL]
+        serial_ms, serial_out = over(lambda i: em.search_energy(aspace, X[i], gl, K), serial_rows)
+        serial_bad = mismatches(
+            [(full_out[1][0][b:b + 1], full_out[1][1][b:b + 1]) for b in range(N_ENERGY_SERIAL)],
+            [(np.array([[i for i, _ in o]]), np.array([[s for _, s in o]], np.float32)) for o in serial_out],
+            ENERGY_TIE_TOL)
+        scan_bad = dict(
+            auto=mismatches(full_out, auto_out, ENERGY_TIE_TOL),
+            forced=mismatches(full_out, forced_out, ENERGY_TIE_TOL),
+            auto_b8=mismatches(f8_out, a8_out, ENERGY_TIE_TOL), serial=serial_bad)
+        check(full_route == "full scan" and auto_route == "full scan",
+              f"energy: B={BATCH} routes {full_route} / auto {auto_route}, not the full scan")
+        check(not any(scan_bad.values()), f"energy: routes disagree: { {k: v[:2] for k, v in scan_bad.items()} }")
+
+        # The reference's banded benchmark index (bench.py bench_energy_banded_1m):
+        # normal rows, 2048 sorted sub-centroid λ assigned at random.
+        rs = np.random.default_rng(SEED_SPREAD)
+        Xs = rs.normal(size=(N_ENERGY, F_MAIN)).astype(np.float32)
+        sub_s = rs.normal(size=(SPREAD_SUBCENTROIDS, F_MAIN)).astype(np.float32)
+        lam_s = np.sort(rs.uniform(0.0, 1.0, SPREAD_SUBCENTROIDS)).astype(np.float32)
+        assign = rs.integers(0, SPREAD_SUBCENTROIDS, N_ENERGY)
+        qs = [rs.integers(0, N_ENERGY, BATCH) for _ in range(N_BATCHES + 1)]
+        qs8 = [rs.integers(0, N_ENERGY, 8) for _ in range(N_BATCHES + 1)]
+        spread, _ = convert.arrowspace_from_arrays(
+            Xs, lam_s[assign], np.eye(F_MAIN, dtype=np.float32), min_lambdas=0.0, max_lambdas=1.0,
+            range_lambdas=1.0, sub_centroids=sub_s, subcentroid_lambdas=lam_s, centroid_map=assign,
+            device=dev)
+        tie_s = spread.max_lambda_tie_group()
+        s_full_ms, s_full, _ = routed(scan(spread, Xs), qs)
+        s_auto_ms, s_auto, s_auto_route = routed(scan(spread, Xs, candidates="auto"), qs)
+        s_forced_ms, s_forced, s_forced_route = routed(scan(spread, Xs, candidates=tie_s + K), qs)
+        s_f8_ms, s_f8, _ = routed(scan(spread, Xs), qs8)
+        s_a8_ms, s_a8, s_a8_route = routed(scan(spread, Xs, candidates="auto"), qs8)
+        spread_bad = dict(auto=mismatches(s_full, s_auto, ENERGY_TIE_TOL),
+                          forced=mismatches(s_full, s_forced, ENERGY_TIE_TOL),
+                          auto_b8=mismatches(s_f8, s_a8, ENERGY_TIE_TOL))
+        del spread, Xs
+        check(s_auto_route == "full scan" and s_forced_route == "banded" and s_a8_route == "banded",
+              f"energy: spread index routes auto {s_auto_route}, forced {s_forced_route}, "
+              f"auto B=8 {s_a8_route}")
+        check(not any(spread_bad.values()),
+              f"energy: banded vs full scan on the spread index: { {k: v[:2] for k, v in spread_bad.items()} }")
+
+        # -- energy-mode search_batch through the kernels -------------------
+        alphas = torch.full((BATCH,), ALPHA, dtype=torch.float32, device=dev)
+        tier_counts, tier_info = {}, {}
+        cand = aspace._int8_cand(K, None)
+        ts_r = so.DEFAULT_TILE // so.RESCORE_SUBS
+        n0 = (N_ENERGY // so.DEFAULT_TILE) * so.DEFAULT_TILE
+        c_r = min((n0 // so.DEFAULT_TILE) * so.RESCORE_SUBS, max(K + so.SELECT_MARGIN, -(-cand // ts_r)))
+        Xt, norms, lams = aspace.data, aspace.norms, aspace.lambdas
+        for tier in (False, "bf16x3_rescored"):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            ms, outs = over(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA, quantized=tier,
+                                                          return_raw=True), batches)
+            counts = tier_counts["exact" if tier is False else tier] = kernels.launch_counts()
+            score_err, self_found, plain_bad, sel_differs, sel_unexplained = 0.0, 0, [], 0, []
+            for r, (idx, sc, raw) in zip(batches, outs):
+                check(idx.shape == (BATCH, K) and np.all(np.isfinite(sc)), f"energy {tier}: bad output")
+                rt = torch.from_numpy(r).to(dev)
+                Q, ql = Xt[rt], torch.from_numpy(raw).to(dev)
+                check(torch.equal(ql, aspace._nearest_subcentroid_lambdas(aspace._energy_query(Q))),
+                      f"energy {tier}: the query λ is not the nearest sub-centroid's")
+                ids = torch.from_numpy(idx).to(dev)
+                qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+                ex = tmk.blend(torch.sum(Xt[ids] * Q[:, None, :], dim=-1), norms[ids] * qn[:, None],
+                               lams[ids], ql[:, None], ALPHA)
+                score_err = max(score_err, float((torch.from_numpy(sc).to(dev) - ex).abs().max()))
+                self_found += sum(int(r[b] in idx[b]) for b in range(BATCH))
+                if tier is False:
+                    top_p, idx_p = so.fused_tilemax(
+                        Xt, norms, lams, Q, ql, K + 1, alphas, so.DEFAULT_TILE,
+                        producer=tmk.scores_and_tilemax_plain, gather=tmk.gather_subtiles_plain,
+                        select=tmk.select_topk_plain)
+                    plain_bad += topk_mismatches(idx_p.cpu().numpy(), top_p.cpu().numpy(), idx, sc, TOL_SCORE)
+                    continue
+                pidx, ptop = so.fused_scan_rescored(
+                    Xt, Xt, norms, lams, Q, ql, K, cand, alphas,
+                    producer=rsk.tilemax_only_plain, slab_reader=rsk.slab_dots_plain)
+                mk = rsk.tilemax_only(Xt, norms, lams, Q, ql, alphas, subs=so.RESCORE_SUBS)
+                mp = rsk.tilemax_only_plain(Xt, norms, lams, Q, ql, alphas, subs=so.RESCORE_SUBS)
+                sel_k = torch.sort(so.topk_stable(mk, c_r)[1], dim=1).values
+                top_m, sel_p = so.topk_stable(mp, c_r + 1)
+                sel_p = torch.sort(sel_p[:, :c_r], dim=1).values
+                same = torch.all(sel_k == sel_p, dim=1).cpu().numpy()
+                gap = (top_m[:, c_r - 1] - top_m[:, c_r]).abs().cpu().numpy()
+                sel_differs += int((~same).sum())
+                sel_unexplained += [int(r[b]) for b in np.nonzero(~same & (gap > TOL_SCORE))[0]]
+                plain_bad += same_k_mismatches(pidx.cpu().numpy()[same], ptop.cpu().numpy()[same],
+                                               idx[same], sc[same], TOL_SCORE)
+            name = "exact" if tier is False else tier
+            tier_info[name] = dict(
+                **timing(ms), launches=counts, max_score_err=score_err,
+                self_retrieval_at_10=self_found / (BATCH * len(batches)),
+                plain_route_mismatches=plain_bad[:5], slab_selection_differs_rows=sel_differs,
+                profile=profiled(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA,
+                                                               quantized=tier), batches[1:]))
+            check(score_err <= TOL_SCORE, f"energy {name}: returned scores off by {score_err}")
+            check(not plain_bad, f"energy {name}: kernel vs plain route: {plain_bad[:3]}")
+            check(not sel_unexplained, f"energy {name}: slab selection differs without a near tie: {sel_unexplained[:5]}")
+        for kname in ("scores_tilemax", "subtile_topk"):
+            check(tier_counts["exact"][kname] > 0, f"energy: kernel {kname} not launched on the exact tier")
+        for kname in ("tilemax_only", "slab_dots"):
+            check(tier_counts["bf16x3_rescored"][kname] > 0, f"energy: kernel {kname} not launched on bf16x3_rescored")
+        scan_profile = profiled(scan(aspace, X), batches[1:])
+
+        # -- energy checkpoint (a 100,000-row build of the same fixture) -----
+        if importlib.util.find_spec("pyarrow") is None:
+            ckpt = dict(pyarrow="absent")
+        else:
+            from matternet_rs_tpu_torch.storage import parquet as spq
+
+            Xc = make_energy_test_dataset(N_ENERGY_CKPT, F_MAIN, seed=SEED_ENERGY).astype(np.float32)
+            cb = make_builder(N_ENERGY_CKPT).with_expected_items(N_ENERGY_CKPT).with_dims_reduction(True)
+            (ca, cgl), cbuild_s = timed(lambda: cb.build_energy(Xc))
+            rc = np.random.default_rng(13).choice(N_ENERGY_CKPT, BATCH, replace=False)
+
+            def searches(sp, sgl):
+                return (*em.search_energy_batch(sp, Xc[rc], sgl, K),
+                        *sp.search_batch(Xc[rc], sgl, k=K, alpha=ALPHA))
+
+            before = searches(ca, cgl)
+            with tempfile.TemporaryDirectory(prefix="mrs-energy-ckpt-") as tmp:
+                _, save_s = timed(lambda: spq.save_checkpoint(ca, cgl, cb, tmp, "energy"))
+                disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+                (ra, rgl), load_s = timed(lambda: spq.load_arrowspace(tmp, "energy", device=dev))
+            after = searches(ra, rgl)
+            bit_equal = all(np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
+                                           b.view(np.int32) if b.dtype == np.float32 else b)
+                            for a, b in zip(before, after))
+            state_equal = bool(
+                rgl.energy and torch.equal(ra.sub_centroids, ca.sub_centroids)
+                and np.array_equal(ra.subcentroid_lambdas, ca.subcentroid_lambdas)
+                and np.array_equal(ra.centroid_map, ca.centroid_map)
+                and torch.equal(ra.item_norms, ca.item_norms))
+            ckpt = dict(pyarrow="present", n=N_ENERGY_CKPT, build_seconds=cbuild_s,
+                        n_subcentroids=int(ca.sub_centroids.shape[0]), save_seconds=save_s,
+                        load_seconds=load_s, bytes_on_disk=disk, searches_bit_equal=bit_equal,
+                        energy_state_equal=state_equal,
+                        cut="100,000 rows of the 1M fixture, for the run's time limit")
+            check(bit_equal and state_equal, "energy: the reloaded checkpoint does not search bit for bit")
+            del ca, cgl, ra, rgl, Xc
+
+        # -- an energy store of the 1M index, streamed and on the sketch -----
+        with tempfile.TemporaryDirectory(prefix="mrs-energy-store-") as sdir:
+            sdir = Path(sdir)
+
+            def write_store():
+                """The layout of the reference's ShardedArrowSpace.to_store."""
+                shards.write_shards(X, sdir)
+                raw = aspace.min_lambdas + aspace.lambdas.double() * aspace.range_lambdas
+                (sdir / sti.LAMBDA_FILE).write_bytes(raw.float().cpu().numpy().tobytes())
+                sti.StreamingIndex(
+                    directory=sdir,
+                    gl=GraphLaplacian(matrix=gl.matrix, init_data=gl.init_data, nnodes=gl.nnodes,
+                                      graph_params=gl.graph_params),
+                    taumode=aspace.taumode, min_lambdas=aspace.min_lambdas,
+                    range_lambdas=aspace.range_lambdas, n_items=aspace.nitems,
+                    n_features=aspace.nfeatures, sub_centroids=aspace.sub_centroids.cpu().numpy(),
+                    subcentroid_lambdas=aspace.subcentroid_lambdas, projection=aspace.projection,
+                    device=dev)._save_meta()
+
+            _, write_s = timed(write_store)
+            sidx, load_s = timed(lambda: sti.StreamingIndex.load(sdir, device=dev))
+            st_ms, st_out = over(lambda r: sidx.search_energy_batch(X[r], K), batches)
+            _, sketch_s = timed(lambda: sidx.build_sketch(persist=False))
+            sk_ms, sk_out = over(lambda r: sidx.search_energy_batch_sketch(X[r], K, refine=True), batches)
+            # The store's λ as the index normalises them, against the in-memory λ.
+            raw32 = torch.from_numpy(np.fromfile(sdir / sti.LAMBDA_FILE, np.float32)).to(dev)
+            lam_store = torch.clamp((raw32 - sidx.min_lambdas) / sidx.range_lambdas, 0.0, 1.0)
+            d_lam = float((lam_store.double() - aspace.lambdas.double()).abs().max())
+            tol_st = energy_store_tolerance(lam_store.cpu().numpy(), aspace.lambdas.cpu().numpy())
+            # The sketch's cosine is within δ of the exact one (int8 rows,
+            # bf16 queries), so its refined top-k may trade items whose
+            # exact cosines lie within 2δ.
+            maxabs = torch.amax(torch.abs(aspace.data), dim=1)
+            delta = float(torch.max((1 + 2 ** -9) * F_MAIN ** 0.5 * maxabs / 254.0
+                                    / torch.clamp(aspace.item_norms, min=1e-12))) + 2 ** -9 + 1e-6
+            tol_sk = tol_st + 1e-9 * 2 * delta
+            store_bad = dict(streamed=mismatches(full_out, st_out, tol_st),
+                             sketch=mismatches(full_out, sk_out, tol_sk))
+
+            def recall(outs):
+                return float(np.mean([len(set(a[0][b].tolist()) & set(g[0][b].tolist())) / K
+                                      for a, g in zip(full_out[1:], outs[1:]) for b in range(BATCH)]))
+
+            store = dict(
+                bytes=int(X.nbytes), write_seconds=write_s, load_seconds=load_s,
+                streamed=dict(**timing(st_ms), recall_at_10=recall(st_out)),
+                sketch_seconds=sketch_s, sketch_refined=dict(**timing(sk_ms), recall_at_10=recall(sk_out)),
+                lambda_round_trip_max=d_lam, tolerance_streamed=tol_st, sketch_cosine_bound=delta,
+                tolerance_sketch=tol_sk, mismatches={k: v[:3] for k, v in store_bad.items()})
+            del sidx
+        check(not any(store_bad.values()),
+              f"energy: the port-built store vs the in-memory scan: { {k: v[:2] for k, v in store_bad.items()} }")
+    finally:
+        em._banded_search = banded
+
+    emit(phase="energy", n=N_ENERGY, f=F_MAIN, seed=SEED_ENERGY, card=card,
+         build_seconds=build_s, stage_seconds=builder.last_stage_timings, build_launches=build_counts,
+         n_clusters=aspace.n_clusters, projection=aspace.projection is not None,
+         n_subcentroids=n_sub, max_lambda_tie_group=tie, largest_groups=group_sizes[:5].tolist(),
+         empty_subcentroids=int((group_sizes == 0).sum()),
+         full_scan=dict(**timing(full_ms), route=full_route, self_retrieval_at_10=self_hits),
+         auto_b256=dict(**timing(auto_ms), route=auto_route),
+         forced_window=dict(candidates=forced, **timing(forced_ms), route=forced_route),
+         full_scan_b8=timing(f8_ms), auto_b8=dict(**timing(a8_ms), route=a8_route),
+         serial=dict(calls=N_ENERGY_SERIAL, ms_median=statistics.median(serial_ms[1:]), ms=serial_ms),
+         spread_index=dict(source="bench.py bench_energy_banded_1m", n_subcentroids=SPREAD_SUBCENTROIDS,
+                           max_lambda_tie_group=tie_s, full_scan=timing(s_full_ms),
+                           auto_b256=dict(**timing(s_auto_ms), route=s_auto_route),
+                           forced_window=dict(candidates=tie_s + K, **timing(s_forced_ms),
+                                              route=s_forced_route),
+                           full_scan_b8=timing(s_f8_ms),
+                           auto_b8=dict(**timing(s_a8_ms), route=s_a8_route)),
+         search_batch=tier_info, scan_profile=scan_profile, checkpoint=ckpt, store=store)
+    del aspace, gl, X
+    torch.cuda.empty_cache()
+    return tier_counts
+
+
 def main() -> int:
     import torch
 
@@ -405,15 +811,6 @@ def main() -> int:
         for line in log.splitlines() if "registers" in line or "spill" in line
     ]
     emit(phase="build", seconds=time.perf_counter() - t0, card=card, ptxas=ptxas)
-
-    def make_builder(n):
-        return (
-            ArrowSpaceBuilder()
-            .with_lambda_graph(1.0, 6)
-            .with_sparsity_check(False)
-            .with_cluster_params(max_clusters=max(64, int(2 * n**0.5) // 8), radius=25.0)
-            .with_sampling(None)
-        )
 
     # -- 2. main path --------------------------------------------------
     X = make_energy_test_dataset(N_MAIN, F_MAIN, seed=SEED_MAIN).astype(np.float32)
@@ -478,35 +875,8 @@ def main() -> int:
           f"k={K}: the candidate stage must launch once a batch and kernel C never: {main_counts}")
 
     def traced(search, items=None):
-        """Run ``search(r)`` over the timed batches (or ``items``) under
-        ``torch.profiler``: wall ms per batch (host clock), device-busy ms
-        per batch (the union of the traced kernels' intervals), idle share,
-        top kernels."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        items = batches[1:] if items is None else items
-        nb = len(items)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for r in items:
-                search(r)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / nb
-        dev_busy = busy_ms(prof.events(), DeviceType.CUDA) / nb
-
-        def dev_ms(a):
-            return getattr(a, "self_device_time_total", None) or getattr(a, "self_cuda_time_total", 0)
-
-        kern = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
-        top = sorted(kern, key=dev_ms, reverse=True)[:TOP_KERNELS]
-        return dict(batches=nb, wall_ms_per_batch=wall_ms,
-                    device_busy_ms_per_batch=dev_busy,
-                    idle_share=1.0 - dev_busy / wall_ms if wall_ms > 0 else None,
-                    top_kernels=[{"name": a.key[:80], "calls_per_batch": a.count / nb,
-                                  "device_ms_per_batch": dev_ms(a) / 1e3 / nb}
-                                 for a in top if dev_ms(a) > 0])
+        """:func:`profiled` over the timed batches, or ``items``."""
+        return profiled(search, batches[1:] if items is None else items)
 
     # The exact tier's candidate stage against the selection chain it
     # replaced (kernel C's gather, the stable sorts), the same timed batches
@@ -1346,7 +1716,11 @@ def main() -> int:
         del sidx, X8s, mults_s, lams_s, valids_s, X8f, mult_f, lam_f, Qs, blk0
         torch.cuda.empty_cache()
 
-    # -- 12. kernels against their plain versions -----------------------
+    # -- 12. energy: the energy pipeline at the reference benchmark's size --
+    energy_counts = energy_phase(dev, card)
+    path_counts["energy"] = {k: sum(c[k] for c in energy_counts.values()) for k in kernels.LAUNCHES}
+
+    # -- 13. kernels against their plain versions -----------------------
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
@@ -1524,10 +1898,12 @@ def main() -> int:
         sels[tier] = torch.sort(so.topk_stable(md, c_r)[1], dim=1).values
         bms, by = bound(n0 * F_MAIN * Xs.element_size() + 8 * n0 + 4 * BATCH * F_MAIN
                         + 4 * BATCH * ns_r, passes * 2 * BATCH * n0 * F_MAIN, PEAK_BF16_FLOP_S)
+        d_by_path = {"rescored": tier_counts[tier]["tilemax_only"],
+                     "energy": energy_counts.get(tier, {}).get("tilemax_only", 0)}
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
-            launches=tier_counts[tier]["tilemax_only"], max_abs_err=err_d,
+            launches=sum(d_by_path.values()), launches_by_path=d_by_path, max_abs_err=err_d,
             ms=cuda_ms(lambda: run_d(rsk.tilemax_only)),
             launch_ms=cuda_ms(lambda: rsk._tilemax_only_launch(ops_d), reps=20),
             plain_ms=cuda_ms(lambda: run_d(rsk.tilemax_only_plain), reps=3),
@@ -1550,7 +1926,9 @@ def main() -> int:
     # at the sketch's own shape is slab_dots_int8_sketch. The main path
     # calls the wrapper with checked=True (no read-back of the slab ids),
     # and so is it timed here.
-    e_launches = sum(tier_counts[t]["slab_dots"] for t in scan_of)
+    e_by_path = {"rescored": sum(tier_counts[t]["slab_dots"] for t in scan_of),
+                 "energy": energy_counts["bf16x3_rescored"]["slab_dots"]}
+    e_launches = sum(e_by_path.values())
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
     for label, Xr, sel_e, peak, mode_launches, entry in (
@@ -1570,7 +1948,7 @@ def main() -> int:
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:417",
-            launches=e_launches, max_abs_err=err_e,
+            launches=e_launches, launches_by_path=e_by_path, max_abs_err=err_e,
             ms=cuda_ms(lambda: rsk.slab_dots(Xr, Q, sel_e, ts_r, checked=True), reps=20),
             launch_ms=cuda_ms(lambda: rsk._slab_dots_launch(Xr, Q, sel_e, ts_r, de), reps=20),
             plain_ms=cuda_ms(lambda: rsk.slab_dots_plain(Xr, Q, sel_e, ts_r), reps=5),

@@ -9,7 +9,9 @@ centroids (ELL-backed from 8192 features) → taumode λ (kernel A from 32768
 rows; the sparse ELL route beyond 2048 features; of the projected rows
 when the graph is r × r) → normalisation → sorted-λ index, all on the
 builder's device. ``with_persistence`` writes the reference's Parquet
-artifacts along the way (:mod:`.storage.parquet`).
+artifacts along the way (:mod:`.storage.parquet`). ``build_energy`` (or
+``build_for_persistence(pipeline="energy")``) runs the energy pipeline
+(:mod:`.energymaps`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 
 from matternet_rs_tpu_torch import clustering as clus
 from matternet_rs_tpu_torch import eigenmaps as em
+from matternet_rs_tpu_torch import energymaps
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.core import TAUDEFAULT, ArrowSpace, TauMode
 from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
@@ -256,6 +259,27 @@ class ArrowSpaceBuilder:
         self.last_stage_timings = timer.as_dict()
         log.info("ArrowSpace build complete: %d items, %d centroids, %.3fs",
                  n_items, aspace.n_clusters, time.time() - t0)
+        return aspace, gl
+
+    def build_for_persistence(self, rows, pipeline: str = "eigen",
+                              energy_params=None) -> tuple[ArrowSpace, GraphLaplacian]:
+        """The build of ``pipeline``: ``"eigen"`` (or ``"default"``) or
+        ``"energy"``."""
+        if pipeline in ("eigen", "default"):
+            return self.build(rows)
+        if pipeline == "energy":
+            return self.build_energy(rows, energy_params)
+        raise ValueError(f"unknown pipeline {pipeline!r} (eigen|energy|default)")
+
+    def build_energy(self, rows, energy_params=None) -> tuple[ArrowSpace, GraphLaplacian]:
+        """The energy build (:func:`..energymaps.build_energy`); with
+        persistence it writes the raw rows, the energy graph and the λ with
+        the metadata."""
+        aspace, gl = energymaps.build_energy(self, rows, energy_params)
+        if self.persistence is not None:
+            self._persist_dense("raw_input", aspace.data.cpu().numpy())
+            self._persist_sparse("gl-matrix", gl.dense().cpu().numpy())
+            self._persist_lambdas(aspace)
         return aspace, gl
 
     # -- persistence hooks ---------------------------------------------

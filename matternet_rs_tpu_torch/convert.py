@@ -68,6 +68,10 @@ def arrowspace_from_arrays(
     init_data=None,
     nnodes: int | None = None,
     projection: tuple[int, int, int] | None = None,
+    sub_centroids=None,
+    subcentroid_lambdas=None,
+    centroid_map=None,
+    item_norms=None,
     device=None,
 ) -> tuple[ArrowSpace, GraphLaplacian]:
     """``data [N, F]``, ``lambdas [N]`` (normalised with the three stats
@@ -76,8 +80,10 @@ def arrowspace_from_arrays(
     or the ELL arrays ``(indices, weights, diag)``, ``graph_params`` the
     ``GraphParams`` fields, ``tau_mode`` a ``TauMode`` or ``(mode,
     param)``, ``projection`` the JL projection as ``(original_dim,
-    reduced_dim, seed)``. The sorted-λ index is rebuilt. ``device=None``
-    is the CUDA card."""
+    reduced_dim, seed)``. An energy index also gives ``sub_centroids [S,
+    F']``, ``subcentroid_lambdas [S]``, ``centroid_map [N]`` and, if it has
+    them, ``item_norms [N]`` (else ``‖x‖`` of each row); its graph is
+    then marked ``energy``. The sorted-λ index is rebuilt. ``device=None`` is the CUDA card."""
     dev = resolve_device(device)
     taumode = tau_mode if isinstance(tau_mode, TauMode) else TauMode(*tau_mode)
     aspace = ArrowSpace.from_items(data, taumode, device=dev)
@@ -97,9 +103,17 @@ def arrowspace_from_arrays(
     else:
         aspace.update_lambdas(lam)
     aspace.build_lambdas_sorted()
+    if sub_centroids is not None:
+        aspace.sub_centroids = torch.from_numpy(np.array(sub_centroids, np.float32)).to(dev)
+        aspace.subcentroid_lambdas = np.array(subcentroid_lambdas)
+        aspace.centroid_map = np.array(centroid_map, np.int64)
+        aspace.item_norms = (
+            torch.sqrt(torch.sum(aspace.data * aspace.data, dim=1)) if item_norms is None
+            else torch.from_numpy(np.array(item_norms, np.float32)).to(dev))
 
     gl = graph_from_arrays(
         laplacian, graph_params=graph_params, init_data=init_data,
         nnodes=aspace.nitems if nnodes is None else nnodes, device=dev,
     )
+    gl.energy = sub_centroids is not None
     return aspace, gl

@@ -10,8 +10,9 @@ pool-cut tier or one of the maxima-first rescored tiers (kernels D and E),
 with the reference's ``auto`` routing. ``approx=True`` selects exactly
 (:mod:`..ops.search` says why). With a JL projection the data stays
 F-wide and the scores are cosine over it; λ (items and queries) is taken
-of the projected rows against the r × r graph. Energy mode comes in a
-later slice.
+of the projected rows against the r × r graph. Energy mode (an index
+built by :func:`..energymaps.build_energy`) takes each query's λ from its
+nearest sub-centroid and serves it through the same tiers.
 """
 
 from __future__ import annotations
@@ -227,6 +228,14 @@ class ArrowSpace:
     reduced_dim: Optional[int] = None
     extra_reduced_dim: bool = False
 
+    # Energy mode (energymaps.build_energy): each item's sub-centroid, the
+    # sub-centroids [S, F'] on the device, their normalised λ [S] (host,
+    # float64 as built) and the items' L2 norms, read by the energy scores.
+    centroid_map: Optional[np.ndarray] = None
+    sub_centroids: Optional[torch.Tensor] = None
+    subcentroid_lambdas: Optional[np.ndarray] = None
+    item_norms: Optional[torch.Tensor] = None
+
     _norms: Optional[torch.Tensor] = None
     # ELL form of ``signals`` beyond SPARSE_F_THRESHOLD, with the signals
     # tensor it was extracted from (a replaced ``signals`` re-extracts).
@@ -241,6 +250,13 @@ class ArrowSpace:
     _sketch_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False
     )
+    # Derived caches, each keyed by the object it was made from: the
+    # largest equal-λ group of a λ tensor, the sub-centroid λ on the
+    # device, a host sorted index's device copies (the banded energy scan).
+    _tie_group_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
+    _sc_lams_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
+    _banded_sorted_cache: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                              compare=False)
 
     # The lock is per-process state: left out of pickles and copies, made
     # anew on the copy.
@@ -375,6 +391,65 @@ class ArrowSpace:
         else:
             self.lambdas_sorted = SortedLambdas.build_from(self.lambdas.cpu().numpy())
 
+    def max_lambda_tie_group(self) -> int:
+        """Size of the largest run of equal (float32) λ: it sizes the banded
+        energy search's window, which must cover the equal-λ group that
+        straddles rank k. Cached per λ tensor (λ tensors are replaced,
+        never changed in place)."""
+        self._require_lambdas()
+        cache = self._tie_group_cache
+        if cache is not None and cache[0] is self.lambdas:
+            return cache[1]
+        lam = self.lambdas.cpu().numpy()
+        out = int(np.unique(lam, return_counts=True)[1].max()) if lam.size else 0
+        self._tie_group_cache = (self.lambdas, out)
+        return out
+
+    # -- energy mode ------------------------------------------------------
+    @property
+    def _energy(self) -> bool:
+        return self.sub_centroids is not None and self.subcentroid_lambdas is not None
+
+    def _subcentroid_lambdas_dev(self) -> torch.Tensor:
+        """The sub-centroid λ as float32 on the space's device, cached per
+        host array."""
+        cache = self._sc_lams_cache
+        if cache is None or cache[0] is not self.subcentroid_lambdas:
+            lam = np.asarray(self.subcentroid_lambdas, np.float32)
+            cache = (self.subcentroid_lambdas, torch.from_numpy(lam).to(self.device))
+            self._sc_lams_cache = cache
+        return cache[1]
+
+    def _energy_query(self, Q: torch.Tensor) -> torch.Tensor:
+        """Queries in the sub-centroids' space: projected when the space
+        was built with the extra reduction, or when they have the original
+        width and the sub-centroids the reduced one. ``ValueError`` unless
+        the widths then agree."""
+        p = self.projection
+        Qe = Q
+        if self.extra_reduced_dim or (
+                p is not None and Q.shape[-1] == p.original_dim
+                and self.sub_centroids.shape[-1] == p.reduced_dim):
+            Qe = p.project(Q)
+        if Qe.shape[-1] != self.sub_centroids.shape[-1]:
+            raise ValueError(
+                f"Query dimension {Q.shape[-1]} doesn't match "
+                f"sub-centroid dimension {self.sub_centroids.shape[-1]}"
+            )
+        return Qe
+
+    def _nearest_subcentroid_lambdas(self, Qe: torch.Tensor) -> torch.Tensor:
+        """λ ``[B]`` of each query's nearest sub-centroid, by the direct
+        difference ``Σ(c − q)²`` (the reference's form on this path), in
+        query blocks of at most 2²⁶ ``[b, S, F]`` elements; ties take the
+        first sub-centroid."""
+        sub_c, sc_lams = self.sub_centroids, self._subcentroid_lambdas_dev()
+        blk = max(1, (1 << 26) // max(sub_c.numel(), 1))
+        out = [sc_lams[torch.argmin(torch.sum((sub_c[None] - Qe[s:s + blk, None, :]) ** 2, dim=-1),
+                                    dim=1)]
+               for s in range(0, Qe.shape[0], blk)]
+        return torch.cat(out)
+
     # -- query preparation --------------------------------------------
     def project_query(self, query) -> torch.Tensor:
         """The query in the λ space: projected with a projection, else as
@@ -391,11 +466,14 @@ class ArrowSpace:
         """The query's normalised λ (of its projection, when the space has
         one and the query has the original width). Raises
         :class:`UndecidableQueryError` when its raw λ is ~0, ``ValueError``
-        on a non-finite value or a dimension mismatch."""
+        on a non-finite value or a dimension mismatch. Energy mode returns
+        the nearest sub-centroid's λ as it is (``gl`` unused)."""
         q_host = np.asarray(query, np.float32)
         if not np.all(np.isfinite(q_host)):
             raise ValueError("query item has non-finite values")
         q = torch.from_numpy(q_host.copy()).to(self.device)
+        if self._energy:
+            return float(self._nearest_subcentroid_lambdas(self._energy_query(q[None, :]))[0])
         if self.projection is not None and q.shape[-1] == self.projection.original_dim:
             q = self.projection.project(q)
         graph = self.graph_for_taumode(gl)
@@ -486,7 +564,9 @@ class ArrowSpace:
         see the same batch shapes), and to at least 8 queries for the
         maxima-first tiers. ``alpha`` is a scalar or a per-query ``[B]``
         vector. Returns numpy ``(indices [B, k], scores [B, k])``, plus the
-        raw query λ with ``return_raw``.
+        raw query λ with ``return_raw``. In energy mode each query's λ is
+        its nearest sub-centroid's (``gl`` unused), and the same tiers
+        serve it.
 
         ``quantized``: ``False`` — the exact f32 scan; ``True`` — the same
         scan over a bf16 copy; ``"int8"`` — pool-cut: an int8-sketch scan
@@ -518,13 +598,14 @@ class ArrowSpace:
         Q = torch.from_numpy(np.array(queries, np.float32)).to(self.device)
         if Q.ndim == 1:
             Q = Q[None, :]
-        graph = self.graph_for_taumode(gl)
-        projects = self._projects(Q, graph)
-        if not projects and Q.shape[-1] != graph.shape[0]:
-            raise ValueError(
-                f"Query dimension {Q.shape[-1]} doesn't match index "
-                f"dimension {graph.shape[0]}"
-            )
+        if not self._energy:
+            graph = self.graph_for_taumode(gl)
+            projects = self._projects(Q, graph)
+            if not projects and Q.shape[-1] != graph.shape[0]:
+                raise ValueError(
+                    f"Query dimension {Q.shape[-1]} doesn't match index "
+                    f"dimension {graph.shape[0]}"
+                )
         b = Q.shape[0]
         b_pad = 1 << max(b - 1, 1).bit_length() if b > 1 else 1
         alphas = _alpha_vector(alpha, b_pad, self.device)
@@ -547,13 +628,19 @@ class ArrowSpace:
         if b_pad != b:
             Q = torch.nn.functional.pad(Q, (0, 0, 0, b_pad - b))
 
-        # λ of the projected batch when the graph is r × r; the scores
-        # below stay on the F-wide rows.
-        Qw = self.projection.project(Q) if projects else Q
-        raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode, self.taumode.param)
-        mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
-        rng = torch.tensor(self.range_lambdas, dtype=torch.float32, device=self.device)
-        q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)
+        if self._energy:
+            # The nearest sub-centroid's λ, already normalised: the
+            # reference folds it in with mn = 0 and rng = 1, an identity.
+            raw = q_lams = self._nearest_subcentroid_lambdas(self._energy_query(Q))
+        else:
+            # λ of the projected batch when the graph is r × r; the scores
+            # below stay on the F-wide rows.
+            Qw = self.projection.project(Q) if projects else Q
+            raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode,
+                                                   self.taumode.param)
+            mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
+            rng = torch.tensor(self.range_lambdas, dtype=torch.float32, device=self.device)
+            q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)
         X, norms, lams = self.data, self.norms, self.lambdas
         kk = min(k, self.nitems)
         if quantized == "int8":

@@ -9,11 +9,9 @@
   (λ statistics, clusters, the projection as its seed);
 * :func:`save_checkpoint` and :func:`load_arrowspace`, which rebuilds the
   sorted index without recomputing λ and regenerates the projection from
-  its seed — on the card unless the caller asks for the CPU.
-
-Energy-mode checkpoints (sub-centroids, their λ, the item map) wait for
-the port of energymaps (ROADMAP.md Queue 1 item 4): loading one raises
-``NotImplementedError``.
+  its seed — on the card unless the caller asks for the CPU. An energy
+  index also saves its sub-centroids, their λ and the item map, and
+  resumes in energy mode with its item norms recomputed.
 """
 
 from __future__ import annotations
@@ -27,9 +25,6 @@ import pyarrow.parquet as pq
 import torch
 
 from matternet_rs_tpu_torch.storage import StorageError
-
-ENERGY_PENDING = "energy-mode checkpoints wait for the energymaps port (ROADMAP.md Queue 1 item 4)"
-ENERGY_ARTIFACTS = ("sub_centroids", "subcentroid_lambdas", "centroid_map")
 
 
 def _host(x) -> np.ndarray:
@@ -210,8 +205,8 @@ def save_arrowspace_metadata(aspace, builder, path, name: str, files=None) -> Pa
 
 def save_checkpoint(aspace, gl, builder, path, name: str) -> None:
     """Every artifact of a built space with its manifest: the raw rows,
-    the centroids, the Laplacian, the signals (if any), the λ and the
-    metadata JSON."""
+    the centroids, the Laplacian, the signals (if any), the λ, the energy
+    state (if any) and the metadata JSON."""
     path = _ensure_dir(path)
     files = {}
     raw = _host(aspace.data)
@@ -230,6 +225,16 @@ def save_checkpoint(aspace, gl, builder, path, name: str) -> None:
     lam = _host(aspace.lambdas)
     out = save_lambdas(lam, path, f"{name}-lambdas", builder)
     files["lambdas"] = _file_info(out, "lambdas", rows=len(lam), cols=1)
+    if aspace.sub_centroids is not None:
+        sc = _host(aspace.sub_centroids)
+        out = save_dense_matrix(sc, path, f"{name}-sub-centroids", builder)
+        files["sub_centroids"] = _file_info(out, "dense", *sc.shape)
+        scl = _host(aspace.subcentroid_lambdas)
+        out = save_lambdas(scl, path, f"{name}-subcentroid-lambdas", builder)
+        files["subcentroid_lambdas"] = _file_info(out, "lambdas", rows=len(scl), cols=1)
+        cmap = np.asarray(aspace.centroid_map, np.float64)
+        out = save_lambdas(cmap, path, f"{name}-centroid-map", builder)
+        files["centroid_map"] = _file_info(out, "lambdas", rows=len(cmap), cols=1)
     save_arrowspace_metadata(aspace, builder, path, name, files=files)
 
 
@@ -292,10 +297,6 @@ def load_arrowspace(path, name: str, device=None):
                 f"checkpoint {name!r} manifest lists artifact {key} "
                 f"({info['filename']}) but the file is missing"
             )
-    if any(k in manifest for k in ENERGY_ARTIFACTS) or (
-            path / f"{name}-sub-centroids.parquet").exists():
-        raise NotImplementedError(f"checkpoint {name!r} holds energy-mode state: {ENERGY_PENDING}")
-
     data = load_dense_matrix(path / f"{name}-raw_input.parquet")
     lambdas = load_lambdas(path / f"{name}-lambdas.parquet")
     if len(lambdas) != data.shape[0]:
@@ -329,11 +330,19 @@ def load_arrowspace(path, name: str, device=None):
         aspace.signals = torch.from_numpy(
             load_sparse_matrix(signals_path).astype(np.float32)).to(dev)
 
+    sc_path = path / f"{name}-sub-centroids.parquet"
+    if sc_path.exists():
+        aspace.sub_centroids = torch.from_numpy(
+            load_dense_matrix(sc_path).astype(np.float32)).to(dev)
+        aspace.subcentroid_lambdas = load_lambdas(path / f"{name}-subcentroid-lambdas.parquet")
+        aspace.centroid_map = load_lambdas(path / f"{name}-centroid-map.parquet").astype(np.int64)
+        aspace.item_norms = torch.sqrt(torch.sum(aspace.data * aspace.data, dim=1))
+
     gl = GraphLaplacian(
         matrix=torch.from_numpy(matrix.astype(np.float32)).to(dev),
         init_data=torch.from_numpy(init_data.astype(np.float32)).to(dev),
         nnodes=acfg["nitems"],
         graph_params=_graph_params(bcfg),
-        energy=False,
+        energy=aspace.sub_centroids is not None,
     )
     return aspace, gl

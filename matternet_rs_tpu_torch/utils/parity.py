@@ -4,12 +4,19 @@ Two exact searches over the same index may rank differently only where
 scores tie within the f32 summation-order error of their dot products.
 :func:`topk_mismatches` states that rule once, for the tests and for
 ``chip_smoke.py``; :func:`same_k_mismatches` is its form for two results
-taken at the same k.
+taken at the same k. Energy distances take it at ``ENERGY_TIE_TOL``, or
+at :func:`energy_store_tolerance` for a store's streamed scan.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# Energy distances are |Δλ| plus (1 − cos)·1e-9 inside an equal-λ group,
+# and |Δλ| is the same float32 difference in two searches of one index:
+# at this tolerance two results may trade only items of one group whose
+# cosines agree within 1e-5 (dots summed in another order).
+ENERGY_TIE_TOL = 1e-9 * 1e-5
 
 
 def topk_mismatches(ref_ids, ref_scores, got_ids, got_scores, tol: float = 1e-5) -> list[str]:
@@ -60,3 +67,13 @@ def same_k_mismatches(ref_ids, ref_scores, got_ids, got_scores, tol: float = 1e-
             bad.append(f"row {b} position {j}: id {got_ids[b, j]} score {got_scores[b, j]:.7g} "
                        f"vs id {ref_ids[b, j]} score {ref_scores[b, j]:.7g}")
     return bad
+
+
+def energy_store_tolerance(lam_store, lam_mem) -> float:
+    """Distance tolerance between an energy store's streamed scan and the
+    in-memory scan: ``ENERGY_TIE_TOL`` when the store's λ (raw λ read back
+    and normalised) equal the in-memory λ; else twice their largest gap
+    plus the tie-break term's whole span, 2e-9 (an item whose λ came back
+    an ulp off leaves its equal-λ group and its cosine order)."""
+    d_lam = float(np.abs(np.asarray(lam_store, np.float64) - np.asarray(lam_mem, np.float64)).max())
+    return ENERGY_TIE_TOL if d_lam == 0 else 2 * d_lam + 2e-9

@@ -240,6 +240,39 @@ def test_package_root_exports_what_the_reference_exports(monkeypatch):
     assert calls[2] == calls[3] and calls[2]["level"] == "DEBUG"
 
 
+@pytest.mark.parametrize("name", ["energymaps", "motives", "subgraphs", "sparsification"])
+def test_energy_era_modules_are_submodules_with_the_reference_names(name):
+    """``from matternet_rs_tpu_torch import <name>`` works as in the
+    reference, and the port's module defines every public class and
+    function the reference's defines."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"matternet_rs_tpu.{name}")
+    port = importlib.import_module(f"matternet_rs_tpu_torch.{name}")
+    assert getattr(__import__("matternet_rs_tpu_torch", fromlist=[name]), name) is port
+
+    def public(mod):
+        return {n for n, v in vars(mod).items() if not n.startswith("_")
+                and (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == mod.__name__}
+
+    assert public(ref) <= public(port), public(ref) - public(port)
+
+
+def test_energy_entry_points_raise_without_cuda_and_without_cpu_request():
+    _no_cuda()
+    from matternet_rs_tpu_torch import energymaps
+
+    c = np.random.default_rng(0).normal(size=(20, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        energymaps.optical_compress_centroids(c, 4, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.arrowspace_from_arrays(
+            c, np.zeros(20), np.eye(8), normalized=False, sub_centroids=c[:3],
+            subcentroid_lambdas=np.zeros(3), centroid_map=np.zeros(20, np.int64))
+    assert energymaps.optical_compress_centroids(c, 4, 0.1, device="cpu").shape == (4, 8)
+
+
 # -- The builder's fluent methods, the storage functions, pyarrow.
 
 def _params(fn):
@@ -254,6 +287,8 @@ def test_builder_fluent_methods_follow_the_reference():
     ref = [n for n in dir(RefBuilder) if n.startswith("with_")]
     assert ref and ref == [n for n in dir(ArrowSpaceBuilder) if n.startswith("with_")]
     for name in ref:
+        assert _params(getattr(ArrowSpaceBuilder, name)) == _params(getattr(RefBuilder, name)), name
+    for name in ("build_for_persistence", "build_energy"):
         assert _params(getattr(ArrowSpaceBuilder, name)) == _params(getattr(RefBuilder, name)), name
     for field in ("deterministic_clustering", "use_dims_reduction", "rp_eps"):
         assert getattr(ArrowSpaceBuilder, field) == getattr(RefBuilder, field), field

@@ -183,17 +183,86 @@ def test_unwritable_directory_raises_storage_error(tmp_path):
             mod.save_lambdas(np.ones(5), tmp_path / "d", "x")
 
 
-def test_energy_checkpoint_waits_for_energymaps(tmp_path):
-    from matternet_rs_tpu import energymaps as emod
+def _energy_builder(b):
+    return (b.with_lambda_graph(1.0, 5).with_sparsity_check(False)
+            .with_cluster_params(max_clusters=25, radius=16.0)
+            .with_deterministic_clustering(True).with_dims_reduction(True).with_seed(4))
 
-    data = make_energy_test_dataset(150, 32, seed=2).astype(np.float32)
-    b = (jbuilder.ArrowSpaceBuilder().with_lambda_graph(1.0, 5).with_sparsity_check(False)
-         .with_cluster_params(max_clusters=25, radius=16.0)
-         .with_deterministic_clustering(True).with_dims_reduction(True).with_seed(4))
-    aspace, gl = b.build_energy(data, emod.EnergyParams(optical_tokens=15, neighbor_k=5))
-    jpq.save_checkpoint(aspace, gl, b, tmp_path, "en")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        tpq.load_arrowspace(tmp_path, "en", device="cpu")
+
+@pytest.fixture(scope="module")
+def energy_built():
+    from matternet_rs_tpu import energymaps as jem
+
+    from matternet_rs_tpu_torch import energymaps as tem
+
+    data = make_energy_test_dataset(300, 96, seed=2).astype(np.float32)
+    jb = _energy_builder(jbuilder.ArrowSpaceBuilder())
+    ja, jgl = jb.build_energy(data, jem.EnergyParams(optical_tokens=15, neighbor_k=5))
+    tb = _energy_builder(tbuilder.ArrowSpaceBuilder(device="cpu"))
+    ta, tgl = tb.build_energy(data, tem.EnergyParams(optical_tokens=15, neighbor_k=5))
+    assert ja.sub_centroids is not None and ta.sub_centroids is not None
+    Q = data[[3, 77, 150, 299]] + 0.01
+    return Q, (ja, jgl, jb), (ta, tgl, tb)
+
+
+def _energy_results(mod_em, aspace, gl, Q):
+    """Energy scan and energy-mode search_batch of ``Q`` (numpy)."""
+    ei, ed = mod_em.search_energy_batch(aspace, Q, gl, K)
+    bi, bs = aspace.search_batch(Q, gl, K)
+    return [np.asarray(a) for a in (ei, ed, bi, bs)]
+
+
+@pytest.mark.parametrize("direction", ["reference-to-port", "port-to-reference", "port-to-port"])
+def test_energy_checkpoint_round_trip(energy_built, tmp_path, direction):
+    """An energy checkpoint saved by one package and loaded by the other
+    (or by the port again) resumes in energy mode and searches alike:
+    energy state equal, ids under the near-tie rule (energy scan: the
+    tie-break term at a cosine tolerance of 1e-5; search_batch: 1e-5), and
+    bit for bit within the port."""
+    from matternet_rs_tpu import energymaps as jem
+
+    from matternet_rs_tpu_torch import energymaps as tem
+    from matternet_rs_tpu_torch.utils.parity import ENERGY_TIE_TOL, same_k_mismatches
+
+    Q, (ja, jgl, jb), (ta, tgl, tb) = energy_built
+    saver, src, src_gl, src_b = (jpq, ja, jgl, jb) if direction.startswith("reference") else (tpq, ta, tgl, tb)
+    saver.save_checkpoint(src, src_gl, src_b, tmp_path, "en")
+    meta = json.loads((tmp_path / "en-arrowspace_metadata.json").read_text())
+    assert {"sub_centroids", "subcentroid_lambdas", "centroid_map"} <= set(meta["files"])
+    if direction.endswith("reference"):
+        ra, rgl = jpq.load_arrowspace(tmp_path, "en")
+        got = _energy_results(jem, ra, rgl, Q)
+        state = (np.asarray(ra.sub_centroids), np.asarray(ra.subcentroid_lambdas), np.asarray(ra.centroid_map))
+    else:
+        ra, rgl = tpq.load_arrowspace(tmp_path, "en", device="cpu")
+        got = _energy_results(tem, ra, rgl, Q)
+        state = (ra.sub_centroids.numpy(), ra.subcentroid_lambdas, ra.centroid_map)
+        assert ra.item_norms is not None and ra.max_lambda_tie_group() == src.max_lambda_tie_group()
+    assert rgl.energy
+    assert np.array_equal(state[0], np.asarray(src.sub_centroids))
+    assert np.array_equal(state[1], np.asarray(src.subcentroid_lambdas))
+    assert np.array_equal(state[2], np.asarray(src.centroid_map)) and state[2].dtype == np.int64
+    ref = _energy_results(jem if src is ja else tem, src, src_gl, Q)
+    if direction == "port-to-port":
+        for a, b in zip(ref, got):
+            assert np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
+                                  b.view(np.int32) if b.dtype == np.float32 else b)
+    else:
+        assert not same_k_mismatches(ref[0], ref[1], got[0], got[1], ENERGY_TIE_TOL)
+        assert not same_k_mismatches(ref[2], ref[3], got[2], got[3], 1e-5)
+
+
+def test_energy_checkpoints_hold_the_same_files(energy_built, tmp_path):
+    _, (ja, jgl, jb), (ta, tgl, tb) = energy_built
+    jpq.save_checkpoint(ja, jgl, jb, tmp_path / "j", "en")
+    tpq.save_checkpoint(ta, tgl, tb, tmp_path / "t", "en")
+    assert sorted(p.name for p in (tmp_path / "j").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "t").iterdir())
+    mj = json.loads((tmp_path / "j" / "en-arrowspace_metadata.json").read_text())["files"]
+    mt = json.loads((tmp_path / "t" / "en-arrowspace_metadata.json").read_text())["files"]
+    assert set(mj) == set(mt)
+    for key in ("sub_centroids", "subcentroid_lambdas", "centroid_map"):
+        assert (mj[key]["rows"], mj[key]["cols"]) == (mt[key]["rows"], mt[key]["cols"])
 
 
 def test_load_arrowspace_places_the_space_on_the_device_asked(built, tmp_path):

@@ -37,7 +37,11 @@ from matternet_rs_tpu.utils.fixtures import make_energy_test_dataset
 from matternet_rs_tpu_torch.graph import GraphParams as TGraphParams
 from matternet_rs_tpu_torch.index import streaming as tst
 from matternet_rs_tpu_torch.storage import shards as tshards
-from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
+from matternet_rs_tpu_torch.utils.parity import (
+    energy_store_tolerance,
+    same_k_mismatches,
+    topk_mismatches,
+)
 
 K = 10
 TOL_LAM = 1e-5
@@ -377,6 +381,72 @@ def test_energy_sketch_search_matches(energy_store, refine):
     one_t = ti.search_energy_sketch(Q[1], K, refine=refine)
     one_j = ji.search_energy_sketch(Q[1], K, refine=refine)
     assert [i for i, _ in one_t] == [i for i, _ in one_j]
+
+
+def _write_energy_store(aspace, gl, directory):
+    """An energy store of the port's in-memory energy index, laid out as
+    the reference's ``ShardedArrowSpace.to_store`` lays it out: the rows as
+    shards, the raw λ (``min + λ·range``), the graph, ``energy.npz`` and
+    ``index.json``."""
+    from matternet_rs_tpu_torch.graph import GraphLaplacian
+
+    tshards.write_shards(aspace.data.numpy(), directory)
+    raw = aspace.min_lambdas + aspace.lambdas.numpy().astype(np.float64) * aspace.range_lambdas
+    (directory / tst.LAMBDA_FILE).write_bytes(raw.astype(np.float32).tobytes())
+    tst.StreamingIndex(
+        directory=directory,
+        gl=GraphLaplacian(matrix=gl.matrix, init_data=gl.init_data, nnodes=gl.nnodes,
+                          graph_params=gl.graph_params),
+        taumode=aspace.taumode, min_lambdas=aspace.min_lambdas, range_lambdas=aspace.range_lambdas,
+        n_items=aspace.nitems, n_features=aspace.nfeatures,
+        sub_centroids=aspace.sub_centroids.numpy(), subcentroid_lambdas=aspace.subcentroid_lambdas,
+        projection=aspace.projection, device=CPU,
+    )._save_meta()
+
+
+@pytest.fixture(scope="module")
+def port_energy_store(tmp_path_factory):
+    """The port's own energy build (the reference store's data and
+    settings above), written as a store, loaded by both packages."""
+    from matternet_rs_tpu_torch import energymaps as tem
+    from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder
+
+    data = make_energy_test_dataset(1200, 128, seed=7).astype(np.float32)
+    b = (ArrowSpaceBuilder(device=CPU).with_lambda_graph(1.0, 5).with_sparsity_check(False)
+         .with_cluster_params(max_clusters=40, radius=120.0).with_dims_reduction(True).with_seed(9))
+    aspace, gl = b.build_energy(data, tem.EnergyParams(optical_tokens=16, neighbor_k=5, candidate_m=8))
+    d = tmp_path_factory.mktemp("port_energy_store")
+    _write_energy_store(aspace, gl, d)
+    ji, ti = jst.StreamingIndex.load(d), tst.StreamingIndex.load(d, device=CPU)
+    for idx in (ji, ti):
+        idx.block_rows = 512
+        idx.build_sketch(persist=False)
+    return aspace, gl, ji, ti, data
+
+
+def test_port_energy_store_is_served_alike_by_both_packages(port_energy_store):
+    from matternet_rs_tpu_torch import energymaps as tem
+
+    aspace, gl, ji, ti, data = port_energy_store
+    assert ti.sub_centroids is not None and ji.projection.seed == 9
+    assert _index_json(ti.directory)["energy_mode"]
+    Q = data[[10, 500, 1199, 7]] + 0.01
+    ri, rs = ji.search_energy_batch(Q, K)
+    gi, gs = ti.search_energy_batch(Q, K)
+    assert np.array_equal(np.asarray(ri), gi)
+    np.testing.assert_allclose(gs, np.asarray(rs), atol=TOL_SCORE, rtol=0)
+    for refine in (True, False):
+        rj = ji.search_energy_batch_sketch(Q, K, refine=refine)
+        rt = ti.search_energy_batch_sketch(Q, K, refine=refine)
+        assert np.array_equal(np.asarray(rj[0]), rt[0])
+    # Streamed against the in-memory energy scan of the same index.
+    mi, md = tem.search_energy_batch(aspace, Q, gl, K)
+    lam_store = np.clip((np.fromfile(ti.directory / tst.LAMBDA_FILE, np.float32) - ti.min_lambdas)
+                        / ti.range_lambdas, 0, 1).astype(np.float32)
+    tol = energy_store_tolerance(lam_store, aspace.lambdas.numpy())
+    assert not same_k_mismatches(mi, md, gi, gs, tol)
+    si, ss = ti.search_energy_batch_sketch(Q, K, refine=True)
+    assert not same_k_mismatches(mi, md, si, ss, tol)
 
 
 def test_energy_methods_refuse_an_eigen_store(pair):
