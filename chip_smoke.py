@@ -48,11 +48,12 @@ Phases, one output line each (JSON):
    TPU's F-tiled kernel range) runs through the builder.
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
    phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
-   searches), phase 11 (build and searches) and each tier of phase 12,
-   and read just after each; every kernel of a path must have
-   launched. The kernel rows of A, B and the candidate stage add the
-   launches of phases 7–9, 11 and 12 to phase 2's (``launches_by_path``);
-   those of D (bf16x3) and E add phase 12's to phase 3's.
+   searches), phase 11 (build and searches), each tier of phase 12, each
+   step of phase 13, phases 14 and 15, and read just after each; every
+   kernel of a path must have launched. The kernel rows of A, B and the
+   candidate stage add the launches of phases 7–9, 11–14 to phase 2's
+   (``launches_by_path``); those of D and E add phases 12's and 13's to
+   phase 3's.
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -161,7 +162,62 @@ Phases, one output line each (JSON):
    store's λ round trip (twice its largest error plus the tie-break term's
    span 2e-9, or 1e-14 when exact) and, for the sketch, 1e-9·2δ more (δ
    the int8 sketch's cosine bound over the rows); recall@10 of each.
-13. kernels — each kernel against its plain PyTorch version on the inputs
+13. items — on a shallow copy of phase 2's index (every mutation assigns
+   new tensors, so later phases see the original): ``get_item`` and
+   ``cluster_of``; each of the exact tier, ``int8_rescored`` and
+   ``bf16x3_rescored`` searched once (their caches made), then
+   ``set_item`` of row r to 1.5 × row s (the caches must be gone) and
+   ``recompute_lambdas``; each tier on a batch of 256 whose first query is
+   the new row must return r with its exact blended score (1e-5) and
+   exact scores throughout, B and the candidate stage, or D and E,
+   launching once; ``scale_item``, ``superpose_items`` and ``mul_items``
+   (rows as expected); ``add_items`` of 65,536 noisy corpus rows (kernel
+   A, one launch); then every appended row queried in batches of 256 must
+   find itself in its top-10 with a top-1 score at least its own less
+   1e-5. Each recompute launches kernel A once, and its λ of all rows
+   (the appended rows after ``add_items``) is held against kernel A's
+   plain version within 1e-5·max(|λ|, 1). Seconds and launches by step.
+14. lambda_search — on phase 2's index: ``build_ivf_index`` (segment means
+   of the build's clusters, 1,024-row buckets); ``search_batch_ivf`` over
+   phase 2's warm-up and timed batches at nprobe 8 (ms per batch,
+   recall@10 against phase 2's exact ids, the query block's gather bytes)
+   and one batch at nprobe = the bucket count (held to the exact tier at
+   k + 1 under the near-tie rule, 1e-5; its peak allocation). Then 16
+   queries each through ``search_lambda_aware_hybrid``,
+   ``search_lambda_banded`` (window 4,096), ``search_linear_sorted``,
+   ``search_k_nearest_by_lambda`` and ``range_search`` (ε = −0.1): ms a
+   call, each against a plain torch form in float64 on the card (hybrid
+   and banded: the same-k rule at 1e-5; the sorted band: equal, bounds
+   taken in float32 as the index takes them; k nearest by λ: the k
+   smallest |Δλ| of all items; range: equal ids but those within 1e-6 of
+   ε).
+15. pipeline — on ``make_gaussian_hd(200_000, 0.3)`` (the reference's
+   100-D fixture; 200,000 rows rather than 1M because stage A is the host
+   scan): first stages A, B0 and B1 with the reference's default MST k = 8
+   at cap 3,000: the nodes the MST reached and the thick centroids
+   (thickness > 1) that stage A's force-assignment made, whose nearest
+   are one another (``pipeline.build`` then raises ``IndexError``, as the
+   reference does: ``tests/test_torch_pipeline.py``). Then
+   ``pipeline.build`` with the reference's default ``PipelineConfig``
+   (radius 1.0, Bhattacharyya MST, median τ) but MST k = 32, at the
+   default cap C = 10,000 and at 3,000: stage seconds, C, the nodes the
+   MST reached (must be C), the trunk length, τ (must be the median of λ),
+   the Laplacian's nnz, stage C's least distance between two features'
+   profiles (an edge needs it below ln(1e9); at C = 10,000 none is, the
+   graph is empty and λ = 0, so the run at 3,000 must keep edges and a τ
+   above its floor), the build's peak allocation; stage D's λ against a
+   float64 recompute on the card from the port's own L and rows
+   (1e-5·max(|λ|, 1)); L symmetric (exactly when unnormalised, within
+   1e-6 when normalised: its two scalings round in either order), the
+   unnormalised L's rows summing to 0; ``save_result`` →
+   ``load_result_arrays`` bit for bit. At C = 10,000 also the tiled
+   Bhattacharyya pass on the smoothed state alone (seconds, peak
+   allocation beside the untiled [C, C, F] intermediate's bytes) and its
+   first 256 rows against the untiled float64 form (1e-5 relative to the
+   summands' magnitude: the log terms cancel for near pairs, in float32
+   as in the reference). No kernel launches here (the reference runs this
+   chain outside Pallas).
+16. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -311,6 +367,20 @@ STREAM_CHECK_ROWS = 1_000_000    # rows of the kernel-D and in-memory checks
 # sub-centroid λ at random).
 N_ENERGY, SEED_ENERGY, N_ENERGY_CKPT, N_ENERGY_SERIAL = 1_000_000, 43, 100_000, 16
 SEED_SPREAD, SPREAD_SUBCENTROIDS = 5, 2048
+# Phase items: the rows it picks, the rows it appends (kernel A's route is
+# from 32,768), the tiers it holds after set_item.
+SEED_ITEMS, N_ITEMS_NEW = 48, 65_536
+ITEM_TIERS = (False, "int8_rescored", "bf16x3_rescored")
+# Phase lambda_search: IVF probes, the queries of the other searches, the
+# banded window, the range search's ε.
+IVF_NPROBE, N_LAMBDA_QUERIES, BAND_WINDOW, RANGE_EPS = 8, 16, 4096, -0.1
+# Phase pipeline: make_gaussian_hd rows (cut from 1M: stage A is the host
+# clustering scan, ≈ 0.1 ms a row at C = 10,000); the MST's candidate k
+# (the default 8 leaves the fixture's thick centroids out of the tree, as
+# the reference does; 32 reaches them); stage A's caps: the default
+# 10,000, where every pair of feature profiles is too far apart for stage
+# C to keep an edge, and 3,000, where it keeps some.
+N_PIPELINE, PIPELINE_MST_K, PIPELINE_CAPS = 200_000, 32, (10_000, 3_000)
 
 
 def stream_disk_bytes(n: int) -> int:
@@ -758,6 +828,437 @@ def energy_phase(dev, card):
     del aspace, gl, X
     torch.cuda.empty_cache()
     return tier_counts
+
+
+def _timed_call(fn):
+    """``fn()`` between two synchronisations: its output and seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _blended(sp, Q, ql, ids):
+    """Full-f32 blended scores of rows ``ids [B, k]`` of ``sp`` for queries
+    ``Q [B, F]`` with normalised λ ``ql [B]``."""
+    import torch
+
+    from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
+
+    dots = torch.sum(sp.data[ids] * Q[:, None, :], dim=-1)
+    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+    return blend(dots, sp.norms[ids] * qn[:, None], sp.lambdas[ids], ql[:, None], ALPHA)
+
+
+def items_phase(dev, card, aspace, gl, X, batch_rows):
+    """Phase 13, ``items`` (module docstring), on a shallow copy of phase
+    main's index: every mutation assigns new tensors to the copy, so the
+    original is left as it was. Returns the launches by step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops import taumode as tmo
+    from matternet_rs_tpu_torch.ops.kernels import taumode as tk
+
+    sp = copy.copy(aspace)
+    L = gl.matrix.contiguous()
+    rng = np.random.default_rng(SEED_ITEMS)
+    r, s, a, b = (int(v) for v in rng.choice(N_MAIN, 4, replace=False))
+    counts, seconds, checks = {}, {}, {}
+
+    def step(name, fn):
+        kernels.reset_launches()
+        out, seconds[name] = _timed_call(fn)
+        counts[name] = kernels.launch_counts()
+        return out
+
+    def lam_gap(Xk, lam_norm):
+        """Largest gap of the stored λ (back in raw units) to kernel A's
+        plain version on the same rows, over max(|λ|, 1)."""
+        ref = tk.taumode_lambdas_plain(Xk, L, tmo.select_tau(Xk, tmo.TAU_MEDIAN))
+        raw = lam_norm * sp.range_lambdas + sp.min_lambdas
+        return float(((raw - ref).abs() / torch.clamp(ref.abs(), min=1.0)).max())
+
+    row, lam = sp.get_item(r)
+    checks["get_item"] = bool(np.array_equal(row, X[r])) and lam == float(aspace.lambdas[r])
+    c_r = sp.cluster_of(r)
+    checks["cluster_of"] = c_r == (None if aspace.cluster_assignments[r] < 0
+                                   else int(aspace.cluster_assignments[r]))
+
+    # The tiers first build their caches on the copy (norms, int8 sketch),
+    # then row r becomes 1.5 × row s.
+    Q0 = X[batch_rows]
+    for tier in ITEM_TIERS:
+        sp.search_batch(Q0, gl, k=K, alpha=ALPHA, quantized=tier)
+    step("set_item", lambda: sp.set_item(r, X[s] * np.float32(1.5)))
+    checks["set_item_cleared_caches"] = sp._norms is None and sp._i8_pair is None and sp._data_bf16 is None
+    step("recompute_lambdas", lambda: sp.recompute_lambdas(gl))
+    gaps = {"recompute_lambdas": lam_gap(sp.data, sp.lambdas)}
+    Q = np.concatenate([(X[s] * np.float32(1.5))[None], Q0[1:]])
+    tiers = {}
+    for tier in ITEM_TIERS:
+        name = "exact" if tier is False else tier
+        idx, sc, raw = step(name, lambda: sp.search_batch(Q, gl, k=K, alpha=ALPHA, quantized=tier,
+                                                          return_raw=True))
+        Qt = torch.from_numpy(Q).to(dev)
+        ql = torch.clamp((torch.from_numpy(raw).to(dev) - sp.min_lambdas) / sp.range_lambdas, 0, 1)
+        own = float(_blended(sp, Qt[:1], ql[:1], torch.tensor([[r]], device=dev))[0, 0])
+        got = float(sc[0, list(idx[0]).index(r)]) if r in idx[0] else None
+        exact = _blended(sp, Qt, ql, torch.from_numpy(idx).to(dev)).cpu().numpy()
+        tiers[name] = dict(seconds=seconds[name], launches=counts[name], new_row_found=got is not None,
+                           new_row_score=got, new_row_exact_score=own,
+                           max_score_err=float(np.abs(exact - sc).max()))
+        check(got is not None and abs(got - own) <= TOL_SCORE,
+              f"items {name}: the mutated row {r} is not served with its exact score ({got} vs {own})")
+        check(tiers[name]["max_score_err"] <= TOL_SCORE, f"items {name}: scores are not the exact blend")
+    for kname, tier in (("scores_tilemax", "exact"), ("subtile_topk", "exact"),
+                        ("tilemax_only", "int8_rescored"), ("slab_dots", "int8_rescored"),
+                        ("tilemax_only", "bf16x3_rescored"), ("slab_dots", "bf16x3_rescored")):
+        check(counts[tier][kname] == 1, f"items {tier}: kernel {kname} launched {counts[tier][kname]} times")
+
+    for name, fn, want in (
+        ("scale_item", lambda: sp.scale_item(a, 0.5, gl), X[a] * np.float32(0.5)),
+        ("superpose_items", lambda: sp.superpose_items(a, b, gl), None),
+        ("mul_items", lambda: sp.mul_items(b, a, gl), None),
+    ):
+        before_a, before_b = sp.data[a].clone(), sp.data[b].clone()
+        step(name, fn)
+        if name == "superpose_items":
+            checks[name] = bool(torch.equal(sp.data[a], before_a + before_b))
+        elif name == "mul_items":
+            checks[name] = bool(torch.equal(sp.data[b], before_b * before_a))
+        else:
+            checks[name] = bool(np.array_equal(sp.data[a].cpu().numpy(), want))
+        gaps[name] = lam_gap(sp.data, sp.lambdas)
+
+    new = (X[rng.choice(N_MAIN, N_ITEMS_NEW, replace=False)]
+           + rng.normal(0.0, 0.3, (N_ITEMS_NEW, F_MAIN))).astype(np.float32)
+    n0 = sp.nitems
+    step("add_items", lambda: sp.add_items(new, gl))
+    lam_new = sp.lambdas[n0:]
+    gaps["add_items"] = lam_gap(torch.from_numpy(new).to(dev), lam_new)
+    checks["add_items_lambda_in_unit_interval"] = bool(float(lam_new.min()) >= 0.0
+                                                      and float(lam_new.max()) <= 1.0)
+    checks["add_items_rows"] = sp.nitems == n0 + N_ITEMS_NEW and bool(
+        torch.equal(sp.data[n0:], torch.from_numpy(new).to(dev)))
+    kernels.reset_launches()
+    top1, missed = 0, []
+    t0 = time.perf_counter()
+    for st in range(0, N_ITEMS_NEW, BATCH):
+        Qn = new[st:st + BATCH]
+        idx, sc, raw = sp.search_batch(Qn, gl, k=K, alpha=ALPHA, return_raw=True)
+        ids = np.arange(n0 + st, n0 + st + len(Qn))
+        top1 += int((idx[:, 0] == ids).sum())
+        Qt = torch.from_numpy(Qn).to(dev)
+        ql = torch.clamp((torch.from_numpy(raw).to(dev) - sp.min_lambdas) / sp.range_lambdas, 0, 1)
+        own = _blended(sp, Qt, ql, torch.from_numpy(ids).to(dev)[:, None])[:, 0].cpu().numpy()
+        missed += [int(i) for j, i in enumerate(ids) if i not in idx[j] or sc[j, 0] < own[j] - TOL_SCORE]
+    torch.cuda.synchronize()
+    seconds["self_query"] = time.perf_counter() - t0
+    counts["self_query"] = kernels.launch_counts()
+    check(not missed, f"items: {len(missed)} appended rows miss their own top-{K}")
+    for name in ("recompute_lambdas", "scale_item", "superpose_items", "mul_items", "add_items"):
+        check(counts[name]["taumode"] == 1, f"items {name}: kernel A launched {counts[name]['taumode']} times")
+        check(gaps[name] <= TOL_LAMBDA, f"items {name}: kernel A's λ beyond its contract ({gaps[name]})")
+    check(all(checks.values()), f"items: failed checks {[k for k, v in checks.items() if not v]}")
+    emit(phase="items", card=card, n=N_MAIN, f=F_MAIN, rows=dict(r=r, s=s, a=a, b=b),
+         seconds=seconds, launches=counts, tiers_after_set_item=tiers,
+         kernel_a_max_rel_gap=gaps, appended=N_ITEMS_NEW, n_after=sp.nitems,
+         self_query=dict(batches=-(-N_ITEMS_NEW // BATCH), top1_hits=top1, missed=missed[:10]),
+         checks=checks)
+    return counts
+
+
+def lambda_search_phase(dev, card, aspace, gl, X, batches, exact_ids):
+    """Phase 14, ``lambda_search`` (module docstring), on phase main's
+    index. Returns the phase's launches (the query λ and the exact tier it
+    compares with)."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch.index import ivf as ivf_mod
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops import search as so
+    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
+
+    kernels.reset_launches()
+    ivf, build_s = _timed_call(lambda: aspace.build_ivf_index())
+    nb = ivf.n_buckets
+
+    def over(nprobe, rows):
+        ms, outs = [], []
+        for r in rows:
+            out, sec = _timed_call(lambda: aspace.search_batch_ivf(X[r], gl, K, alpha=ALPHA, nprobe=nprobe))
+            ms.append(sec * 1e3)
+            outs.append(out)
+        return ms, outs
+
+    def gather_bytes(nprobe):
+        p = min(nprobe, nb) * ivf.bucket_size
+        return ivf_mod.gather_block_queries(p, F_MAIN) * p * F_MAIN * 4
+
+    ms8, outs8 = over(IVF_NPROBE, batches)
+    hits = sum(len(set(i) & set(e)) for (idx, _), ex in zip(outs8[1:], exact_ids[1:])
+               for i, e in zip(idx, ex))
+    recall = hits / (len(outs8[1:]) * BATCH * K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    msf, outsf = over(nb, batches[1:2])
+    peak_full = torch.cuda.max_memory_allocated(dev) - base
+    ref_i, ref_s = aspace.search_batch(X[batches[1]], gl, k=K + 1, alpha=ALPHA)
+    full_bad = topk_mismatches(ref_i, ref_s, *outsf[0], TOL_SCORE)
+    check(not full_bad, f"lambda_search: IVF at full probe differs from the exact tier: {full_bad[:3]}")
+    ivf_info = dict(build_seconds=build_s, n_buckets=nb, bucket_size=ivf.bucket_size,
+                    n_clusters=ivf.n_clusters,
+                    nprobe8=dict(warmup_ms=ms8[0], ms_per_batch_median=statistics.median(ms8[1:]),
+                                 ms_per_batch=ms8[1:], recall_at_10=recall,
+                                 peak_gather_bytes=gather_bytes(IVF_NPROBE)),
+                    full_probe=dict(nprobe=nb, ms=msf[0], peak_gather_bytes=gather_bytes(nb),
+                                    peak_allocated_bytes=peak_full, mismatches=full_bad[:5]))
+
+    # The other searches, 16 queries each, held against plain forms in
+    # float64 on the card.
+    rows16 = batches[1][:N_LAMBDA_QUERIES]
+    X64 = aspace.data.double()
+    n64 = torch.sqrt(torch.sum(X64 * X64, dim=1))
+    lam32 = aspace.lambdas
+    lam64 = lam32.double()
+    sl = aspace.lambdas_sorted
+    plain_bad, calls = {}, {}
+
+    def blend64(cos, lam, q_lam):
+        return ALPHA * cos + (1 - ALPHA) * (1 - torch.clamp(torch.abs(lam - q_lam), max=1.0))
+
+    def cos64(Xr, nr, q):
+        q64 = torch.from_numpy(q.astype(np.float64)).to(dev)
+        d = Xr @ q64
+        den = nr * torch.sqrt(torch.dot(q64, q64))
+        return torch.where(den > 1e-12, d / torch.clamp(den, min=1e-12), torch.zeros_like(d))
+
+    def hybrid64(q, q_lam):
+        cos = cos64(X64, n64, q)
+        score = blend64(cos, lam64, q_lam)
+        in_top = torch.zeros_like(cos, dtype=torch.bool)
+        in_top[so.topk_stable(score, K)[1]] = True
+        high = cos > so.SEMANTIC_THRESHOLD
+        top1 = torch.zeros_like(in_top)
+        top1[torch.argmax(cos)] = True
+        final = torch.where(high, cos, score)
+        final = torch.where(top1 & ~high & ~in_top, cos, final)
+        final = torch.where(in_top | high | top1, final, torch.full_like(final, -float("inf")))
+        v, i = so.topk_stable(final, K)
+        return i[None].cpu().numpy(), v[None].cpu().numpy()
+
+    def banded64(q, q_lam):
+        s_lam, s_idx = sl.sorted_lambdas_dev, sl.sorted_indices_dev
+        w = min(BAND_WINDOW, s_lam.shape[0])
+        pos = int(torch.searchsorted(s_lam, torch.tensor([q_lam], dtype=torch.float32, device=dev))[0])
+        start = min(max(pos - w // 2, 0), s_lam.shape[0] - w)
+        cand = s_idx[start:start + w]
+        v, i = so.topk_stable(blend64(cos64(X64[cand], n64[cand], q), lam64[cand], q_lam), K)
+        return cand[i][None].cpu().numpy(), v[None].cpu().numpy()
+
+    def sorted_band(q_lam):
+        """The band [λq − σ/2^p, λq + σ/2^p] (bounds in float32, as the
+        index takes them), first k in (λ, id) order."""
+        band = sl.std_dev / (2.0 ** gl.graph_params.p)
+        lo, hi = np.float32(q_lam - band), np.float32(q_lam + band)
+        ids = torch.nonzero((lam64 >= float(lo)) & (lam64 <= float(hi)))[:, 0]
+        order = torch.sort(lam64[ids], stable=True)[1]
+        return [(int(i), float(v)) for i, v in zip(ids[order][:K].cpu(), lam64[ids][order][:K].cpu())]
+
+    def lists(res):
+        return np.asarray([[i for i, _ in res]]), np.asarray([[v for _, v in res]])
+
+    for name in ("hybrid", "banded", "linear_sorted", "k_nearest_by_lambda", "range"):
+        plain_bad[name], calls[name] = [], []
+    range_sizes = []
+    for qi, r in enumerate(rows16):
+        q = X[r]
+        q_lam = aspace.prepare_query_item(q, gl)
+        res, sec = _timed_call(lambda: aspace.search_lambda_aware_hybrid(q, q_lam, K))
+        calls["hybrid"].append(sec * 1e3)
+        plain_bad["hybrid"] += same_k_mismatches(*hybrid64(q, q_lam), *lists(res), TOL_SCORE)
+        res, sec = _timed_call(lambda: aspace.search_lambda_banded(q, q_lam, K, window=BAND_WINDOW))
+        calls["banded"].append(sec * 1e3)
+        plain_bad["banded"] += same_k_mismatches(*banded64(q, q_lam), *lists(res), TOL_SCORE)
+        res, sec = _timed_call(lambda: aspace.search_linear_sorted(q, gl, K))
+        calls["linear_sorted"].append(sec * 1e3)
+        if res != sorted_band(q_lam):
+            plain_bad["linear_sorted"].append(f"query {qi}")
+        res, sec = _timed_call(lambda: aspace.search_k_nearest_by_lambda(q, gl, K))
+        calls["k_nearest_by_lambda"].append(sec * 1e3)
+        smallest = torch.sort(torch.abs(lam64 - q_lam))[0][:K].cpu().numpy()
+        if len(res) != K or np.abs(np.asarray([abs(v - q_lam) for _, v in res]) - smallest).max() > 1e-12:
+            plain_bad["k_nearest_by_lambda"].append(f"query {qi}")
+        res, sec = _timed_call(lambda: aspace.range_search(q, q_lam, RANGE_EPS))
+        calls["range"].append(sec * 1e3)
+        dist = q_lam - lam64
+        want = set(torch.nonzero(dist <= RANGE_EPS)[:, 0].cpu().tolist())
+        got_ids = {i for i, _ in res}
+        edge = set(torch.nonzero(torch.abs(dist - RANGE_EPS) <= 1e-6)[:, 0].cpu().tolist())
+        range_sizes.append(len(res))
+        if (want ^ got_ids) - edge:
+            plain_bad["range"].append(f"query {qi}: {len((want ^ got_ids) - edge)} ids differ")
+    counts = kernels.launch_counts()
+    check(not any(plain_bad.values()),
+          f"lambda_search: against the float64 forms { {k: v[:2] for k, v in plain_bad.items()} }")
+    others = {name: dict(ms_per_call_median=statistics.median(ms[1:]), ms_per_call=ms)
+              for name, ms in calls.items()}
+    others["banded"]["window"] = BAND_WINDOW
+    others["range"].update(eps=RANGE_EPS, mean_result_size=float(np.mean(range_sizes)))
+    emit(phase="lambda_search", card=card, n=N_MAIN, f=F_MAIN, batch=BATCH, k=K, ivf=ivf_info,
+         queries=N_LAMBDA_QUERIES, searches=others, launches=counts,
+         plain_mismatches={k: v[:5] for k, v in plain_bad.items()})
+    aspace.ivf = None
+    return counts
+
+
+def pipeline_phase(dev, card):
+    """Phase 15, ``pipeline`` (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import pipeline
+    from matternet_rs_tpu_torch.ops import distance as dist
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.pipeline import run as prun
+    from matternet_rs_tpu_torch.utils.fixtures import make_gaussian_hd
+
+    t0 = time.perf_counter()
+    X = make_gaussian_hd(N_PIPELINE, 0.3).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    X64 = torch.from_numpy(X).to(dev).double()
+
+    # The reference's default MST k = 8: stage A's force-assignment leaves
+    # a few thick centroids (far rows absorbed) whose nearest are one
+    # another, and Prim from node 0 misses them.
+    a_out = pipeline.ClusteringStage(pipeline.ClusteringConfig(max_clusters=PIPELINE_CAPS[1]),
+                                     dev).execute(X)
+    b0 = pipeline.PreflightStage().execute(a_out.state)
+    st = pipeline.CentroidState(b0.normalized_centroids, b0.variances, a_out.state.counts)
+    mst8 = pipeline.MSTStage(pipeline.MSTConfig()).execute(st)
+    default_k = dict(k=pipeline.MSTConfig().k_neighbors, cap=PIPELINE_CAPS[1],
+                     nodes_in_mst=mst8.nodes_in_mst, order_length=len(mst8.centroid_order),
+                     n_centroids=st.num_centroids,
+                     thick_centroids=int((st.get_thickness() > 1.0).sum()),
+                     thickness_max=float(st.get_thickness().max()))
+    del a_out, b0, st, mst8
+
+    def lam_float64(res):
+        """Stage D recomputed in float64 on the card from the port's L."""
+        L64 = res.laplacian.matrix.double()
+        XL = X64 @ L64.T
+        x_sq = X64 * X64
+        ray = torch.clamp((X64 * XL).sum(-1) / (x_sq.sum(-1) + 1e-9), -1e6, 1e6)
+        W = torch.clamp(-L64, min=0.0)
+        e = torch.clamp(W.sum(1)[None] * x_sq - 2 * X64 * (X64 @ W.T) + x_sq @ W.T, min=0.0).sum(-1)
+        return (ray + torch.clamp(e / (e.sum() + 1e-12), 0.0, 1.0)).cpu().numpy()
+
+    runs = {}
+    for cap in PIPELINE_CAPS:
+        config = pipeline.PipelineConfig(clustering=pipeline.ClusteringConfig(max_clusters=cap),
+                                         mst=pipeline.MSTConfig(k_neighbors=PIPELINE_MST_K))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernels.reset_launches()
+        res, build_s = _timed_call(lambda: pipeline.build(X, config))
+        counts = kernels.launch_counts()
+        build_peak = torch.cuda.max_memory_allocated(dev) - base
+        c = res.state.num_centroids
+        lam_gap = float(np.max(np.abs(res.lambdas - lam_float64(res))
+                               / np.maximum(np.abs(res.lambdas), 1.0)))
+        # Stage C's least Bhattacharyya distance between two features'
+        # profiles: the graph keeps an edge only below ln(1e9) ≈ 20.7.
+        Df = dist.bhattacharyya_pairwise(res.state.to_feature_nodes().contiguous(),
+                                         res.state.get_feature_variances().contiguous(),
+                                         var_floor=pipeline.LaplacianConfig().variance_regularizer)
+        Df.fill_diagonal_(float("inf"))
+        Lm = res.laplacian.matrix
+        sym_gap = float((Lm - Lm.T).abs().max())
+        Lu = pipeline.LaplacianStage(pipeline.LaplacianConfig(normalize=False)).execute(res.state).matrix
+        rowsum_gap = float(Lu.sum(1).abs().max())
+        with tempfile.TemporaryDirectory() as tmp:
+            (_, save_s) = _timed_call(lambda: prun.save_result(res, tmp, "pipeline"))
+            back, load_s = _timed_call(lambda: prun.load_result_arrays(tmp, "pipeline"))
+        round_trip = dict(
+            means=bool(np.array_equal(back["means"], res.state.means.cpu().numpy().astype(np.float64))),
+            variances=bool(np.array_equal(back["variances"],
+                                          res.state.variances.cpu().numpy().astype(np.float64))),
+            laplacian=bool(np.array_equal(back["laplacian"], Lm.cpu().numpy().astype(np.float64))),
+            lambdas=bool(np.array_equal(back["lambdas"], res.lambdas)),
+            order=bool(np.array_equal(back["order"], res.mst.centroid_order)))
+        run = dict(cap=cap, mst_k=PIPELINE_MST_K, build_seconds=build_s, stage_seconds=res.timings,
+                   n_centroids=c, nodes_in_mst=res.mst.nodes_in_mst,
+                   trunk_length=int(len(res.mst.trunk_nodes)), tau=res.tau,
+                   laplacian_nnz=res.laplacian.nnz, feature_pair_min_distance=float(Df.min()),
+                   lambda_quantiles=[float(np.quantile(res.lambdas, q)) for q in (0, 0.5, 1)],
+                   variance_reduction=res.kalman.variance_reduction,
+                   lambda_max_rel_gap_vs_float64=lam_gap, build_peak_allocated_bytes=build_peak,
+                   l_symmetry_gap=sym_gap, unnormalised_row_sum_gap=rowsum_gap,
+                   save_seconds=save_s, load_seconds=load_s, round_trip=round_trip, launches=counts)
+        tag = f"pipeline cap={cap}"
+        check(res.mst.nodes_in_mst == c, f"{tag}: the MST reaches {res.mst.nodes_in_mst} of {c} centroids")
+        check(np.all(np.isfinite(res.lambdas)) and res.lambdas.shape == (N_PIPELINE,), f"{tag}: bad λ")
+        check(lam_gap <= TOL_LAMBDA, f"{tag}: stage D λ vs float64 {lam_gap}")
+        check(res.tau == pipeline.compute_tau(res.lambdas, pipeline.TauMode.median()),
+              f"{tag}: τ is not the median of λ")
+        # W is symmetric exactly; the normalised L only up to the order of
+        # its two scalings.
+        check(sym_gap <= 1e-6 and float((Lu - Lu.T).abs().max()) == 0.0,
+              f"{tag}: L is not symmetric ({sym_gap})")
+        check(rowsum_gap <= 1e-5 * max(1.0, float(Lu.diagonal().abs().max())),
+              f"{tag}: unnormalised L row sums {rowsum_gap}")
+        check(all(round_trip.values()), f"{tag}: save/load not bit for bit {round_trip}")
+        check(not any(counts.values()), f"{tag}: a kernel launched {counts}")
+        if cap == PIPELINE_CAPS[0]:
+            # The tiled pass at full size: its peak alone, and a block of
+            # 256 rows against the untiled float64 form.
+            mu, var = res.state.means, res.state.variances
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            D, pass_s = _timed_call(lambda: dist.bhattacharyya_pairwise(mu, var))
+            pass_peak = torch.cuda.max_memory_allocated(dev) - base
+            va = torch.clamp(var[:256, None].double(), min=dist.VAR_FLOOR)
+            vb = torch.clamp(var[None].double(), min=dist.VAR_FLOOR)
+            vbar = 0.5 * (va + vb)
+            diff = mu[:256, None].double() - mu[None].double()
+            m_terms = diff * diff / vbar
+            D64 = 0.125 * m_terms.sum(-1) + 0.5 * (
+                torch.log(vbar) - 0.5 * (torch.log(va) + torch.log(vb))).sum(-1)
+            # Relative to the summands' magnitude: the log terms cancel (a
+            # pair of near centroids has D ≪ Σ|terms|), in float32 as in
+            # the reference.
+            scale = 0.125 * m_terms.sum(-1) + 0.5 * (torch.log(vbar).abs() + 0.5 * (
+                torch.log(va).abs() + torch.log(vb).abs())).sum(-1)
+            pass_gap = float(((D[:256].double() - D64).abs() / torch.clamp(scale, min=1.0)).max())
+            check(pass_gap <= TOL_LAMBDA, f"{tag}: tiled Bhattacharyya vs float64 {pass_gap}")
+            run["bhattacharyya"] = dict(seconds=pass_s, peak_allocated_bytes=pass_peak,
+                                        untiled_intermediate_bytes=4 * c * c * mu.shape[1],
+                                        max_rel_gap_vs_float64_256_rows=pass_gap)
+            del D, D64, diff, vbar, va, vb, m_terms, scale
+        else:
+            check(res.laplacian.nnz > 0 and res.tau > pipeline.taumode.TAU_FLOOR,
+                  f"{tag}: the feature graph is empty (nnz {res.laplacian.nnz}, τ {res.tau})")
+        runs[str(cap)] = run
+        del res, Df, Lm, Lu
+    emit(phase="pipeline", card=card, n=N_PIPELINE, f=X.shape[1],
+         fixture="make_gaussian_hd(200_000, 0.3) (test_data.rs:118-192)",
+         cut="N = 200,000 rather than 1M: stage A is the host scan",
+         config=f"PipelineConfig(clustering=ClusteringConfig(max_clusters=cap), "
+                f"mst=MSTConfig(k_neighbors={PIPELINE_MST_K})), the rest default",
+         data_seconds=gen_s, default_k=default_k, runs=runs)
 
 
 def main() -> int:
@@ -1720,7 +2221,15 @@ def main() -> int:
     energy_counts = energy_phase(dev, card)
     path_counts["energy"] = {k: sum(c[k] for c in energy_counts.values()) for k in kernels.LAUNCHES}
 
-    # -- 13. kernels against their plain versions -----------------------
+    # -- 13–15. items, lambda_search, pipeline ---------------------------
+    items_counts = items_phase(dev, card, aspace, gl, X, batches[1])
+    path_counts["items"] = {k: sum(c[k] for c in items_counts.values()) for k in kernels.LAUNCHES}
+    exact_ids = [res[1] for res in results]
+    path_counts["lambda_search"] = lambda_search_phase(dev, card, aspace, gl, X, batches, exact_ids)
+    pipeline_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 16. kernels against their plain versions -----------------------
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
@@ -1899,7 +2408,8 @@ def main() -> int:
         bms, by = bound(n0 * F_MAIN * Xs.element_size() + 8 * n0 + 4 * BATCH * F_MAIN
                         + 4 * BATCH * ns_r, passes * 2 * BATCH * n0 * F_MAIN, PEAK_BF16_FLOP_S)
         d_by_path = {"rescored": tier_counts[tier]["tilemax_only"],
-                     "energy": energy_counts.get(tier, {}).get("tilemax_only", 0)}
+                     "energy": energy_counts.get(tier, {}).get("tilemax_only", 0),
+                     "items": items_counts.get(tier, {}).get("tilemax_only", 0)}
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
@@ -1927,7 +2437,8 @@ def main() -> int:
     # calls the wrapper with checked=True (no read-back of the slab ids),
     # and so is it timed here.
     e_by_path = {"rescored": sum(tier_counts[t]["slab_dots"] for t in scan_of),
-                 "energy": energy_counts["bf16x3_rescored"]["slab_dots"]}
+                 "energy": energy_counts["bf16x3_rescored"]["slab_dots"],
+                 "items": path_counts["items"]["slab_dots"]}
     e_launches = sum(e_by_path.values())
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)

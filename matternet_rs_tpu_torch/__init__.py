@@ -13,7 +13,9 @@ Parquet checkpoints and the single-host shard store (:mod:`.storage`,
 which alone imports ``pyarrow``); the large-F sparse path (ELL graphs and
 their direct build, sparse λ beyond 2048 features, the LOBPCG
 eigensolver); the energy pipeline and energy-mode search
-(:mod:`.energymaps`), motifs, subgraphs and sparsification; and a
+(:mod:`.energymaps`), motifs, subgraphs and sparsification; item
+mutation and append, the λ-band, hybrid, sorted, range and IVF searches
+(:mod:`.index.ivf`); the staged pipeline (:mod:`.pipeline`); and a
 hand-written CUDA kernel for every TPU kernel of the reference — the
 taumode λ, the fused score + sub-tile maxima producer, the sub-tile gather,
 the maxima-first scan, the slab rescore, the ELL sparse product and the

@@ -8,10 +8,17 @@ tests do.
 
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
 import shutil
+from typing import Callable, TypeVar
 
 import torch
+
+log = logging.getLogger(__name__)
+
+T = TypeVar("T")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,3 +61,43 @@ def backend_info() -> dict:
         "torch": torch.__version__,
         "torch_cuda": torch.version.cuda,
     }
+
+
+def get_device(prefer: str | None = None) -> torch.device:
+    """The compute device: ``None`` as :func:`resolve_device` (the card,
+    raising without one); ``prefer`` ``"gpu"``/``"cuda"`` the card,
+    ``"cpu"`` the CPU. ``ValueError`` when nothing matches (there is never
+    a TPU)."""
+    if prefer is None:
+        return resolve_device(None)
+    p = prefer.lower()
+    if p == "cpu":
+        return torch.device("cpu")
+    if p in ("gpu", "cuda") and torch.cuda.is_available():
+        return torch.device("cuda")
+    raise ValueError(f"no device matching {prefer!r}; have {backend_info()}")
+
+
+def is_tpu_available() -> bool:
+    """Always False: the port runs on CUDA cards and the CPU."""
+    return False
+
+
+def print_backend_info() -> None:
+    info = backend_info()
+    log.info("backend: cuda=%s (%d devices)", info["cuda_available"], info["device_count"])
+    if info["device_name"]:
+        log.info("  device: %s", info["device_name"])
+
+
+def dispatch(fn: Callable[[], T], prefer: str | None = None) -> T:
+    """Run ``fn`` with the chosen device as torch's default device."""
+    with torch.device(get_device(prefer)):
+        return fn()
+
+
+@contextlib.contextmanager
+def on_device(prefer: str | None = None):
+    """Make the chosen device torch's default device inside the block."""
+    with torch.device(get_device(prefer)):
+        yield

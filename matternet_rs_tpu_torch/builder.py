@@ -23,6 +23,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
 from matternet_rs_tpu_torch import clustering as clus
 from matternet_rs_tpu_torch import eigenmaps as em
@@ -184,13 +185,29 @@ class ArrowSpaceBuilder:
             n_features, target, 42 if self.clustering_seed is None else self.clustering_seed
         )
 
-    def start_clustering(self, rows: np.ndarray) -> tuple[ArrowSpace, np.ndarray]:
+    def start_clustering(self, rows: np.ndarray, device_rows=None) -> tuple[ArrowSpace, np.ndarray]:
         """Clustering in the raw space; with ``use_dims_reduction`` and
         F > 64 the centroids are then JL-projected when the target width
-        ``min(jl_dim(C, F, ε), F // 2)`` exceeds the centroid count."""
+        ``min(jl_dim(C, F, ε), F // 2)`` exceeds the centroid count.
+        ``device_rows``: a float32 tensor holding the same corpus, taken as
+        the space's data instead of a new upload (``ValueError`` on another
+        shape or dtype; equal content is the caller's contract)."""
         rows = np.asarray(rows, np.float32)
-        n_features = rows.shape[1]
-        aspace = ArrowSpace.from_items(rows, self.synthesis, device=self.device)
+        n_items, n_features = rows.shape
+        if device_rows is not None:
+            if tuple(device_rows.shape) != (n_items, n_features):
+                raise ValueError(
+                    f"device_rows shape {tuple(device_rows.shape)} != "
+                    f"rows shape {(n_items, n_features)}"
+                )
+            if device_rows.dtype != torch.float32:
+                raise ValueError(
+                    f"device_rows dtype {device_rows.dtype} != float32: "
+                    "device_rows must be the float32 device copy of rows "
+                    "(a reduced-precision copy no longer equals rows)"
+                )
+        aspace = ArrowSpace.from_items(rows if device_rows is None else device_rows,
+                                       self.synthesis, device=self.device)
         centroids = self._cluster_working(aspace, rows, resident=aspace.data)
         if self.use_dims_reduction and n_features > 64:
             jl_dim = compute_jl_dimension(aspace.n_clusters, n_features, self.rp_eps)
@@ -229,11 +246,14 @@ class ArrowSpaceBuilder:
         return aspace, self._cluster_working(aspace, working, resident)
 
     # -- build ---------------------------------------------------------
-    def build(self, rows) -> tuple[ArrowSpace, GraphLaplacian]:
+    def build(self, rows, device_rows=None) -> tuple[ArrowSpace, GraphLaplacian]:
         """Full eigen build; stage times land in ``last_stage_timings``.
         With persistence: the raw rows, the centroids (twice, as the
         reference names them), the Laplacian, the signals, the λ and the
-        metadata."""
+        metadata. ``device_rows``: the same corpus already on the device
+        (for instance a previous build's ``data``, to rebuild with other
+        graph or λ settings), reused instead of uploaded again; the host
+        ``rows`` still drive the clustering scan."""
         rows = np.asarray(rows, np.float32)
         n_items = rows.shape[0]
         t0 = time.time()
@@ -242,7 +262,7 @@ class ArrowSpaceBuilder:
         timer = StageTimer(self.device)
 
         with timer.stage("clustering", items=n_items):
-            aspace, centroids = self.start_clustering(rows)
+            aspace, centroids = self.start_clustering(rows, device_rows)
         self._persist_dense("clustered-dm", centroids)
         self._persist_dense("laplacian-input", centroids)
         with timer.stage("laplacian", items=int(centroids.shape[1])):

@@ -317,9 +317,9 @@ def incremental_clustering(
             native_ok = False
 
     if native_ok:
-        out = native_mod.incremental_cluster(X, max_clusters, radius, keep_mask)
+        out = native_mod.incremental_cluster(X, max_clusters, radius, keep_mask=keep_mask)
         if out is not None:
-            cents, assignments, counts = out
+            cents, assignments, counts, _ = out
             if len(cents) == 0:
                 raise ValueError(
                     "No clusters created from data (sampling too aggressive?)"

@@ -201,6 +201,52 @@ class UndecidableQueryError(ValueError):
 
 
 @dataclasses.dataclass
+class ArrowItem:
+    """One row (float64 on the host) with its λ: the reference's handle
+    for single-item computations."""
+
+    item: np.ndarray
+    lam: float = 0.0
+
+    def __post_init__(self):
+        self.item = np.asarray(self.item, np.float64)
+
+    def __len__(self) -> int:
+        return len(self.item)
+
+    def norm(self) -> float:
+        return float(np.linalg.norm(self.item))
+
+    def dot(self, other: "ArrowItem") -> float:
+        if len(self) != len(other):
+            raise ValueError("Dimension mismatch")
+        return float(self.item @ np.asarray(other.item))
+
+    def cosine_similarity(self, other) -> float:
+        o = np.asarray(other.item if isinstance(other, ArrowItem) else other, np.float64)
+        denom = np.linalg.norm(self.item) * np.linalg.norm(o)
+        return float(self.item @ o / denom) if denom > 1e-12 else 0.0
+
+    def euclidean_distance(self, other: "ArrowItem") -> float:
+        return float(np.linalg.norm(self.item - np.asarray(other.item)))
+
+    def scale(self, factor: float) -> None:
+        self.item = self.item * factor
+
+    def add(self, other: "ArrowItem") -> None:
+        self.item = self.item + np.asarray(other.item)
+
+    def lambda_component_similarity(self, other: "ArrowItem") -> float:
+        """``1 − min(|Δλ|, 1)``."""
+        return 1.0 - min(abs(self.lam - other.lam), 1.0)
+
+    def lambda_similarity(self, other: "ArrowItem", alpha: float) -> float:
+        """``α·cos + (1−α)·(1 − min(|Δλ|, 1))``."""
+        return (alpha * self.cosine_similarity(other)
+                + (1.0 - alpha) * self.lambda_component_similarity(other))
+
+
+@dataclasses.dataclass
 class ArrowSpace:
     """Item store + λ index."""
 
@@ -237,6 +283,8 @@ class ArrowSpace:
     item_norms: Optional[torch.Tensor] = None
 
     _norms: Optional[torch.Tensor] = None
+    # IVF layout for the pruned searches (index/ivf.py), if built.
+    ivf: Optional[object] = None
     # ELL form of ``signals`` beyond SPARSE_F_THRESHOLD, with the signals
     # tensor it was extracted from (a replaced ``signals`` re-extracts).
     _signals_ell: Optional[tuple] = None
@@ -272,9 +320,13 @@ class ArrowSpace:
     @classmethod
     def from_items(cls, items, taumode: TauMode = TAUDEFAULT, device=None) -> "ArrowSpace":
         """``device=None`` places the data on the CUDA card (raises
-        without one); pass ``device="cpu"`` for the CPU."""
+        without one); pass ``device="cpu"`` for the CPU. A float32 tensor
+        already on that device is taken as it is, not copied."""
         dev = resolve_device(device)
-        data = torch.from_numpy(np.array(items, np.float32)).to(dev)
+        if isinstance(items, torch.Tensor):
+            data = items.to(dev, torch.float32)
+        else:
+            data = torch.from_numpy(np.array(items, np.float32)).to(dev)
         if data.ndim != 2 or data.shape[0] < 2:
             raise ValueError("need at least two item rows")
         return cls(data=data, nfeatures=int(data.shape[1]),
@@ -312,6 +364,79 @@ class ArrowSpace:
         self._norms = None
         self._data_bf16 = None
         self._i8_pair = None
+        self.ivf = None
+
+    def get_item(self, i: int) -> tuple[np.ndarray, float]:
+        """Row ``i`` (host copy) and its normalised λ (0 before λ)."""
+        lam = float(self.lambdas[i]) if self.lambdas is not None else 0.0
+        return self.data[i].cpu().numpy(), lam
+
+    def cluster_of(self, i: int) -> Optional[int]:
+        """Item ``i``'s build cluster, None for a dropped outlier or when no
+        clustering ran."""
+        if self.cluster_assignments is None or i >= len(self.cluster_assignments):
+            return None
+        c = int(self.cluster_assignments[i])
+        return None if c < 0 else c
+
+    # -- mutation ---------------------------------------------------------
+    # Every mutation assigns a new ``data`` tensor (as the reference's
+    # ``.at[].set``) and drops the caches made from the rows: the row
+    # norms, the bf16 copy and the int8 sketch (the last two would
+    # otherwise keep serving the quantised tiers the old row).
+    def _invalidate_row_caches(self) -> None:
+        """Drop the row-derived caches; in energy mode refresh
+        ``item_norms``, which the energy scores read."""
+        self._norms = None
+        self._data_bf16 = None
+        self._i8_pair = None
+        if self.item_norms is not None:
+            self.item_norms = torch.sqrt(torch.sum(self.data * self.data, dim=1))
+
+    def _replace_row(self, i: int, row: torch.Tensor) -> None:
+        data = self.data.clone()
+        data[i] = row
+        self.data = data
+        self._invalidate_row_caches()
+
+    def recompute_lambdas(self, gl: GraphLaplacian) -> None:
+        """λ of every item against ``gl`` (kernel A from ``KERNEL_MIN_N``
+        rows), then the sorted index again if there is one."""
+        self.compute_taumode(gl)
+        if self.lambdas_sorted is not None:
+            self.build_lambdas_sorted()
+
+    def set_item(self, i: int, values) -> None:
+        """Replace item ``i``'s row. λ is not recomputed: follow with
+        :meth:`recompute_lambdas` (the methods below do)."""
+        if not 0 <= i < self.nitems:
+            raise ValueError(f"item index out of bounds: i={i}")
+        v = torch.as_tensor(values, dtype=torch.float32, device=self.device)
+        if tuple(v.shape) != (self.nfeatures,):
+            raise ValueError(f"item values must be shape ({self.nfeatures},), got {tuple(v.shape)}")
+        self._replace_row(i, v)
+
+    def superpose_items(self, a: int, b: int, gl: GraphLaplacian) -> None:
+        """``item[a] += item[b]``, then λ of every item."""
+        if not (0 <= a < self.nitems and 0 <= b < self.nitems):
+            raise ValueError(f"item indices out of bounds: a={a}, b={b}")
+        self._replace_row(a, self.data[a] + self.data[b])
+        self.recompute_lambdas(gl)
+
+    def mul_items(self, a: int, b: int, gl: GraphLaplacian) -> None:
+        """``item[a] *= item[b]`` elementwise, then λ of every item."""
+        if not (0 <= a < self.nitems and 0 <= b < self.nitems):
+            raise ValueError(f"item indices out of bounds: a={a}, b={b}")
+        self._replace_row(a, self.data[a] * self.data[b])
+        self.recompute_lambdas(gl)
+
+    def scale_item(self, a: int, scalar: float, gl: GraphLaplacian) -> None:
+        """``item[a] *= scalar`` (taken in float32), then λ of every item."""
+        if not 0 <= a < self.nitems:
+            raise ValueError(f"item index out of bounds: a={a}")
+        self._replace_row(a, self.data[a] * torch.tensor(scalar, dtype=torch.float32,
+                                                          device=self.device))
+        self.recompute_lambdas(gl)
 
     def _projects(self, x: torch.Tensor, graph) -> bool:
         """Whether λ of ``x`` is taken of its projection: an original-width
@@ -438,17 +563,19 @@ class ArrowSpace:
             )
         return Qe
 
-    def _nearest_subcentroid_lambdas(self, Qe: torch.Tensor) -> torch.Tensor:
-        """λ ``[B]`` of each query's nearest sub-centroid, by the direct
-        difference ``Σ(c − q)²`` (the reference's form on this path), in
-        query blocks of at most 2²⁶ ``[b, S, F]`` elements; ties take the
-        first sub-centroid."""
-        sub_c, sc_lams = self.sub_centroids, self._subcentroid_lambdas_dev()
+    def _nearest_subcentroids(self, Qe: torch.Tensor) -> torch.Tensor:
+        """Each row's nearest sub-centroid ``[B]``, by the direct difference
+        ``Σ(c − q)²`` (the reference's form on this path), in row blocks of
+        at most 2²⁶ ``[b, S, F]`` elements; ties take the first."""
+        sub_c = self.sub_centroids
         blk = max(1, (1 << 26) // max(sub_c.numel(), 1))
-        out = [sc_lams[torch.argmin(torch.sum((sub_c[None] - Qe[s:s + blk, None, :]) ** 2, dim=-1),
-                                    dim=1)]
+        out = [torch.argmin(torch.sum((sub_c[None] - Qe[s:s + blk, None, :]) ** 2, dim=-1), dim=1)
                for s in range(0, Qe.shape[0], blk)]
         return torch.cat(out)
+
+    def _nearest_subcentroid_lambdas(self, Qe: torch.Tensor) -> torch.Tensor:
+        """λ ``[B]`` of each query's nearest sub-centroid."""
+        return self._subcentroid_lambdas_dev()[self._nearest_subcentroids(Qe)]
 
     # -- query preparation --------------------------------------------
     def project_query(self, query) -> torch.Tensor:
@@ -661,3 +788,153 @@ class ArrowSpace:
         if return_raw:
             return idx, sc, raw[:b].cpu().numpy()
         return idx, sc
+
+    # -- append ---------------------------------------------------------
+    def add_items(self, new_rows, gl: GraphLaplacian) -> None:
+        """Append rows to a built index; the graph is not rebuilt. Eigen
+        mode: λ of the new rows against the existing graph with the
+        existing normalisation, clamped to [0, 1] (as queries are; kernel A
+        from ``KERNEL_MIN_N`` rows). Energy mode: each new row takes its
+        nearest sub-centroid (direct L2 difference, first index) and that
+        sub-centroid's λ; ``centroid_map`` and ``item_norms`` grow. Then
+        the IVF layout and the sorted index, where they exist, are built
+        again."""
+        new = torch.as_tensor(new_rows, dtype=torch.float32, device=self.device)
+        if new.ndim == 1:
+            new = new[None, :]
+        if new.shape[-1] != self.nfeatures:
+            raise ValueError(
+                f"new items have dimension {new.shape[-1]}, index has {self.nfeatures}"
+            )
+        p = self.projection
+        if self._energy:
+            Xe = new
+            if (p is not None and Xe.shape[-1] == p.original_dim
+                    and self.sub_centroids.shape[-1] == p.reduced_dim):
+                Xe = p.project(Xe)
+            nearest = self._nearest_subcentroids(Xe)
+            lam_new = self._subcentroid_lambdas_dev()[nearest]
+            self.centroid_map = np.concatenate([self.centroid_map, nearest.cpu().numpy()])
+            if self.item_norms is not None:
+                self.item_norms = torch.cat([self.item_norms,
+                                             torch.sqrt(torch.sum(new * new, dim=-1))])
+        else:
+            graph = self.graph_for_taumode(gl)
+            X = self.projection.project(new) if self._projects(new, graph) else new
+            raw = taumode_ops.taumode_lambdas_auto(X, graph, self.taumode.mode, self.taumode.param)
+            lam_new = torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
+        self.data = torch.cat([self.data, new], dim=0)
+        self.lambdas = torch.cat([self.lambdas, lam_new])
+        self.nitems = int(self.data.shape[0])
+        self._norms = None
+        self._data_bf16 = None
+        self._i8_pair = None
+        if self.ivf is not None:
+            # The layout does not know the new rows: build it again.
+            self.build_ivf_index(bucket_size=self.ivf.bucket_size)
+        if self.lambdas_sorted is not None:
+            self.build_lambdas_sorted()
+
+    # -- λ-band, hybrid, sorted and range searches -------------------------
+    def _query(self, query) -> torch.Tensor:
+        return torch.as_tensor(query, dtype=torch.float32, device=self.device)
+
+    def search_lambda_aware_hybrid(self, query, query_lambda: float, k: int,
+                                   alpha: float = 0.7) -> list[tuple[int, float]]:
+        """Hybrid top-k (:func:`..ops.search.search_lambda_aware_hybrid`);
+        −inf slots are left out."""
+        self._require_lambdas()
+        if k == 0:
+            return []
+        idx, sc = search_ops.search_lambda_aware_hybrid(
+            self.data, self.norms, self.lambdas, self._query(query), float(query_lambda), k, alpha)
+        return [(int(i), float(v)) for i, v in zip(idx.cpu(), sc.cpu()) if np.isfinite(float(v))]
+
+    def search_linear_sorted(self, query, gl: GraphLaplacian, k: int):
+        """The sorted index's band around the query's λ, first ``k`` by λ."""
+        self._require_lambdas()
+        q_lambda = self.prepare_query_item(query, gl)
+        return self.lambdas_sorted.range_bylambda(q_lambda, k, gl.graph_params.p)
+
+    def search_k_nearest_by_lambda(self, query, gl: GraphLaplacian, k: int,
+                                   base_delta: float | None = None, growth: float = 1.7,
+                                   max_multiplier: float = 10.0) -> list[tuple[int, float]]:
+        """Expanding-window ``k`` nearest by |Δλ| over the sorted index."""
+        if self.lambdas_sorted is None:
+            raise ValueError("build_lambdas_sorted() first")
+        q_lambda = self.prepare_query_item(query, gl)
+        return self.lambdas_sorted.k_nearest_by_lambda(
+            q_lambda, k, gl.graph_params.p, base_delta, growth, max_multiplier)
+
+    def search_lambda_banded(self, query, query_lambda: float, k: int, alpha: float = 0.7,
+                             window: int = 4096) -> list[tuple[int, float]]:
+        """Blended top-k over ``window`` rows of the sorted-λ order around
+        the query (:func:`..ops.search.search_lambda_banded`)."""
+        if self.lambdas_sorted is None:
+            raise ValueError("build_lambdas_sorted() first")
+        sl = self.lambdas_sorted
+        if isinstance(sl, SortedLambdas):
+            s_lam = torch.as_tensor(np.asarray(sl.sorted_lambdas, np.float32), device=self.device)
+            s_idx = torch.as_tensor(sl.sorted_indices, dtype=torch.int64, device=self.device)
+        else:
+            s_lam, s_idx = sl.sorted_lambdas_dev, sl.sorted_indices_dev
+        idx, sc = search_ops.search_lambda_banded(
+            self.data, self.norms, s_lam, s_idx, self._query(query), query_lambda, k, alpha, window)
+        return [(int(i), float(v)) for i, v in zip(idx.cpu(), sc.cpu())]
+
+    def range_search(self, query, query_lambda: float, eps: float):
+        """Every item with ``λq − λi ≤ eps`` (signed), with that distance."""
+        self._require_lambdas()
+        dist, mask = search_ops.range_search_mask(
+            self.lambdas, torch.tensor(query_lambda, dtype=torch.float32, device=self.device),
+            torch.tensor(eps, dtype=torch.float32, device=self.device))
+        dist = dist.cpu().numpy()
+        return [(int(i), float(dist[i])) for i in np.nonzero(mask.cpu().numpy())[0]]
+
+    # -- IVF-pruned search --------------------------------------------------
+    def build_ivf_index(self, bucket_size: int = 1024, seed: int = 0):
+        """The bucketed IVF layout over the items (:mod:`..index.ivf`),
+        centroids from the build's cluster assignments when there are any,
+        else k-means."""
+        from matternet_rs_tpu_torch.index.ivf import build_ivf
+
+        self.ivf = build_ivf(
+            self.data, assignments=self.cluster_assignments,
+            n_clusters=self.n_clusters or None, bucket_size=bucket_size, seed=seed,
+            lambdas=None if self.lambdas is None else self.lambdas.cpu().numpy(),
+        )
+        return self.ivf
+
+    def search_lambda_aware_ivf(self, query, query_lambda: float, k: int, alpha: float = 0.7,
+                                nprobe: int = 8) -> list[tuple[int, float]]:
+        """Blended top-k over the ``nprobe`` best buckets, scored exactly;
+        the full scan at ``nprobe`` ≥ the bucket count."""
+        from matternet_rs_tpu_torch.index.ivf import ivf_search
+
+        if self.ivf is None:
+            raise ValueError("build_ivf_index() first")
+        if query_lambda == 0.0:
+            raise ValueError("Lambda of the item is 0.0, prepare the item before searching")
+        idx, sc = ivf_search(self.ivf, self.data, self.norms, self.lambdas, self._query(query),
+                             query_lambda, k, alpha, nprobe)
+        return [(int(i), float(v)) for i, v in zip(idx.cpu(), sc.cpu()) if np.isfinite(float(v))]
+
+    def search_batch_ivf(self, queries, gl: GraphLaplacian, k: int, alpha: float = 0.7,
+                         nprobe: int = 8):
+        """Batched pruned search, the query λ as :meth:`search_batch` takes
+        it in eigen mode. Returns numpy ``(indices [B, k], scores [B, k])``;
+        slots past the candidates hold −1 and −inf."""
+        from matternet_rs_tpu_torch.index.ivf import ivf_search_batch
+
+        if self.ivf is None:
+            raise ValueError("build_ivf_index() first")
+        Q = self._query(queries)
+        if Q.ndim == 1:
+            Q = Q[None, :]
+        graph = self.graph_for_taumode(gl)
+        Qw = self.projection.project(Q) if self._projects(Q, graph) else Q
+        raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode, self.taumode.param)
+        q_lams = torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
+        idx, sc = ivf_search_batch(self.ivf, self.data, self.norms, self.lambdas, Q, q_lams, k,
+                                   alpha, nprobe)
+        return idx.cpu().numpy(), sc.cpu().numpy()

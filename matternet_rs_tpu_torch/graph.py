@@ -162,3 +162,27 @@ class GraphLaplacian:
             "max_degree": float(deg.max()) if deg.size else 0.0,
             "mean_degree": float(deg.mean()) if deg.size else 0.0,
         }
+
+
+class GraphFactory:
+    """The reference's ``GraphFactory`` namespace: thin aliases over
+    :mod:`.ops.laplacian`."""
+
+    @staticmethod
+    def build_laplacian_matrix_from_k_cluster(clustered, eps, k, topk, p, sigma_override=None,
+                                              normalise=False, sparsity_check=False,
+                                              n_items=None) -> "GraphLaplacian":
+        from matternet_rs_tpu_torch.ops import laplacian as lap_ops
+
+        params = GraphParams(eps=eps, k=k, topk=topk, p=p, sigma=sigma_override,
+                             normalise=normalise, sparsity_check=sparsity_check)
+        c = clustered if isinstance(clustered, torch.Tensor) else torch.from_numpy(
+            np.array(clustered, np.float32))
+        return lap_ops.build_laplacian_from_k_cluster(
+            c, params, n_items=n_items if n_items is not None else c.shape[0])
+
+    @staticmethod
+    def build_spectral_laplacian(aspace, graph_laplacian) -> None:
+        from matternet_rs_tpu_torch.ops import laplacian as lap_ops
+
+        aspace.signals = lap_ops.build_spectral_laplacian(graph_laplacian, aspace.nitems)

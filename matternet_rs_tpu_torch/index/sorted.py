@@ -91,6 +91,7 @@ class DeviceSortedLambdas:
         self.sorted_lambdas_dev = sorted_lambdas
         self.sorted_indices_dev = sorted_indices
         self.std_dev = std_dev
+        self._host: SortedLambdas | None = None
 
     @classmethod
     def build_from(cls, lambdas: torch.Tensor) -> "DeviceSortedLambdas":
@@ -113,3 +114,21 @@ class DeviceSortedLambdas:
         idx = self.sorted_indices_dev[lo:hi].cpu().numpy()
         lam = self.sorted_lambdas_dev[lo:hi].cpu().numpy()
         return [(int(i), float(l)) for i, l in zip(idx, lam)][:k]
+
+    def _host_view(self) -> SortedLambdas:
+        """The host copy (float64 λ, int64 ids), made at the first host
+        query and kept."""
+        if self._host is None:
+            self._host = SortedLambdas(
+                sorted_lambdas=self.sorted_lambdas_dev.cpu().numpy().astype(np.float64),
+                sorted_indices=self.sorted_indices_dev.cpu().numpy().astype(np.int64),
+                std_dev=self.std_dev,
+            )
+        return self._host
+
+    def k_nearest_by_lambda(self, *args, **kwargs) -> list[tuple[int, float]]:
+        """:meth:`SortedLambdas.k_nearest_by_lambda` on the host view."""
+        return self._host_view().k_nearest_by_lambda(*args, **kwargs)
+
+    def to_vec(self) -> list[tuple[float, int]]:
+        return self._host_view().to_vec()

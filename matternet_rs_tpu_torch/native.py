@@ -91,10 +91,12 @@ def get_lib():
 
 
 def incremental_cluster(X: np.ndarray, max_clusters: int, radius: float,
-                        keep_mask: np.ndarray | None = None):
-    """Native scan in the reference's "legacy" mode. Returns
-    ``(centroids [C,F] f32, assignments [N] i64, counts [C] i64)`` or None
-    when the library is unavailable."""
+                        mode: str = "legacy", keep_mask: np.ndarray | None = None):
+    """Native radius-gated incremental scan. ``mode``: ``"legacy"`` (the
+    eigen build's semantics, soft outliers included) or ``"stage_a"`` (the
+    staged pipeline's stage A: assign, create, else force-assign). Returns
+    ``(centroids [C,F] f32, assignments [N] i64 (-1 = dropped), counts [C]
+    i64, m2 [C,F] f64)`` or None when the library is unavailable."""
     if int(max_clusters) < 1:
         raise ValueError(f"max_clusters must be >= 1, got {max_clusters}")
     lib = get_lib()
@@ -110,14 +112,16 @@ def incremental_cluster(X: np.ndarray, max_clusters: int, radius: float,
     if keep_mask is not None:
         keep_mask = np.ascontiguousarray(keep_mask, np.uint8)
     ncent = int(lib.mrs_incremental_cluster(
-        X.ctypes.data, n, f, cap, float(radius), 0,
+        X.ctypes.data, n, f, cap, float(radius), {"legacy": 0, "stage_a": 1}[mode],
         None if keep_mask is None else keep_mask.ctypes.data,
         centroids.ctypes.data, m2.ctypes.data,
         counts.ctypes.data, assignments.ctypes.data,
     ))
     if ncent < 0:
         raise RuntimeError("native incremental scan rejected its inputs (cap < 1)")
-    return centroids[:ncent].astype(np.float32), assignments, counts[:ncent].copy()
+    # Copies, so the results do not pin the [cap, F] buffers.
+    return (centroids[:ncent].astype(np.float32), assignments, counts[:ncent].copy(),
+            m2[:ncent].copy())
 
 
 def get_shard_lib():

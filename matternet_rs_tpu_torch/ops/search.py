@@ -51,6 +51,8 @@ SELECT_MARGIN = 4
 # default tile) and their slab-count cap, as in the reference.
 RESCORE_SUBS = 16
 MAX_RESCORE_SLABS = 64
+# Cosine above which the hybrid search keeps a row whatever its λ.
+SEMANTIC_THRESHOLD = 0.9999
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,6 +122,83 @@ def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
     scores = _batched_scores(X, norms, lambdas, Q, ql, alphas)
     top, idx = topk_stable(scores, min(k, X.shape[0]))
     return (idx[0], top[0]) if single else (idx, top)
+
+
+def _scan_dots(X, query) -> torch.Tensor:
+    """Corpus·query dots ``[N]``: bf16 operands with f32 sums for a bf16
+    corpus, full f32 otherwise."""
+    if X.dtype == torch.bfloat16:
+        return mm_bf16(X, query)
+    return mm(X, query)
+
+
+def _guarded_cosine(dots, denom):
+    """``dots/denom``, 0 where ``denom ≤ 1e-12``."""
+    return torch.where(denom > 1e-12, dots / torch.clamp(denom, min=1e-12), torch.zeros_like(dots))
+
+
+def cosine_scores(X, norms, query) -> torch.Tensor:
+    """Cosine of ``query`` against every row (0 for zero norms)."""
+    qn = torch.sqrt(torch.sum(query * query))
+    return _guarded_cosine(_scan_dots(X, query), norms * qn)
+
+
+def lambda_aware_scores(X, norms, lambdas, query, query_lambda, alpha) -> torch.Tensor:
+    """Blended score of one query against every row."""
+    qn = torch.sqrt(torch.sum(query * query))
+    return tmk.blend(_scan_dots(X, query), norms * qn, lambdas, query_lambda, alpha)
+
+
+def search_lambda_aware_hybrid(X, norms, lambdas, query, query_lambda, k: int, alpha=0.7):
+    """Hybrid top-k of one query: the candidates are the blended top-k, the
+    rows with cosine above ``SEMANTIC_THRESHOLD`` and the cosine's first
+    argmax; high-cosine members score their cosine, the argmax outside
+    both sets its cosine, the rest their blend; others −inf. Returns
+    ``(indices [k], scores [k])``, ties lowest index first."""
+    n = X.shape[0]
+    kk = min(k, n)
+    dots, denom = _scan_dots(X, query), norms * torch.sqrt(torch.sum(query * query))
+    cos = _guarded_cosine(dots, denom)
+    lambda_score = tmk.blend(dots, denom, lambdas, query_lambda, alpha)
+    _, top_idx = topk_stable(lambda_score, kk)
+    in_topk = torch.zeros(n, dtype=torch.bool, device=X.device)
+    in_topk[top_idx] = True
+    high_sem = cos > SEMANTIC_THRESHOLD
+    is_sem_top = torch.zeros(n, dtype=torch.bool, device=X.device)
+    is_sem_top[torch.argmax(cos)] = True
+    eligible = in_topk | high_sem | is_sem_top
+    final = torch.where(high_sem, cos, lambda_score)
+    final = torch.where(is_sem_top & ~high_sem & ~in_topk, cos, final)
+    final = torch.where(eligible, final, torch.full_like(final, -float("inf")))
+    top, idx = topk_stable(final, kk)
+    return idx, top
+
+
+def search_lambda_banded(X, norms, sorted_lambdas, sorted_indices, query, query_lambda,
+                         k: int, alpha=0.7, window: int = 4096):
+    """Blended top-k of one query over a window of ``window`` rows of the
+    sorted-λ order centred on the query's position (``searchsorted``, left
+    side), clipped to the corpus; full-f32 dots. Approximate: rows outside
+    the window cannot be returned. Returns global ``(indices, scores)``."""
+    n = X.shape[0]
+    w = min(window, n)
+    q_lam = torch.as_tensor([float(query_lambda)], dtype=sorted_lambdas.dtype,
+                            device=sorted_lambdas.device)
+    pos = int(torch.searchsorted(sorted_lambdas, q_lam)[0])
+    start = min(max(pos - w // 2, 0), n - w)
+    cand = sorted_indices[start:start + w].long()
+    cand_lam = sorted_lambdas[start:start + w]
+    qn = torch.sqrt(torch.sum(query * query))
+    scores = tmk.blend(mm(X[cand], query), norms[cand] * qn, cand_lam, q_lam[0], alpha)
+    top, idx = topk_stable(scores, min(k, w))
+    return cand[idx], top
+
+
+def range_search_mask(lambdas, query_lambda, eps):
+    """Signed λ distance ``λq − λi`` and the mask ``λq − λi ≤ eps``, in
+    float32 (scalars are taken at the λ's dtype)."""
+    dist = query_lambda - lambdas
+    return dist, dist <= eps
 
 
 # The selection chain, in one copy beside the kernel that replaces it.

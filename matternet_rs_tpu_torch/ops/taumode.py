@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.csr import EllLaplacian, ell_from_dense_laplacian
 from matternet_rs_tpu_torch.ops.kernels import taumode as tk
 
@@ -157,3 +158,24 @@ def taumode_lambdas_auto(X: torch.Tensor, L, tau_mode: int = TAU_MEDIAN,
             X.contiguous(), L.to(torch.float32).contiguous(), tau.contiguous()
         )
     return taumode_lambdas(X, L, tau_mode, tau_param)
+
+
+def rayleigh_quotient(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``max(xᵀLx / xᵀx, 0)`` (0 for a zero vector), full f32."""
+    num = torch.dot(x, mm(L, x))
+    den = torch.dot(x, x)
+    r = torch.where(den > 1e-12, num / torch.clamp(den, min=1e-12), torch.zeros_like(den))
+    return torch.clamp(r, min=0.0)
+
+
+def item_dispersion(x: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """The dispersion G of one vector, edge by edge (not the closed form):
+    ``Σ share²`` of each edge's energy ``a_ij (x_i − x_j)²`` over the
+    total, ``A = max(−L, 0)`` off the diagonal; clamped to [0, 1]."""
+    A = torch.clamp(-L, min=0.0)
+    A = A - torch.diag(torch.diag(A))
+    diff = x[:, None] - x[None, :]
+    e = A * diff * diff
+    total = torch.sum(e)
+    share = torch.where(total > 1e-12, e / torch.clamp(total, min=1e-12), torch.zeros_like(e))
+    return torch.clamp(torch.sum(share * share), 0.0, 1.0)

@@ -37,6 +37,15 @@ def make_gaussian_blob(n_points: int, noise: float) -> np.ndarray:
     return _blobs(n_points, noise, dims, [c0, c1, c2], 0.15, -5.0, 15.0, 789)
 
 
+def make_gaussian_hd(n_points: int, noise: float) -> np.ndarray:
+    """3 clusters + 15% outliers in 100-D (the staged pipeline's fixture)."""
+    dims = 100
+    c0 = np.zeros(dims)
+    c1 = np.zeros(dims); c1[0] = 10.0
+    c2 = np.zeros(dims); c2[1] = 10.0
+    return _blobs(n_points, noise, dims, [c0, c1, c2], 0.15, -5.0, 15.0, 435)
+
+
 def make_energy_test_dataset(n_items: int, n_features: int, seed: int) -> np.ndarray:
     """5 separated clusters, uniform ±0.8 noise."""
     rng = np.random.default_rng(seed)
