@@ -49,11 +49,12 @@ Phases, one output line each (JSON):
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
    phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
    searches), phase 11 (build and searches), each tier of phase 12, each
-   step of phase 13, phases 14 and 15, and read just after each; every
-   kernel of a path must have launched. The kernel rows of A, B and the
-   candidate stage add the launches of phases 7–9, 11–14 to phase 2's
-   (``launches_by_path``); those of D and E add phases 12's and 13's to
-   phase 3's.
+   step of phase 13, phases 14 and 15, each step of phases 16–18, and read
+   just after each; every kernel of a path must have launched. The kernel
+   rows of A, B, C and the candidate stage add the launches of phases 7–9,
+   11–14 and 16–18 to phase 2's (``launches_by_path``); those of D and E
+   add phases 12's, 13's, 16's and 18's to phase 3's, and the sketch rows
+   phase 16's streaming step to phase 11's.
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -217,7 +218,61 @@ Phases, one output line each (JSON):
    summands' magnitude: the log terms cancel for near pairs, in float32
    as in the reference). No kernel launches here (the reference runs this
    chain outside Pallas).
-16. kernels — each kernel against its plain PyTorch version on the inputs
+16. serve — the HTTP serving layer (``serve.py``), for the users who serve
+   an in-memory index. On phase 2's index: (1) an ``IndexService`` with a
+   5 s window and ``max_batch`` 256 gets 256 requests (corpus rows of seed
+   49, the six alphas 0.5–0.95, k = 10) placed in its queue under its lock,
+   so the collector cuts them as one batch: one dispatch, kernel B and the
+   candidate stage launched once each, every answer bit for bit the direct
+   ``search_batch`` of the same rows and alpha vector; the same on
+   ``bf16x3_rescored`` and ``int8_rescored`` (D and E once each); each
+   tier twice, in turns, its dispatch and queue wait (``metrics()``) beside
+   the direct call's ms. (2) An
+   HTTP burst at the reference's defaults (2 ms window, ``max_batch``
+   256): 256 client threads POST 8 requests each over loopback, 2,048
+   corpus rows with the six alphas, three in four on the exact tier and
+   one in four on ``bf16x3_rescored``, 16 exact ones at k = 40 (kernel C).
+   Every status 200; each top-1 the query's own row or a score at least
+   its own blended score less 1e-5; each answer the direct
+   ``search_batch`` of its query, alpha, tier and k under the same-k rule
+   (1e-5). The line carries wall seconds, requests/s, dispatches, batch
+   occupancy and ``metrics()``'s p50/p99 of latency, queue wait and
+   dispatch, the same for the traffic's first 512 requests from 16
+   clients (the same checks), and a ``torch.profiler`` pass over a second
+   burst of the whole traffic (device-busy ms, idle share, top kernels).
+   (3) The error paths over HTTP with the
+   reference's statuses and texts (wrong width, NaN, bad JSON, a null
+   alpha, an unknown tier, ``bf16_rescored`` → 400; a zero query → 422;
+   an unknown path → 404; a full queue on a ``max_queue_depth=1`` service,
+   its two dispatch slots held and one request queued under the lock →
+   429 with ``Retry-After: 1``). (4) Inside phase 12, on its index: 256
+   ``/search_energy`` requests from 32 clients on the full scan and with
+   ``energy_candidates="auto"``, each the direct ``search_energy_batch``
+   under the same-k rule at 1e-14, and 256 ``/search`` requests (B and the
+   candidate stage). (5) Inside phase 11, before its store goes: a
+   ``StreamingIndexService`` over the 10M index's sketch, 256 requests
+   refined and 256 sketch-only queued together, each bit for bit
+   ``search_batch_sketch`` (D and E once each). (6) Every service closed;
+   a request after ``close()`` raises.
+17. cli — ``python -m matternet_rs_tpu_torch`` in subprocesses (each run
+   through a runner that writes the process's launch counts at exit), for
+   the users who start the system from the shell: ``build`` of phase 2's
+   rows saved as ``.npy`` (250 clusters, radius 25; kernel A must launch),
+   ``info``, ``search`` of 4 rows (each its own top-1), and ``serve`` on a
+   free port: ``/health`` polled, then 16 POSTs each bit for bit the
+   in-process search of the same checkpoint loaded on the card; the
+   server is then terminated. Seconds of each process and the
+   checkpoint's bytes.
+18. models — the façades, for the users who fit a model: ``EigenIndex(eps=1.0,
+   k=6, max_clusters=250, radius=25.0).fit`` on phase 2's rows (kernel A
+   must launch; ``lambdas`` a host array of N finite values in [0, 1]),
+   ``query_batch`` of 256 rows on every servable tier (each query's own
+   row first, or a first at least as good within 1e-5); ``EnergyIndex``
+   at 200,000 × 128 (seed 43; 16 queries find their own rows); and
+   ``SurffaceModel`` on phase 15's fixture at cap 3,000 with MST k = 32.
+   Fit seconds and launches; the two cuts are listed in the line's
+   ``cut``.
+19. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -381,6 +436,32 @@ IVF_NPROBE, N_LAMBDA_QUERIES, BAND_WINDOW, RANGE_EPS = 8, 16, 4096, -0.1
 # 10,000, where every pair of feature profiles is too far apart for stage
 # C to keep an edge, and 3,000, where it keeps some.
 N_PIPELINE, PIPELINE_MST_K, PIPELINE_CAPS = 200_000, 32, (10_000, 3_000)
+# Phase serve: the alphas of its mixed traffic, each one-dispatch tier with
+# the kernels it must launch once, the HTTP burst (clients × requests
+# each, of which SERVE_K40 at k = 40), the energy step's clients.
+SEED_SERVE = 49
+SERVE_ALPHAS = (0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
+SERVE_ONE_DISPATCH = ((False, ("scores_tilemax", "subtile_topk")),
+                      ("bf16x3_rescored", ("tilemax_only", "slab_dots")),
+                      ("int8_rescored", ("tilemax_only", "slab_dots")))
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_K40, SERVE_ENERGY_CLIENTS = 256, 8, 16, 32
+SERVE_FEW_CLIENTS, SERVE_FEW_REQUESTS = 16, 512
+# Phase cli: the rows it builds (phase 2's; never cut below 200,000), the
+# build's clusters, the searched rows and the POSTs to the served index.
+N_CLI, CLI_CLUSTERS, CLI_QUERIES, CLI_POSTS = 1_000_000, 250, 4, 16
+# Phase models: every tier query_batch serves, and the EnergyIndex rows
+# (cut from the energy benchmark's 1M for the run's time limit).
+MODEL_TIERS = (False, True, "auto", "int8", "int8_rescored", "int8_auto", "bf16x3_rescored")
+N_MODELS_ENERGY = 200_000
+# The steps of phases serve and models whose kernel-D launches scan in each
+# mode (the burst's maxima-first requests are all bf16x3_rescored; "auto"
+# and "int8_auto" take int8 rows where they take the maxima-first scan).
+SERVE_D_STEPS = {"bf16x3_rescored": ("one_dispatch_bf16x3_rescored", "burst", "burst_few_clients",
+                                     "burst_profiled"),
+                 "int8_rescored": ("one_dispatch_int8_rescored",), "bf16_rescored": ()}
+MODELS_D_STEPS = {"bf16x3_rescored": ("query_batch_bf16x3_rescored",),
+                  "int8_rescored": ("query_batch_int8_rescored", "query_batch_int8_auto", "query_batch_auto"),
+                  "bf16_rescored": ()}
 
 
 def stream_disk_bytes(n: int) -> int:
@@ -511,7 +592,8 @@ def make_builder(n):
 def energy_phase(dev, card):
     """Phase 12, ``energy`` (module docstring). Returns the launches of
     energy-mode ``search_batch`` by tier, each counted from 0 just before
-    its batches and read just after."""
+    its batches and read just after, and those of phase 16's energy step
+    (:func:`serve_energy_step`, run here on this index)."""
     import importlib.util
     import tempfile
     from pathlib import Path
@@ -825,9 +907,10 @@ def energy_phase(dev, card):
                            full_scan_b8=timing(s_f8_ms),
                            auto_b8=dict(**timing(s_a8_ms), route=s_a8_route)),
          search_batch=tier_info, scan_profile=scan_profile, checkpoint=ckpt, store=store)
+    serve_counts = serve_energy_step(dev, card, aspace, gl, X)
     del aspace, gl, X
     torch.cuda.empty_cache()
-    return tier_counts
+    return tier_counts, serve_counts
 
 
 def _timed_call(fn):
@@ -1259,6 +1342,652 @@ def pipeline_phase(dev, card):
          config=f"PipelineConfig(clustering=ClusteringConfig(max_clusters=cap), "
                 f"mst=MSTConfig(k_neighbors={PIPELINE_MST_K})), the rest default",
          data_seconds=gen_s, default_k=default_k, runs=runs)
+
+
+def http_get(url, timeout=120):
+    """``(status, JSON body)`` of a GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_post(url, doc=None, raw=None, timeout=300):
+    """``(status, JSON body, headers)`` of a POST of ``doc`` (or the bytes
+    ``raw``)."""
+    import urllib.error
+    import urllib.request
+
+    body = raw if raw is not None else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def queued_together(svc, pendings, timeout=300):
+    """Place ``pendings`` in the service's queue under its lock, so the
+    collector cuts them together (a full ``max_batch``, or a backlog past
+    ``adaptive_min_backlog``), then wait for every answer."""
+    with svc._cv:
+        svc._queue.extend(pendings)
+        svc.queue_depth_peak = max(svc.queue_depth_peak, len(svc._queue))
+        svc._cv.notify_all()
+    for p in pendings:
+        check(p.done.wait(timeout), "serve: a queued request was never answered")
+    return pendings
+
+
+def results_of(pending):
+    """A request's answer as ``(ids [1, k], scores [1, k])`` arrays."""
+    import numpy as np
+
+    return (np.asarray([[r["index"] for r in pending.result]]),
+            np.asarray([[r["score"] for r in pending.result]], np.float32))
+
+
+def answers_bit_equal(pendings, idx, sc):
+    """Each request's ids and score bits equal the direct call's row."""
+    import numpy as np
+
+    for p, i, s in zip(pendings, idx, sc):
+        got_i, got_s = results_of(p)
+        if not (np.array_equal(got_i[0], i) and np.array_equal(got_s[0].view(np.int32), s.view(np.int32))):
+            return False
+    return True
+
+
+def http_burst(base, docs, clients, path="/search"):
+    """POST each of ``docs`` from ``clients`` threads (each its share, in
+    order): ``[(status, body)]`` in the order of ``docs`` and the wall
+    seconds."""
+    import threading
+
+    out = [None] * len(docs)
+    per = -(-len(docs) // clients)
+
+    def client(c):
+        for i in range(c * per, min(len(docs), (c + 1) * per)):
+            code, body, _ = http_post(base + path, docs[i])
+            out[i] = (code, body)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        check(not t.is_alive(), "serve: a client thread did not finish")
+    return out, time.perf_counter() - t0
+
+
+def blocked_dispatch(svc):
+    """Make the service's dispatches wait for the returned event; the list
+    counts the dispatches that reached the wait."""
+    import threading
+
+    release, entered = threading.Event(), []
+    run = svc._run_batch
+
+    def blocking(*a, **kw):
+        entered.append(1)
+        release.wait(600)
+        return run(*a, **kw)
+
+    svc._run_batch = blocking
+    return release, entered
+
+
+def wait_for(cond, what, timeout=120):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def serve_phase(dev, card, aspace, gl, X):
+    """Phase 16, ``serve`` (module docstring), steps 1–3 and 6, on phase 2's
+    index. Returns the launches of each step, each counted from 0 just
+    before it and read just after."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import serve as sv
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
+    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches
+
+    counts, services, servers = {}, [], []
+    rng = np.random.default_rng(SEED_SERVE)
+    rows = rng.choice(N_MAIN, BATCH, replace=False)
+    alphas = np.asarray([SERVE_ALPHAS[i % len(SERVE_ALPHAS)] for i in range(BATCH)], np.float32)
+    mn, rg = float(aspace.min_lambdas), float(aspace.range_lambdas)
+
+    def own_scores(rows_, alphas_):
+        """Each query's f32 blended score against its own row."""
+        _, _, raw = aspace.search_batch(X[rows_], gl, 1, alphas_, return_raw=True)
+        rt = torch.from_numpy(np.asarray(rows_)).to(dev)
+        ql = torch.clamp((torch.from_numpy(raw).to(dev) - mn) / rg, 0.0, 1.0)
+        Q = aspace.data[rt]
+        qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+        return blend(torch.sum(Q * Q, dim=-1), aspace.norms[rt] * qn, aspace.lambdas[rt], ql,
+                     torch.from_numpy(np.asarray(alphas_, np.float32)).to(dev)).cpu().numpy()
+
+    def start(svc):
+        services.append(svc)
+        srv = sv.serve(svc, port=0, block=False)
+        servers.append(srv)
+        return f"http://127.0.0.1:{srv.server_address[1]}"
+
+    try:
+        # -- 1. one dispatch for 256 mixed-alpha requests, by tier, in turns
+        # (each tier, then each again in reverse order), beside the direct
+        # search_batch of the same rows and alpha vector.
+        svc = sv.IndexService(aspace, gl, batch_window_ms=5000, max_batch=BATCH)
+        services.append(svc)
+        one = {str(t): dict(ms=[], dispatch_ms=[], queue_wait_ms=[], direct_ms=[], launches=[],
+                            bit_equal=True) for t, _ in SERVE_ONE_DISPATCH}
+        for tier, kern in list(SERVE_ONE_DISPATCH) + list(reversed(SERVE_ONE_DISPATCH)):
+            pend = [sv._Pending(svc._validate(X[r]), K, float(a), False, "blend", quantized=tier)
+                    for r, a in zip(rows, alphas)]
+            svc.reset_metrics()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            queued_together(svc, pend)
+            ms = (time.perf_counter() - t0) * 1e3
+            c = kernels.launch_counts()
+            key = f"one_dispatch_{tier or 'exact'}"
+            counts[key] = {k: v + counts.get(key, {}).get(k, 0) for k, v in c.items()}
+            m = svc.metrics()
+            errors = [repr(p.error) for p in pend if p.error is not None]
+            check(not errors, f"serve {tier}: {errors[:2]}")
+            (idx, sc), direct_s = _timed_call(lambda: aspace.search_batch(X[rows], gl, K, alphas,
+                                                                          quantized=tier))
+            same = answers_bit_equal(pend, idx, sc)
+            rec = one[str(tier)]
+            rec["ms"].append(ms)
+            rec["dispatch_ms"].append(m["dispatch_p50_ms"])
+            rec["queue_wait_ms"].append(m["queue_wait_p50_ms"])
+            rec["direct_ms"].append(direct_s * 1e3)
+            rec["launches"].append({k: v for k, v in c.items() if v})
+            rec["bit_equal"] &= same
+            check(svc.n_batches == 1, f"serve {tier}: {svc.n_batches} dispatches for one queue fill")
+            check(all(c[k] == 1 for k in kern), f"serve {tier}: launches {c}, want each of {kern} once")
+            check(same, f"serve {tier}: answers differ from the direct search_batch")
+
+        # -- 2. an HTTP burst at the reference's defaults -----------------
+        burst_svc = sv.IndexService(aspace, gl)
+        base = start(burst_svc)
+        n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
+        brows = rng.choice(N_MAIN, n_req, replace=False)
+        tiers = [("bf16x3_rescored" if i % 4 == 3 else False) for i in range(n_req)]
+        ks = [K_CHAIN if i % (n_req // SERVE_K40) == 0 else K for i in range(n_req)]
+        balphas = [SERVE_ALPHAS[i % len(SERVE_ALPHAS)] for i in range(n_req)]
+        docs = [{"query": X[r].tolist(), "k": k, "alpha": a, "quantized": t}
+                for r, k, a, t in zip(brows, ks, balphas, tiers)]
+        # Each request's direct search_batch (at its tier, k and alpha, in
+        # batches of 256) and its own row's blended score.
+        direct = [None] * n_req
+        groups = {}
+        for i, (t, k) in enumerate(zip(tiers, ks)):
+            groups.setdefault((t, k), []).append(i)
+        for (t, k), members in groups.items():
+            for s0 in range(0, len(members), BATCH):
+                part = members[s0:s0 + BATCH]
+                idx, sc = aspace.search_batch(X[brows[part]], gl, k,
+                                              np.asarray([balphas[i] for i in part], np.float32),
+                                              quantized=t)
+                for j, i in enumerate(part):
+                    direct[i] = (idx[j:j + 1], sc[j:j + 1])
+        own = own_scores(brows, np.asarray(balphas, np.float32))
+
+        def verify(answers, what):
+            """Every status 200; each top-1 the own row or a score at least
+            its own less 1e-5; each answer the direct one under the same-k
+            rule."""
+            codes = [code for code, _ in answers]
+            check(all(code == 200 for code in codes),
+                  f"serve {what}: statuses {sorted(set(codes))}: {[b for c, b in answers if c != 200][:2]}")
+            bad_top, bad_direct = [], []
+            for i, (_, body) in enumerate(answers):
+                res = body["results"]
+                gi = np.asarray([[r["index"] for r in res]])
+                gs = np.asarray([[r["score"] for r in res]], np.float32)
+                if gi[0, 0] != brows[i] and gs[0, 0] < own[i] - TOL_SCORE:
+                    bad_top.append(int(brows[i]))
+                bad_direct += same_k_mismatches(*direct[i], gi, gs, TOL_SCORE)
+            check(not bad_top, f"serve {what}: {len(bad_top)} top-1 neither the own row nor its score")
+            check(not bad_direct, f"serve {what}: answers vs direct search_batch: {bad_direct[:3]}")
+
+        def burst_metrics(svc_, answers, wall):
+            m = svc_.metrics()
+            return dict(requests=len(answers), wall_seconds=wall, requests_per_s=len(answers) / wall,
+                        batches_dispatched=svc_.n_batches,
+                        **{k: m.get(k) for k in ("batch_occupancy", "latency_p50_ms", "latency_p99_ms",
+                                                 "queue_wait_p50_ms", "queue_wait_p99_ms",
+                                                 "dispatch_p50_ms", "dispatch_p99_ms", "latency_window",
+                                                 "queue_depth_peak")})
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        burst_svc.reset_metrics()
+        answers, wall = http_burst(base, docs, SERVE_CLIENTS)
+        c_burst = counts["burst"] = kernels.launch_counts()
+        burst = burst_metrics(burst_svc, answers, wall)
+        verify(answers, "burst")
+        for kname in ("scores_tilemax", "subtile_topk", "gather_subtiles", "tilemax_only", "slab_dots"):
+            check(c_burst[kname] > 0, f"serve burst: kernel {kname} not launched")
+        # The same traffic's first SERVE_FEW_REQUESTS from SERVE_FEW_CLIENTS
+        # threads: fewer Python threads in the process.
+        burst_svc.reset_metrics()
+        kernels.reset_launches()
+        few_answers, few_wall = http_burst(base, docs[:SERVE_FEW_REQUESTS], SERVE_FEW_CLIENTS)
+        counts["burst_few_clients"] = kernels.launch_counts()
+        few = dict(clients=SERVE_FEW_CLIENTS, **burst_metrics(burst_svc, few_answers, few_wall))
+        verify(few_answers, "few-client burst")
+        burst_svc.reset_metrics()
+        kernels.reset_launches()
+        profile_ = profiled(lambda _: http_burst(base, docs, SERVE_CLIENTS), [None])
+        counts["burst_profiled"] = kernels.launch_counts()
+        profile_["batches_dispatched"] = burst_svc.n_batches
+        profile_["metrics"] = burst_svc.metrics()
+
+        # -- 3. error paths over HTTP ----------------------------------
+        q0 = X[rows[0]].tolist()
+        nan_body = b'{"query": [NaN' + b", 1" * (F_MAIN - 1) + b"]}"
+        cases = [
+            ("wrong dimension", "/search", {"query": [1.0, 2.0]}, None, 400,
+             f"Query dimension 2 doesn't match index dimension {F_MAIN}"),
+            ("NaN", "/search", None, nan_body, 400, "query item has non-finite values"),
+            ("bad JSON", "/search", None, b'{"query": [1.0,', 400, "bad JSON body: "),
+            ("alpha null", "/search", {"query": q0, "alpha": None}, None, 400, "'alpha' must be a number"),
+            ("unknown tier", "/search", {"query": q0, "quantized": "int9"}, None, 400,
+             "unknown or unserved quantized tier 'int9'"),
+            ("bf16_rescored", "/search", {"query": q0, "quantized": "bf16_rescored"}, None, 400,
+             "unknown or unserved quantized tier 'bf16_rescored'"),
+            ("zero query", "/search", {"query": [0.0] * F_MAIN}, None, 422, "query raw λ is 0.0"),
+            ("unknown path", "/nope", {"query": q0}, None, 404, "unknown path /nope"),
+        ]
+        errors = {}
+        for name, path, doc, raw, want, text in cases:
+            code, body, _ = http_post(base + path, doc, raw)
+            errors[name] = dict(status=code, error=body.get("error", "")[:120])
+            check(code == want and body.get("error", "").startswith(text),
+                  f"serve {name}: {code} {body}, want {want} '{text}…'")
+        code, body = http_get(base + "/nope")
+        check(code == 404, f"serve GET /nope: {code}")
+        # 429: a max_queue_depth=1 service with both dispatch slots held and
+        # one request queued under the lock.
+        full_svc = sv.IndexService(aspace, gl, max_queue_depth=1, batch_window_ms=1.0)
+        release, entered = blocked_dispatch(full_svc)
+        full_base = start(full_svc)
+        held = [sv._Pending(full_svc._validate(X[r]), K, ALPHA, False, "blend") for r in rows[:3]]
+        try:
+            for i, p in enumerate(held[:2]):
+                with full_svc._cv:
+                    full_svc._queue.append(p)
+                    full_svc._cv.notify_all()
+                wait_for(lambda: len(entered) == i + 1, f"dispatch {i + 1} of the 429 check")
+            with full_svc._cv:
+                full_svc._queue.append(held[2])
+            code, body, headers = http_post(full_base + "/search", {"query": q0})
+        finally:
+            release.set()
+        for p in held:
+            check(p.done.wait(300) and p.error is None, f"serve 429: a held request failed: {p.error}")
+        errors["full queue"] = dict(status=code, error=body.get("error", ""),
+                                    retry_after=headers.get("Retry-After"))
+        check(code == 429 and headers.get("Retry-After") == "1"
+              and body.get("error") == "queue depth 1 at the admission bound (1); retry with backoff",
+              f"serve full queue: {code} {body} {headers.get('Retry-After')}")
+
+        # -- 6. close ------------------------------------------------------
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        servers.clear()
+        for s in services:
+            s.close()
+        closed = []
+        for s in services:
+            try:
+                s.search(X[rows[0]], k=K)
+                closed.append(False)
+            except RuntimeError as exc:
+                closed.append("closed" in str(exc))
+        check(all(closed), f"serve: a closed service answered: {closed}")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        for s in services:
+            s.close()
+
+    emit(phase="serve", step="in_memory", card=card, n=N_MAIN, f=F_MAIN, k=K, alphas=SERVE_ALPHAS,
+         one_dispatch=one,
+         burst=dict(clients=SERVE_CLIENTS, per_client=SERVE_PER_CLIENT,
+                    bf16x3_share=tiers.count("bf16x3_rescored") / n_req, k40_requests=ks.count(K_CHAIN),
+                    **burst, launches=c_burst, profile=profile_),
+         burst_few_clients=few, errors=errors, closed_services=len(services))
+    return counts
+
+
+def serve_energy_step(dev, card, aspace, gl, X):
+    """Phase 16's energy step, on phase 12's index: ``/search_energy`` on
+    the full scan and with ``energy_candidates="auto"``, and ``/search``
+    through kernel B and the candidate stage. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import energymaps as em
+    from matternet_rs_tpu_torch import serve as sv
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.utils.parity import ENERGY_TIE_TOL, same_k_mismatches
+
+    rows = np.random.default_rng(SEED_SERVE + 1).choice(len(X), BATCH, replace=False)
+    counts, out = {}, {}
+    for cand in (None, "auto"):
+        svc = sv.IndexService(aspace, gl, energy_candidates=cand)
+        srv = sv.serve(svc, port=0, block=False)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            docs = [{"query": X[r].tolist(), "k": K} for r in rows]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            answers, wall = http_burst(base, docs, SERVE_ENERGY_CLIENTS, path="/search_energy")
+            counts[f"search_energy_{cand}"] = kernels.launch_counts()
+            check(all(code == 200 for code, _ in answers), f"serve energy ({cand}): non-200 answers")
+            idx, dist = em.search_energy_batch(aspace, X[rows], gl, K, candidates=cand)
+            bad = []
+            for j, (_, body) in enumerate(answers):
+                gi = np.asarray([[r["index"] for r in body["results"]]])
+                gd = np.asarray([[r["distance"] for r in body["results"]]])
+                bad += same_k_mismatches(idx[j:j + 1], dist[j:j + 1], gi, gd, ENERGY_TIE_TOL)
+            out[f"search_energy_{cand}"] = dict(wall_seconds=wall, requests_per_s=len(docs) / wall,
+                                               batches=svc.n_batches, metrics=svc.metrics(),
+                                               mismatches=bad[:3])
+            check(not bad, f"serve energy ({cand}): vs search_energy_batch: {bad[:3]}")
+            if cand is None:
+                # /search on the energy index: kernel B and the candidate stage.
+                docs = [{"query": X[r].tolist(), "k": K, "alpha": ALPHA} for r in rows]
+                b0 = svc.n_batches
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                answers, wall = http_burst(base, docs, SERVE_ENERGY_CLIENTS)
+                c = counts["search"] = kernels.launch_counts()
+                check(all(code == 200 for code, _ in answers), "serve energy /search: non-200 answers")
+                idx, sc = aspace.search_batch(X[rows], gl, K, ALPHA)
+                bad = []
+                for j, (_, body) in enumerate(answers):
+                    gi = np.asarray([[r["index"] for r in body["results"]]])
+                    gs = np.asarray([[r["score"] for r in body["results"]]], np.float32)
+                    bad += same_k_mismatches(idx[j:j + 1], sc[j:j + 1], gi, gs, TOL_SCORE)
+                out["search"] = dict(wall_seconds=wall, batches=svc.n_batches - b0, launches=c,
+                                     mismatches=bad[:3])
+                check(not bad, f"serve energy /search: vs search_batch: {bad[:3]}")
+                for kname in ("scores_tilemax", "subtile_topk"):
+                    check(c[kname] > 0, f"serve energy /search: kernel {kname} not launched")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+    emit(phase="serve", step="energy", card=card, n=len(X), requests=BATCH,
+         clients=SERVE_ENERGY_CLIENTS, **out, launches=counts)
+    return counts
+
+
+def serve_streaming_step(dev, card, sidx, queries):
+    """Phase 16's streaming step, on phase 11's index: a
+    ``StreamingIndexService`` over its resident sketch, 256 requests
+    refined and 256 sketch-only, each placed in the queue together and
+    held bit for bit against ``search_batch_sketch``. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import serve as sv
+    from matternet_rs_tpu_torch.ops import kernels
+
+    alphas = np.asarray([SERVE_ALPHAS[i % len(SERVE_ALPHAS)] for i in range(BATCH)], np.float32)
+    t0 = time.perf_counter()
+    svc = sv.StreamingIndexService(sidx, batch_window_ms=5000, max_batch=BATCH)
+    start_s = time.perf_counter() - t0
+    counts, out = {}, {}
+    try:
+        for approx in (False, True):
+            mode = "sketch_only" if approx else "refined"
+            pend = [sv._Pending(svc._validate(q), K, float(a), approx, "blend")
+                    for q, a in zip(queries, alphas)]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            queued_together(svc, pend)
+            ms = (time.perf_counter() - t1) * 1e3
+            c = counts[mode] = kernels.launch_counts()
+            errors = [repr(p.error) for p in pend if p.error is not None]
+            check(not errors, f"serve streaming {mode}: {errors[:2]}")
+            idx, sc = sidx.search_batch_sketch(queries, K, alphas, refine=not approx)
+            same = answers_bit_equal(pend, idx, sc)
+            out[mode] = dict(ms=ms, launches=c, bit_equal=same)
+            check(same, f"serve streaming {mode}: answers differ from search_batch_sketch")
+            check(c["tilemax_only"] == 1 and c["slab_dots"] == 1,
+                  f"serve streaming {mode}: kernels D and E must launch once each: {c}")
+        info = svc.info()
+    finally:
+        svc.close()
+    emit(phase="serve", step="streaming", card=card, n=sidx.n_items, f=sidx.n_features,
+         requests=BATCH, service_start_seconds=start_s, info_keys=sorted(info), **out)
+    return counts
+
+
+# The CLI's runner: ``python -m matternet_rs_tpu_torch`` (the package's
+# ``__main__`` run as the main module) with its kernel launch counts
+# written to the file named by the first argument at exit, also when
+# stopped by SIGTERM.
+CLI_RUNNER = """\
+import atexit, json, runpy, signal, sys
+from matternet_rs_tpu_torch.ops import kernels
+out = sys.argv.pop(1)
+def dump():
+    with open(out, "w") as f:
+        json.dump(kernels.launch_counts(), f)
+atexit.register(dump)
+signal.signal(signal.SIGTERM, lambda *a: sys.exit(0))
+sys.argv[0] = "matternet_rs_tpu_torch"
+runpy.run_module("matternet_rs_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def cli_phase(dev, card, X):
+    """Phase 17, ``cli`` (module docstring), on phase 2's rows. Returns the
+    launches of each subcommand's process."""
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch.storage import parquet as pq
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    n_cli = N_CLI
+    cut = None if n_cli == len(X) else f"{n_cli:,} of {len(X):,} rows for the run's time limit"
+    counts, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mrs-cli-") as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "data.npy", X[:n_cli])
+        qrows = np.random.default_rng(SEED_SERVE + 2).choice(n_cli, CLI_QUERIES + CLI_POSTS, replace=False)
+        np.save(tmp / "q.npy", X[qrows[:CLI_QUERIES]])
+        idx_dir = tmp / "idx"
+
+        def run(name, args, timeout):
+            """One subcommand's process: its JSON output (``info`` prints the
+            metadata file, several lines; the others one line last)."""
+            cfile = tmp / f"{name}.counts.json"
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", CLI_RUNNER, str(cfile), *args], cwd=repo,
+                                 env=env, capture_output=True, text=True, timeout=timeout)
+            seconds[name] = time.perf_counter() - t0
+            check(out.returncode == 0, f"cli {name}: rc {out.returncode}: {out.stderr[-2000:]}")
+            counts[name] = json.loads(cfile.read_text())
+            return json.loads(out.stdout if name == "info" else out.stdout.strip().splitlines()[-1])
+
+        built = run("build", ["build", str(tmp / "data.npy"), "--out", str(idx_dir), "--name", "cli",
+                              "--max-clusters", str(CLI_CLUSTERS), "--radius", "25"], 900)
+        check(built["status"] == "built" and built["n_items"] == n_cli, f"cli build: {built}")
+        check(counts["build"]["taumode"] > 0, f"cli build: kernel A not launched: {counts['build']}")
+        ckpt_bytes = sum(p.stat().st_size for p in idx_dir.iterdir())
+        meta = run("info", ["info", str(idx_dir), "--name", "cli"], 300)
+        check(meta["arrowspace"]["nitems"] == n_cli, "cli info: wrong item count")
+        found = run("search", ["search", str(idx_dir), "--name", "cli", "--query", str(tmp / "q.npy"),
+                               "--k", str(K)], 600)
+        tops = [row[0]["index"] for row in found["results"]]
+        check(tops == qrows[:CLI_QUERIES].tolist(), f"cli search: top-1 {tops}, want {qrows[:CLI_QUERIES]}")
+
+        # serve: poll /health, POST, compare with the checkpoint searched here.
+        aspace_c, gl_c = pq.load_arrowspace(idx_dir, "cli")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cfile = tmp / "serve.counts.json"
+        t0 = time.perf_counter()
+        err_path = tmp / "serve.stderr"
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, str(cfile), "serve", str(idx_dir),
+                                     "--name", "cli", "--port", str(port)], cwd=repo, env=env,
+                                    stdout=subprocess.DEVNULL, stderr=err)
+        base = f"http://127.0.0.1:{port}"
+        try:
+            healthy = False
+            while not healthy:
+                check(proc.poll() is None, f"cli serve exited: {err_path.read_text()[-2000:]}")
+                check(time.perf_counter() - t0 < 600, "cli serve: no /health within 600 s")
+                try:
+                    healthy = http_get(base + "/health", timeout=5)[1]["status"] == "ok"
+                except OSError:
+                    time.sleep(0.2)
+            seconds["serve_ready"] = time.perf_counter() - t0
+            bad = []
+            for j, r in enumerate(qrows[CLI_QUERIES:]):
+                a = SERVE_ALPHAS[j % len(SERVE_ALPHAS)]
+                code, body, _ = http_post(base + "/search", {"query": X[r].tolist(), "k": K, "alpha": a})
+                ids, sc = aspace_c.search_batch(X[r], gl_c, K, np.float32([a]))
+                got = (np.asarray([x["index"] for x in body.get("results", [])]),
+                       np.asarray([x["score"] for x in body.get("results", [])], np.float32))
+                if code != 200 or not (np.array_equal(got[0], ids[0])
+                                       and np.array_equal(got[1].view(np.int32), sc[0].view(np.int32))):
+                    bad.append(int(r))
+            check(not bad, f"cli serve: answers differ from the in-process search for rows {bad}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        seconds["serve"] = time.perf_counter() - t0
+        counts["serve"] = json.loads(cfile.read_text())
+        del aspace_c, gl_c
+    torch.cuda.empty_cache()
+    emit(phase="cli", card=card, n=n_cli, f=X.shape[1], cut=cut, clusters=CLI_CLUSTERS,
+         seconds=seconds, checkpoint_bytes=ckpt_bytes, build=built, posts=CLI_POSTS,
+         queries=CLI_QUERIES, launches=counts)
+    return counts
+
+
+def models_phase(dev, card, X):
+    """Phase 18, ``models`` (module docstring). Returns the launches of
+    each step and, for kernels D and E, of each tier."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import pipeline
+    from matternet_rs_tpu_torch.models import EigenIndex, EnergyIndex, SurffaceModel
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset, make_gaussian_hd
+
+    counts, out = {}, {}
+
+    def fit(name, model, rows):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model.fit(rows)
+        torch.cuda.synchronize()
+        counts[name] = kernels.launch_counts()
+        return time.perf_counter() - t0
+
+    # EigenIndex at the headline size, every servable tier.
+    ei = EigenIndex(eps=1.0, k=6, max_clusters=250, radius=25.0)
+    eigen_s = fit("eigen_fit", ei, X)
+    lam = ei.lambdas
+    check(isinstance(lam, np.ndarray) and lam.shape == (len(X),) and np.all(np.isfinite(lam))
+          and lam.min() >= 0.0 and lam.max() <= 1.0, "models: EigenIndex.lambdas is not N values in [0, 1]")
+    check(counts["eigen_fit"]["taumode"] > 0, "models: EigenIndex.fit did not launch kernel A")
+    rows = np.random.default_rng(SEED_SERVE + 3).choice(len(X), BATCH, replace=False)
+    sp = ei.aspace
+    _, _, raw = sp.search_batch(X[rows], ei.gl, 1, ALPHA, return_raw=True)
+    rt = torch.from_numpy(rows).to(dev)
+    ql = torch.clamp((torch.from_numpy(raw).to(dev) - sp.min_lambdas) / sp.range_lambdas, 0.0, 1.0)
+    own = _blended(sp, sp.data[rt], ql, rt[:, None])[:, 0].cpu().numpy()
+    tiers = {}
+    for tier in MODEL_TIERS:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        idx, sc = ei.query_batch(X[rows], k=K, quantized=tier)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c = counts[f"query_batch_{tier}"] = kernels.launch_counts()
+        first = idx[:, 0] == rows
+        tied = ~first & (sc[:, 0] >= own - TOL_SCORE)
+        tiers[str(tier)] = dict(ms=ms, own_row_first=int(first.sum()), tied_first=int(tied.sum()),
+                                launches=c)
+        check(bool(np.all(first | tied)), f"models: query_batch({tier!r}): {int((~first & ~tied).sum())} "
+              "queries whose own row is not first (nor tied with the first)")
+    n_clusters = sp.n_clusters
+    del ei, sp
+
+    # EnergyIndex, cut to 200,000 rows.
+    Xe = make_energy_test_dataset(N_MODELS_ENERGY, F_MAIN, seed=SEED_ENERGY).astype(np.float32)
+    en = EnergyIndex(eps=1.0, k=6, max_clusters=max(64, int(2 * N_MODELS_ENERGY**0.5) // 8), radius=25.0)
+    energy_s = fit("energy_fit", en, Xe)
+    erows = rows[:N_ENERGY_SERIAL] % N_MODELS_ENERGY
+    hits = [int(r) in [i for i, _ in en.query(Xe[r], k=K)] for r in erows]
+    check(all(hits), f"models: EnergyIndex.query misses {hits.count(False)} own rows")
+    check(en.lambdas.shape == (N_MODELS_ENERGY,) and np.all(np.isfinite(en.lambdas)),
+          "models: EnergyIndex.lambdas")
+    del en, Xe
+
+    # SurffaceModel on phase pipeline's fixture at cap 3,000, MST k = 32.
+    Xp = make_gaussian_hd(N_PIPELINE, 0.3).astype(np.float32)
+    sm = SurffaceModel(config=pipeline.PipelineConfig(
+        clustering=pipeline.ClusteringConfig(max_clusters=PIPELINE_CAPS[1]),
+        mst=pipeline.MSTConfig(k_neighbors=PIPELINE_MST_K)))
+    surf_s = fit("surfface_fit", sm, Xp)
+    check(isinstance(sm.centroids, np.ndarray) and sm.centroids.shape[1] == Xp.shape[1]
+          and sm.lambdas.shape == (N_PIPELINE,) and np.all(np.isfinite(sm.lambdas)),
+          "models: SurffaceModel's centroids or λ")
+    out = dict(eigen=dict(n=len(X), fit_seconds=eigen_s, n_clusters=n_clusters, tiers=tiers),
+               energy=dict(n=N_MODELS_ENERGY, fit_seconds=energy_s, own_row_hits=sum(hits),
+                           queries=len(hits)),
+               surfface=dict(n=N_PIPELINE, cap=PIPELINE_CAPS[1], mst_k=PIPELINE_MST_K,
+                             fit_seconds=surf_s, centroids=int(sm.centroids.shape[0])))
+    del sm, Xp
+    torch.cuda.empty_cache()
+    emit(phase="models", card=card, **out, launches=counts,
+         cut=[f"EnergyIndex at {N_MODELS_ENERGY:,} of 1,000,000 rows",
+              f"SurffaceModel at {N_PIPELINE:,} rows, cap {PIPELINE_CAPS[1]:,}: the run's time limit"])
+    return counts
 
 
 def main() -> int:
@@ -2214,11 +2943,18 @@ def main() -> int:
         check(carry_equal, f"streaming: maxima-first refined ≠ carry refined (id overlap {carry_overlap})")
         check(not first_bad, f"streaming: exact scan vs in-memory tier: {first_bad[:3]}")
         check(reload_equal, "streaming: the reloaded index does not search bit for bit as before")
-        del sidx, X8s, mults_s, lams_s, valids_s, X8f, mult_f, lam_f, Qs, blk0
+        # Phase 16's streaming step on this index, before its store goes.
+        del X8s, mults_s, lams_s, valids_s, X8f, mult_f, lam_f
+        serve_stream_counts = serve_streaming_step(dev, card, sidx, shards.read_rows(sdir, srows[1]))
+        for row, kname in zip(sketch_rows, ("tilemax_only", "slab_dots")):
+            by_path = {"streaming": row["launches"],
+                       "serve": sum(c[kname] for c in serve_stream_counts.values())}
+            row.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        del sidx, Qs, blk0
         torch.cuda.empty_cache()
 
     # -- 12. energy: the energy pipeline at the reference benchmark's size --
-    energy_counts = energy_phase(dev, card)
+    energy_counts, serve_energy_counts = energy_phase(dev, card)
     path_counts["energy"] = {k: sum(c[k] for c in energy_counts.values()) for k in kernels.LAUNCHES}
 
     # -- 13–15. items, lambda_search, pipeline ---------------------------
@@ -2229,7 +2965,20 @@ def main() -> int:
     pipeline_phase(dev, card)
     torch.cuda.empty_cache()
 
-    # -- 16. kernels against their plain versions -----------------------
+    # -- 16–18. serve, cli, models -----------------------------------------
+    serve_counts = serve_phase(dev, card, aspace, gl, X)
+    cli_counts = cli_phase(dev, card, X)
+    models_counts = models_phase(dev, card, X)
+
+    def summed(*groups):
+        return {k: sum(c[k] for g in groups for c in g.values()) for k in kernels.LAUNCHES}
+
+    path_counts["serve"] = summed(serve_counts, serve_energy_counts, serve_stream_counts)
+    path_counts["cli"] = summed(cli_counts)
+    path_counts["models"] = summed(models_counts)
+    torch.cuda.empty_cache()
+
+    # -- 19. kernels against their plain versions -----------------------
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
@@ -2329,11 +3078,12 @@ def main() -> int:
     sel = torch.sort(so.topk_stable(m_k, c)[1], dim=1).values
     err_c = float((tmk.gather_subtiles(s_k, sel, ts) - tmk.gather_subtiles_plain(s_k, sel, ts)).abs().max())
     gidx = sel[:, :, None].expand(BATCH, c, ts)
+    c_launches, c_by_path = launches_by_path("gather_subtiles", main_counts["gather_subtiles"])
     bms, by = bound(2 * 4 * BATCH * c * ts + 8 * BATCH * c, 0)
     rows_out.append(dict(
         name="gather_subtiles", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
         replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
-        launches=main_counts["gather_subtiles"], max_abs_err=err_c,
+        launches=c_launches, launches_by_path=c_by_path, max_abs_err=err_c,
         ms=cuda_ms(lambda: tmk.gather_subtiles(s_k, sel, ts), reps=20),
         plain_ms=cuda_ms(lambda: tmk.gather_subtiles_plain(s_k, sel, ts), reps=20),
         bound_ms=bms, bound_by=by,
@@ -2409,7 +3159,9 @@ def main() -> int:
                         + 4 * BATCH * ns_r, passes * 2 * BATCH * n0 * F_MAIN, PEAK_BF16_FLOP_S)
         d_by_path = {"rescored": tier_counts[tier]["tilemax_only"],
                      "energy": energy_counts.get(tier, {}).get("tilemax_only", 0),
-                     "items": items_counts.get(tier, {}).get("tilemax_only", 0)}
+                     "items": items_counts.get(tier, {}).get("tilemax_only", 0),
+                     "serve": sum(serve_counts[s]["tilemax_only"] for s in SERVE_D_STEPS[tier]),
+                     "models": sum(models_counts[s]["tilemax_only"] for s in MODELS_D_STEPS[tier])}
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
@@ -2438,7 +3190,9 @@ def main() -> int:
     # and so is it timed here.
     e_by_path = {"rescored": sum(tier_counts[t]["slab_dots"] for t in scan_of),
                  "energy": energy_counts["bf16x3_rescored"]["slab_dots"],
-                 "items": path_counts["items"]["slab_dots"]}
+                 "items": path_counts["items"]["slab_dots"],
+                 "serve": sum(c["slab_dots"] for c in serve_counts.values()),
+                 "models": path_counts["models"]["slab_dots"]}
     e_launches = sum(e_by_path.values())
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)

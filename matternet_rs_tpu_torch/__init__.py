@@ -15,7 +15,9 @@ their direct build, sparse λ beyond 2048 features, the LOBPCG
 eigensolver); the energy pipeline and energy-mode search
 (:mod:`.energymaps`), motifs, subgraphs and sparsification; item
 mutation and append, the λ-band, hybrid, sorted, range and IVF searches
-(:mod:`.index.ivf`); the staged pipeline (:mod:`.pipeline`); and a
+(:mod:`.index.ivf`); the staged pipeline (:mod:`.pipeline`); the HTTP
+serving layer (:mod:`.serve`), the command line (``python -m
+matternet_rs_tpu_torch``) and the model façades (:mod:`.models`); and a
 hand-written CUDA kernel for every TPU kernel of the reference — the
 taumode λ, the fused score + sub-tile maxima producer, the sub-tile gather,
 the maxima-first scan, the slab rescore, the ELL sparse product and the

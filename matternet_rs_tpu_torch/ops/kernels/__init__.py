@@ -2,23 +2,36 @@
 
 Each wrapper computes with its plain version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts
-kernel launches per kernel, incremented where each kernel is launched and
-nowhere else, so a run can show its path went through the kernels.
+kernel launches per kernel: each wrapper calls :func:`count` where it
+launches its kernel and nowhere else, so a run can show its path went
+through the kernels. The count is taken under one lock, because serving
+launches kernels from two dispatch threads at once.
 """
 
 from __future__ import annotations
+
+import threading
 
 LAUNCHES: dict[str, int] = {
     "taumode": 0, "scores_tilemax": 0, "gather_subtiles": 0, "subtile_topk": 0,
     "tilemax_only": 0, "slab_dots": 0,
     "spmv_ell": 0, "search_fused": 0, "search_fused_merge": 0,
 }
+_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _LOCK:
+        return dict(LAUNCHES)

@@ -173,7 +173,7 @@ def _tilemax_only_launch(ops: dict):
         out.data_ptr(), _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "tilemax_only kernel")
-    kernels.LAUNCHES["tilemax_only"] += 1
+    kernels.count("tilemax_only")
     return out
 
 
@@ -275,7 +275,7 @@ def _slab_dots_launch(X, queries, sel, ts: int, out, design: str | None = None) 
         _cuda.stream_ptr(out.device),
     )
     _cuda.check(lib, rc, "slab_dots kernel")
-    kernels.LAUNCHES["slab_dots"] += 1
+    kernels.count("slab_dots")
 
 
 def slab_dots(X, queries, sel, ts: int, *, checked: bool = False):

@@ -119,7 +119,7 @@ def scan_partials(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits: int)
         vals.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "search_fused scan kernel")
-    kernels.LAUNCHES["search_fused"] += 1
+    kernels.count("search_fused")
     return vals, ids
 
 
@@ -169,7 +169,7 @@ def _merge_launch(lib, vals, ids, k: int, out_v, out_i, dev):
         _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "search_fused merge kernel")
-    kernels.LAUNCHES["search_fused_merge"] += 1
+    kernels.count("search_fused_merge")
     return out_i, out_v
 
 

@@ -109,7 +109,7 @@ def _spmv_ell_launch(indices, weights, X, d, out) -> None:
         _cuda.stream_ptr(out.device),
     )
     _cuda.check(lib, rc, "spmv_ell kernel")
-    kernels.LAUNCHES["spmv_ell"] += 1
+    kernels.count("spmv_ell")
 
 
 def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):

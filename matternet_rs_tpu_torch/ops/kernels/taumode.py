@@ -274,7 +274,7 @@ def _launch(lib, lam: torch.Tensor, args) -> torch.Tensor:
         None if tickets is None else tickets.data_ptr(), n, f, splits, _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "taumode kernel")
-    kernels.LAUNCHES["taumode"] += 1
+    kernels.count("taumode")
     return lam
 
 

@@ -140,7 +140,7 @@ def scores_and_tilemax(X, norms, lambdas, queries, query_lambdas, alphas,
         scores.data_ptr(), submax.data_ptr(), _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "scores_and_tilemax kernel")
-    kernels.LAUNCHES["scores_tilemax"] += 1
+    kernels.count("scores_tilemax")
     return scores, submax
 
 
@@ -173,7 +173,7 @@ def gather_subtiles(scores, sel, ts: int):
         _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "gather_subtiles kernel")
-    kernels.LAUNCHES["gather_subtiles"] += 1
+    kernels.count("gather_subtiles")
     return out
 
 
@@ -242,5 +242,5 @@ def select_topk(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
         b, ns, nr, c, kk, top.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev),
     )
     _cuda.check(lib, rc, "subtile_topk kernel")
-    kernels.LAUNCHES["subtile_topk"] += 1
+    kernels.count("subtile_topk")
     return top, idx

@@ -65,15 +65,15 @@ def build(rows, config: Optional[PipelineConfig] = None, mesh=None,
           device=None) -> PipelineResult:
     """Run the whole pipeline on ``[N, F]`` rows. ``mesh`` (the reference
     shards stage D over a device mesh) raises ``NotImplementedError``
-    until ``parallel/`` is ported (ROADMAP Queue 1 item 5).
+    until ``parallel/`` is ported (``backend.PARALLEL_PENDING``).
 
     As in the reference, an MST that does not reach every centroid leaves
     the traversal order short of C, and mapping the items' centroids
     through it raises ``IndexError``."""
     if mesh is not None:
         raise NotImplementedError(
-            "pipeline.build(mesh=...) shards stage D over a device mesh, which waits for "
-            "the port of parallel/ (ROADMAP Queue 1 item 5)"
+            f"pipeline.build(mesh=...) shards stage D over a device mesh, which "
+            f"{backend.PARALLEL_PENDING}"
         )
     cfg = config or PipelineConfig()
     dev = backend.resolve_device(device)

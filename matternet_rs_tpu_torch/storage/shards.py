@@ -6,7 +6,7 @@ whatever N is. The files are byte for byte the reference's for the same
 input, and each package reads the other's store.
 
 The mesh-sharded assembly and the distributed build from a store wait for
-the port of ``parallel/`` (ROADMAP.md Queue 1 item 8).
+the port of ``parallel/`` (``backend.PARALLEL_PENDING``).
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ from typing import Iterable
 
 import numpy as np
 
+from matternet_rs_tpu_torch.backend import PARALLEL_PENDING
+
 MANIFEST = "shards.json"
-DISTRIBUTED_PENDING = "the distributed build from a shard store waits for ROADMAP.md Queue 1 item 8"
+DISTRIBUTED_PENDING = f"the distributed build from a shard store {PARALLEL_PENDING}"
 
 
 def write_shards(blocks: Iterable[np.ndarray] | np.ndarray, directory,

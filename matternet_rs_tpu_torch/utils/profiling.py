@@ -1,7 +1,8 @@
 """Per-stage wall-clock timing with a device barrier (twin of the
-reference's ``StageTimer``): on a CUDA device each stage ends with
+reference's ``utils/profiling.py``): on a CUDA device each stage ends with
 ``torch.cuda.synchronize`` so the time covers the device work, not only
-its enqueue."""
+its enqueue. ``device_trace`` writes a ``torch.profiler`` trace where the
+reference writes a ``jax.profiler`` one."""
 
 from __future__ import annotations
 
@@ -92,3 +93,50 @@ class StageTimer:
         out = "\n".join(lines)
         log.info("\n%s", out)
         return out
+
+
+@contextlib.contextmanager
+def device_trace(log_dir) -> Iterator[None]:
+    """``torch.profiler`` trace of the block (CPU, and the card when there
+    is one), written under ``log_dir`` as a Chrome trace
+    (``trace.json``; open it in Perfetto or ``chrome://tracing``)."""
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = pathlib.Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def timed_block_until_ready(x, name: str = "op") -> float:
+    """Wait for ``x`` (a tensor, or a list, tuple or dict of them) and log
+    the wait: each CUDA tensor's device stream is synchronised, a CPU
+    tensor needs no wait. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    _wait_for(x)
+    dt = time.perf_counter() - t0
+    log.info("%s ready in %.3fs", name, dt)
+    return dt
+
+
+def lambda_statistics(lambdas) -> dict:
+    """λ distribution statistics (a tensor or an array), in float64."""
+    import numpy as np
+
+    if isinstance(lambdas, torch.Tensor):
+        lambdas = lambdas.detach().cpu().numpy()
+    lam = np.asarray(lambdas, np.float64)
+    return {
+        "min": float(lam.min()),
+        "max": float(lam.max()),
+        "mean": float(lam.mean()),
+        "std": float(lam.std()),
+        "range": float(lam.max() - lam.min()),
+        "count": int(lam.size),
+    }

@@ -576,7 +576,7 @@ def test_stage_c_graph_empties_as_centroids_grow(c, empty):
 
 
 def test_mesh_waits_for_the_parallel_port():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
         tp.build(np.ones((4, 3), np.float32), mesh=object(), device=CPU)
 
 

@@ -354,3 +354,86 @@ def test_load_arrowspace_and_projection_raise_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ImplicitProjection(8, 4, 1).matrix()
     assert tpq.load_arrowspace(tmp_path, "ck", device="cpu")[0].device.type == "cpu"
+
+
+# -- Serving, the CLI and the façades (and the launch counts they read).
+
+def test_launch_counts_are_exact_under_concurrent_launches():
+    """Eight threads count 10,000 launches each through ``kernels.count``
+    (the call every wrapper makes where it launches its kernel), with the
+    interpreter switching threads every microsecond: the total is exact."""
+    import sys
+    import threading
+
+    kernels.reset_launches()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [kernels.count("scores_tilemax")
+                                                    for _ in range(10_000)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    counts = kernels.launch_counts()
+    kernels.reset_launches()
+    assert counts == {k: (80_000 if k == "scores_tilemax" else 0) for k in kernels.LAUNCHES}
+
+
+def test_serving_entry_points_raise_without_cuda_and_without_cpu_request(tmp_path):
+    _no_cuda()
+    import subprocess
+    import sys
+
+    from matternet_rs_tpu_torch import pipeline as tp
+    from matternet_rs_tpu_torch.models import EigenIndex, EnergyIndex, SurffaceModel
+    from matternet_rs_tpu_torch.serve import IndexService, StreamingIndexService
+    from matternet_rs_tpu_torch.storage import parquet as tpq
+    from matternet_rs_tpu_torch.storage import shards as tshards
+    from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
+
+    X = make_energy_test_dataset(300, 8, seed=1).astype(np.float32)
+    b = ArrowSpaceBuilder(device="cpu").with_seed(3)
+    aspace, gl = b.build(X)
+    tpq.save_checkpoint(aspace, gl, b, tmp_path, "ck")
+    tshards.write_shards(X, tmp_path / "store")
+    for call in (lambda: IndexService.from_storage(tmp_path, "ck"),
+                 lambda: StreamingIndexService.from_store(tmp_path / "store"),
+                 lambda: EigenIndex().fit(X), lambda: EnergyIndex().fit(X),
+                 lambda: SurffaceModel(config=tp.PipelineConfig()).fit(X)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    np.save(tmp_path / "x.npy", X)
+    for argv in (["build", str(tmp_path / "x.npy"), "--out", str(tmp_path / "o")],
+                 ["search", str(tmp_path), "--name", "ck", "--query", str(tmp_path / "x.npy")]):
+        out = subprocess.run([sys.executable, "-m", "matternet_rs_tpu_torch", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and "device='cpu'" in out.stderr, argv
+
+
+@pytest.mark.parametrize("name", ["serve", "models", "models.families", "__main__",
+                                  "utils.fixtures", "utils.profiling"])
+def test_serving_era_modules_follow_the_reference_names(name):
+    """``serve``, ``models`` and the CLI are modules of the port under the
+    reference's names (no JAX: ``test_no_jax_and_no_reference_package_imports``
+    covers every file), and define every public class and function the
+    reference's define."""
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"matternet_rs_tpu.{name}")
+    port = importlib.import_module(f"matternet_rs_tpu_torch.{name}")
+    assert PORT_DIR / (name.replace(".", "/") + ".py") in PORT_FILES or \
+        PORT_DIR / name.replace(".", "/") / "__init__.py" in PORT_FILES
+
+    def public(mod):
+        return {n for n, v in vars(mod).items() if not n.startswith("_")
+                and (inspect.isfunction(v) or inspect.isclass(v))
+                and v.__module__ in (mod.__name__, mod.__name__ + ".families")}
+
+    assert public(ref) <= public(port), public(ref) - public(port)
+    assert getattr(ref, "__all__", None) == getattr(port, "__all__", None)

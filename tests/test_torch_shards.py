@@ -95,9 +95,9 @@ def test_write_rejects_bad_blocks(tmp_path):
 
 
 def test_distributed_half_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
         tshards.shard_items_from_store(None, "unused")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
         tshards.distributed_build_from_store("unused", None, 4)
 
 
