@@ -49,12 +49,14 @@ Phases, one output line each (JSON):
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
    phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
    searches), phase 11 (build and searches), each tier of phase 12, each
-   step of phase 13, phases 14 and 15, each step of phases 16–18, and read
+   step of phase 13, phases 14 and 15, each step of phases 16–19, and read
    just after each; every kernel of a path must have launched. The kernel
    rows of A, B, C and the candidate stage add the launches of phases 7–9,
-   11–14 and 16–18 to phase 2's (``launches_by_path``); those of D and E
-   add phases 12's, 13's, 16's and 18's to phase 3's, and the sketch rows
-   phase 16's streaming step to phase 11's.
+   11–14 and 16–19 to phase 2's (``launches_by_path``; kernel A's F = 768
+   launches of phase 19's store build go to its wide row); those of D and
+   E add phases 12's, 13's, 16's, 18's and 19's to phase 3's, and the
+   sketch rows phase 16's and 19's streaming steps to phase 11's; kernel
+   F's rows form (row ``spmv_ell (rows)``) has phase 19's launches.
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -272,7 +274,47 @@ Phases, one output line each (JSON):
    ``SurffaceModel`` on phase 15's fixture at cap 3,000 with MST k = 32.
    Fit seconds and launches; the two cuts are listed in the line's
    ``cut``.
-19. kernels — each kernel against its plain PyTorch version on the inputs
+19. mesh — the device-mesh layer (``parallel/``) with 4 slots placed on
+   the one card (the card listed four times: each slot launches the
+   kernels with its own rows and ``mask_from``) and with 1 slot. Inside
+   phase shards, on its 200,000 × 768 store: ``distributed_build_from_store``
+   over 4 slots (kernel A's F = 768 route per slot) and a 256-query search
+   (each query's own row first); then ``distributed.initialize`` with NCCL
+   at world size 1 and the same build and search on its 1-slot mesh,
+   every collective through ``torch.distributed``: λ and results equal.
+   Inside phase streaming, on its 10M × 96 index: ``ShardedSketch`` over 4
+   slots — the carry scan per slot (the auto route: 2.6M flat rows a slot,
+   under the 4M crossover), sketch-only and refined, bit for bit the
+   single-card carry scan; maxima-first forced per slot (D and E launch 4
+   times), recall@10 against the single-card maxima-first tier and the
+   carry scan (≥ 0.95 refined); ``hbm_bytes_per_device``; one request
+   through ``StreamingIndexService(mesh=...)``, the single-card carry
+   scan's answer.
+   After phase models, on phase 2's index: ``from_arrowspace`` at D = 1
+   and D = 4; the exact ``search_batch`` of phase 2's timed batches (k = 10,
+   α = 0.7) against phase 2's results, bit for bit where they are and
+   under the near-tie rule otherwise (the line says which), kernel B and
+   the candidate stage once a slot, kernel C once a slot at k = 40;
+   ``bf16x3_rescored`` and ``int8_rescored`` at D = 4 (D and E once a slot,
+   recall@10 against the exact ids); ms a batch of the single card, D = 1
+   and D = 4 in turns, with a ``torch.profiler`` pass of each; the merge's
+   own time; kernels B and D on the last slot's rows (the padding past its
+   ``mask_from``) against their plain versions; ``distributed_build`` from
+   4 host blocks of the 1M rows (serial centroids): λ against the
+   single-card index of the same rows and graph (1e-5·max(|λ|, 1)), Lloyd
+   timed apart; ``spectral_embedding``'s graph and solve at 100,000 × 128
+   over 4 slots with ``reverse_k="auto"`` (no dropped reverse edge; LOBPCG
+   residuals under 0.1 × the largest eigenvalue, the reference's bound at
+   16k nodes; kernel F's rows form once a slot per operator application,
+   bit for bit its plain version; the edge list's bytes and the assembly's
+   peak allocation); ``pipeline.build(mesh=...)`` at phase pipeline's size
+   (cap 3,000, MST k = 32): λ against stage D on one device from the same
+   Laplacian; the CLI's ``build-distributed`` and ``serve --streaming --mesh
+   1`` each in its own process (the served answer's top-1 the query's own
+   row), and ``serve --streaming --mesh 4`` on one card failing with the
+   reference's ``ValueError`` (skipped, and said so, with 4 cards or more). No multi-card collective is measured: the
+   machine has one card.
+20. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -1990,6 +2032,483 @@ def models_phase(dev, card, X):
     return counts
 
 
+MESH_SLOTS = 4                # slots placed on the one card (the card listed 4 times)
+MESH_SPECTRAL_N, MESH_SPECTRAL_K, MESH_LOBPCG_ITERS = 100_000, 8, 100
+MESH_LLOYD_ITERS = 10
+MESH_STORE_CLUSTERS = 111     # phase jl's build at 200,000 × 768 takes 111 clusters
+MESH_CLI_ROWS = 200_000       # the CLI's store: phase 2's first rows
+
+
+def _mesh(dev, d):
+    """``d`` slots on ``dev`` (the device listed ``d`` times)."""
+    from matternet_rs_tpu_torch.parallel import make_mesh
+
+    return make_mesh(d, devices=[dev] * d)
+
+
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: ``(output, seconds, counts)``."""
+    import torch
+
+    from matternet_rs_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, kernels.launch_counts()
+
+
+def _same_rows(ref_i, ref_s, got_i, got_s):
+    """``("bit-equal", [])`` when ids and score bits agree, else
+    ``("near-tie rule", failures)`` under the same-k rule at 1e-5."""
+    import numpy as np
+
+    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches
+
+    ref_s, got_s = np.asarray(ref_s, np.float32), np.asarray(got_s, np.float32)
+    if np.array_equal(ref_i, got_i) and np.array_equal(ref_s.view(np.int32), got_s.view(np.int32)):
+        return "bit-equal", []
+    return "near-tie rule", same_k_mismatches(ref_i, ref_s, got_i, got_s, TOL_SCORE)
+
+
+def _recall(got, ref):
+    import numpy as np
+
+    return float(np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(got.tolist(), ref.tolist())]))
+
+
+def mesh_store_step(dev, card, store, Xj, qrows):
+    """Phase mesh, the store build (inside phase shards, on its store)."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch.graph import GraphParams
+    from matternet_rs_tpu_torch.parallel import distributed, make_mesh
+    from matternet_rs_tpu_torch.storage import shards
+
+    params = GraphParams(eps=1.0, k=6, topk=6, sparsity_check=False)
+    kw = dict(k_clusters=MESH_STORE_CLUSTERS, radius=25.0)
+    counts, secs = {}, {}
+    sa, secs["store_build_d4"], counts["store_build_d4"] = _counted(
+        lambda: shards.distributed_build_from_store(store, params, mesh=_mesh(dev, MESH_SLOTS), **kw))
+    Q = Xj[qrows]
+    (ids4, sc4), secs["store_search_d4"], counts["store_search_d4"] = _counted(
+        lambda: sa.search_batch(Q, K))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = distributed.initialize(f"localhost:{port}", 1, 0)
+    try:
+        mesh1 = make_mesh(1)
+        backend = torch.distributed.get_backend()
+        check(mesh1.spans_processes and backend == "nccl", f"mesh: the group is {backend}")
+        sa1, secs["store_build_nccl"], counts["store_build_nccl"] = _counted(
+            lambda: shards.distributed_build_from_store(store, params, mesh=mesh1, **kw))
+        (ids1, sc1), secs["store_search_nccl"], counts["store_search_nccl"] = _counted(
+            lambda: sa1.search_batch(Q, K))
+        lam4, lam1 = sa.lambdas.gather()[:len(Xj)], sa1.lambdas.gather()[:len(Xj)]
+    finally:
+        distributed.shutdown()
+    lam_rel = float(((lam4 - lam1).abs() / torch.clamp(lam1.abs(), min=1.0)).max())
+    rule, bad = _same_rows(ids1, sc1, ids4, sc4)
+    self_found = float(np.mean(ids4[:, 0] == qrows))
+    out = dict(nccl=info, backend=backend, lambda_d4_vs_nccl_d1_max_rel=lam_rel,
+               lambda_bit_equal=bool(torch.equal(lam4, lam1)), results_d4_vs_nccl_d1=rule,
+               self_top1=self_found, n=sa.n_items, f=int(sa.X.shape[1]),
+               min_lambdas=sa.min_lambdas, range_lambdas=sa.range_lambdas)
+    check(lam_rel <= TOL_LAMBDA, f"mesh store: λ at D=4 vs the NCCL D=1 build {lam_rel}")
+    check(not bad, f"mesh store: D=4 vs NCCL D=1 results: {bad[:3]}")
+    check(self_found == 1.0, f"mesh store: top-1 is the query row for {self_found:.3f} of rows")
+    for step in ("store_build_d4", "store_build_nccl"):
+        check(counts[step]["taumode"] > 0, f"mesh {step}: kernel A not launched")
+    check(counts["store_search_d4"]["scores_tilemax"] == MESH_SLOTS,
+          f"mesh store search: kernel B launches {counts['store_search_d4']}")
+    emit(phase="mesh", step="store", card=card, slots=MESH_SLOTS, seconds=secs,
+         launches=counts, **out)
+    del sa, sa1
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_sketch_step(dev, card, sidx, Qs):
+    """Phase mesh, the sharded sketch (inside phase streaming, on its
+    index)."""
+    import torch
+
+    from matternet_rs_tpu_torch import serve as tsv
+    from matternet_rs_tpu_torch.parallel import ShardedSketch
+
+    counts, secs, out = {}, {}, {}
+    mesh = _mesh(dev, MESH_SLOTS)
+    sk, secs["place"], _ = _counted(lambda: ShardedSketch(sidx, mesh))
+    Q = Qs[1]
+
+    def single(maxfirst, refine):
+        sidx.sketch_maxfirst = maxfirst
+        try:
+            return sidx.search_batch_sketch(Q, K, alpha=ALPHA, refine=refine)
+        finally:
+            sidx.sketch_maxfirst = None
+
+    for refine in (False, True):
+        tag = "refined" if refine else "sketch_only"
+        sk.sketch_maxfirst = None
+        sk.search_batch(Qs[0], K, ALPHA, refine=refine)
+        (gi, gs), secs[f"carry_{tag}"], counts[f"carry_{tag}"] = _counted(
+            lambda: sk.search_batch(Q, K, ALPHA, refine=refine))
+        ri, rs = single(False, refine)
+        out[f"carry_{tag}_vs_single_card_carry"] = _same_rows(ri, rs, gi, gs)[0]
+        check(out[f"carry_{tag}_vs_single_card_carry"] == "bit-equal",
+              f"mesh sketch: the sharded carry scan ({tag}) is not the single card's bit for bit")
+        check(counts[f"carry_{tag}"]["tilemax_only"] == 0, "mesh sketch: the carry scan launched D")
+        sk.sketch_maxfirst = True
+        sk.search_batch(Qs[0], K, ALPHA, refine=refine)
+        (fi, _), secs[f"maxfirst_{tag}"], counts[f"maxfirst_{tag}"] = _counted(
+            lambda: sk.search_batch(Q, K, ALPHA, refine=refine))
+        mi, _ = single(None, refine)
+        out[f"maxfirst_{tag}_recall10_vs_single_card_maxfirst"] = _recall(fi, mi)
+        out[f"maxfirst_{tag}_recall10_vs_carry"] = _recall(fi, ri)
+        c = counts[f"maxfirst_{tag}"]
+        check(c["tilemax_only"] == MESH_SLOTS and c["slab_dots"] == MESH_SLOTS,
+              f"mesh sketch maxima-first ({tag}): D/E launches {c}")
+    out["hbm_bytes_per_device"] = sk.hbm_bytes_per_device
+    out["single_card_sketch_bytes"] = sum(t.numel() * t.element_size() for t in sidx._sketch)
+    check(out["maxfirst_refined_recall10_vs_carry"] >= 0.95,
+          f"mesh sketch: maxima-first refined recall {out['maxfirst_refined_recall10_vs_carry']}")
+    del sk
+    torch.cuda.empty_cache()
+    # One request through the service over the sharded sketch.
+    t0 = time.perf_counter()
+    svc = tsv.StreamingIndexService(sidx, mesh=mesh)
+    try:
+        secs["service_start"] = time.perf_counter() - t0
+        info = svc.info()
+        q = Q[3].cpu().numpy()
+        res, secs["served_request"], counts["served"] = _counted(lambda: svc.search(q, k=K))
+        sidx.sketch_maxfirst = False            # the sharded auto route: the carry scan
+        try:
+            ri, _ = sidx.search_batch_sketch(q[None], K, alpha=0.7)
+        finally:
+            sidx.sketch_maxfirst = None
+        check(info["mesh_devices"] == MESH_SLOTS and [r["index"] for r in res] == ri[0].tolist(),
+              f"mesh service: {info['mesh_devices']} slots, answer {[r['index'] for r in res]}")
+    finally:
+        svc.close()
+    emit(phase="mesh", step="sketch", card=card, n=sidx.n_items, f=sidx.n_features,
+         slots=MESH_SLOTS, seconds=secs, launches=counts, **out)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_phase(dev, card, aspace, gl, X, batches, results):
+    """Phase mesh (module docstring) on phase 2's index and rows. Returns
+    the launches of each step and the arguments of one slot's kernel-F
+    rows call (for the kernels line)."""
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import ArrowSpace, pipeline
+    from matternet_rs_tpu_torch import __main__ as cli
+    from matternet_rs_tpu_torch.graph import GraphParams
+    from matternet_rs_tpu_torch.ops import search as so
+    from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
+    from matternet_rs_tpu_torch.ops.kernels import spmv_ell as fk
+    from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
+    from matternet_rs_tpu_torch.parallel import knn_graph as kg
+    from matternet_rs_tpu_torch.parallel import make_mesh
+    from matternet_rs_tpu_torch.parallel.index import ShardedArrowSpace
+    from matternet_rs_tpu_torch.parallel.search import merge_topk
+    from matternet_rs_tpu_torch.pipeline import spectral
+    from matternet_rs_tpu_torch.storage import shards
+    from matternet_rs_tpu_torch.utils.fixtures import make_gaussian_hd
+
+    counts, secs, out = {}, {}, {}
+    n = aspace.nitems
+    meshes = {d: _mesh(dev, d) for d in (1, MESH_SLOTS)}
+    sas = {d: ShardedArrowSpace.from_arrowspace(aspace, gl, mesh=m) for d, m in meshes.items()}
+    sa4 = sas[MESH_SLOTS]
+
+    # 1. The exact tier at D = 1 and D = 4 against phase 2's results.
+    agree = {}
+    for d, sa in sas.items():
+        sa.search_batch(X[batches[0]], K, ALPHA)
+        agree[f"d{d}"] = []
+        for i, (r, idx, sc, _) in enumerate(results[1:], 1):
+            (gi, gs), _, c = _counted(lambda: sa.search_batch(X[r], K, ALPHA))
+            counts[f"exact_d{d}_batch{i}"] = c
+            rule, bad = _same_rows(idx, sc, gi, gs)
+            check(not bad, f"mesh exact D={d} batch {i}: {bad[:3]}")
+            check(c["scores_tilemax"] == d and c["subtile_topk"] == d and c["gather_subtiles"] == 0,
+                  f"mesh exact D={d}: launches {c}")
+            agree[f"d{d}"].append(rule)
+    out["exact_vs_single_card"] = agree
+    (_, _), _, counts["exact_k40"] = _counted(lambda: sa4.search_batch(X[batches[1]], K_CHAIN, ALPHA))
+    check(counts["exact_k40"]["gather_subtiles"] == MESH_SLOTS, f"mesh k=40: {counts['exact_k40']}")
+
+    # 2. The rescored tiers at D = 4: recall@10 against the exact ids.
+    out["recall10_vs_exact"] = {}
+    for tier in ("bf16x3_rescored", "int8_rescored"):
+        sa4.search_batch(X[batches[0]], K, ALPHA, quantized=tier)
+        rec = []
+        for i, (r, idx, _, _) in enumerate(results[1:], 1):
+            (gi, _), _, c = _counted(lambda: sa4.search_batch(X[r], K, ALPHA, quantized=tier))
+            counts[f"{tier}_d{MESH_SLOTS}_batch{i}"] = c
+            check(c["tilemax_only"] == MESH_SLOTS and c["slab_dots"] == MESH_SLOTS,
+                  f"mesh {tier}: launches {c}")
+            rec.append(_recall(gi, idx))
+        out["recall10_vs_exact"][tier] = float(np.mean(rec))
+    check(out["recall10_vs_exact"]["bf16x3_rescored"] >= MIN_RECALL_BF16X3,
+          f"mesh bf16x3_rescored recall {out['recall10_vs_exact']}")
+
+    # 3. ms a batch in turns (single card, D = 1, D = 4, then back), a
+    # profile of each route, and the merge's own time.
+    routes = {"single_card": lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA),
+              "d1": lambda r: sas[1].search_batch(X[r], K, ALPHA),
+              f"d{MESH_SLOTS}": lambda r: sa4.search_batch(X[r], K, ALPHA)}
+    ms = {k: [] for k in routes}
+    for name in list(routes) + list(reversed(routes)):
+        for r in batches[1:]:
+            _, s, _ = _counted(lambda: routes[name](r))
+            ms[name].append(s * 1e3)
+    out["ms_per_batch"] = {k: statistics.median(v) for k, v in ms.items()}
+    out["profile"] = {k: profiled(fn, batches[1:]) for k, fn in routes.items()}
+    s_m = torch.randn((BATCH, MESH_SLOTS * K), device=dev)
+    i_m = torch.randint(0, n, (BATCH, MESH_SLOTS * K), device=dev)
+    merge_ms = []
+    for _ in range(21):
+        st, en = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        st.record()
+        merge_topk(s_m, i_m, K)
+        en.record()
+        en.synchronize()
+        merge_ms.append(st.elapsed_time(en))
+    out["merge_ms"] = statistics.median(merge_ms[1:])
+
+    # Kernels B and D on the last slot's rows (the padding past mask_from)
+    # against their plain versions.
+    last = MESH_SLOTS - 1
+    Xl, nl, ll = (a.shards[last] for a in (sa4.X, sa4.norms, sa4.lambdas))
+    per = sa4.X.per
+    mf = n - last * per
+    Q = torch.from_numpy(X[batches[1]]).to(dev)
+    ql = sa4.prepare_query_lambdas_batch(Q)
+    al = torch.full((BATCH,), ALPHA, device=dev)
+    sk_, mk_ = tmk.scores_and_tilemax(Xl, nl, ll, Q, ql, al, mask_from=mf)
+    sp_, mp_ = tmk.scores_and_tilemax_plain(Xl, nl, ll, Q, ql, al, mask_from=mf)
+    fin = torch.isfinite(sp_)
+    X8, mult = (a.shards[last] for a in sa4._ensure_int8())
+    md = rsk.tilemax_only(X8, nl, ll, Q, ql, al, subs=so.RESCORE_SUBS, rn=mult, mask_from=mf)
+    mdp = rsk.tilemax_only_plain(X8, nl, ll, Q, ql, al, subs=so.RESCORE_SUBS, rn=mult, mask_from=mf)
+    fin_d = torch.isfinite(mdp)
+    out["slot_kernels"] = dict(
+        slot=last, rows=per, mask_from=mf,
+        scores_tilemax_max_abs_err=float((sk_[fin] - sp_[fin]).abs().max()),
+        scores_masked_alike=bool(torch.equal(torch.isfinite(sk_), fin)),
+        tilemax_only_int8_max_abs_err=float((md[fin_d] - mdp[fin_d]).abs().max()),
+        maxima_masked_alike=bool(torch.equal(torch.isfinite(md), fin_d)))
+    sk_chk = out["slot_kernels"]
+    check(sk_chk["scores_tilemax_max_abs_err"] <= TOL_SCORE and sk_chk["scores_masked_alike"]
+          and sk_chk["tilemax_only_int8_max_abs_err"] <= TOL_SCORE and sk_chk["maxima_masked_alike"],
+          f"mesh slot kernels: {sk_chk}")
+    del sk_, mk_, sp_, mp_, md, mdp, X8, mult
+
+    # 4. distributed_build from 4 host blocks (serial centroids): λ against
+    # the single-card index of the same rows and graph; Lloyd timed apart.
+    blocks = np.array_split(X, 4)
+    params = GraphParams(eps=1.0, k=6, topk=6, sparsity_check=False)
+    kw = dict(k_clusters=max(64, int(2 * n ** 0.5) // 8), radius=25.0)
+    sb, secs["distributed_build_serial"], counts["distributed_build_serial"] = _counted(
+        lambda: ShardedArrowSpace.distributed_build(blocks, params, mesh=meshes[MESH_SLOTS], **kw))
+    one = ArrowSpace.from_items(X, device=dev)
+    _, secs["single_card_lambda"], _ = _counted(lambda: one.compute_taumode(sb.gl))
+    lam_m, lam_1 = sb.lambdas.gather()[:n], one.lambdas
+    out["distributed_build"] = dict(
+        lambda_max_rel=float(((lam_m - lam_1).abs() / torch.clamp(lam_1.abs(), min=1.0)).max()),
+        lambda_bit_equal=bool(torch.equal(lam_m, lam_1)),
+        graph_equals_the_builders=bool(torch.equal(sb.gl.matrix, gl.matrix)),
+        stats_mesh=[sb.min_lambdas, sb.range_lambdas], stats_single=[one.min_lambdas,
+                                                                     one.range_lambdas])
+    check(out["distributed_build"]["lambda_max_rel"] <= TOL_LAMBDA,
+          f"mesh distributed_build: λ vs the single card {out['distributed_build']}")
+    check(counts["distributed_build_serial"]["taumode"] == MESH_SLOTS,
+          f"mesh distributed_build: kernel A launches {counts['distributed_build_serial']}")
+    del one, sb, lam_m, lam_1
+    _, secs["distributed_build_lloyd"], counts["distributed_build_lloyd"] = _counted(
+        lambda: ShardedArrowSpace.distributed_build(blocks, params, mesh=meshes[MESH_SLOTS],
+                                                    centroids="lloyd",
+                                                    lloyd_iters=MESH_LLOYD_ITERS, **kw))
+    del blocks
+    torch.cuda.empty_cache()
+
+    # 5. The spectral embedding at 100,000 × 128 over 4 slots.
+    ss = ShardedArrowSpace.from_shards([X[:MESH_SPECTRAL_N]], gl, mesh=meshes[MESH_SLOTS])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ell, secs["knn_ell"], counts["knn_ell"] = _counted(
+        lambda: kg.distributed_knn_ell_laplacian(ss.mesh, ss.X, ss.n_items, gl.graph_params,
+                                                 reverse_k="auto"))
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    (vals, _, res), secs["lobpcg"], counts["lobpcg"] = _counted(
+        lambda: kg.distributed_lobpcg(ss.mesh, ell, MESH_SPECTRAL_K, iters=MESH_LOBPCG_ITERS,
+                                      return_residuals=True))
+    scale = max(abs(float(vals[-1])), 1e-3)
+    # Every block the solver's matvec applies to slot 1's rows, from a
+    # second solve outside the timed and counted one, held bit for bit
+    # against the plain version on the same block.
+    per = ell.indices.per
+    applied, launch = [], fk.spmv_ell
+
+    def capturing(idx, w, Vl, d=None, row0=0, *, checked=False):
+        got = launch(idx, w, Vl, d, row0, checked=checked)
+        if row0 == per:
+            applied.append((Vl.clone(), got.clone()))
+        return got
+
+    fk.spmv_ell = capturing
+    try:
+        kg.distributed_lobpcg(ss.mesh, ell, MESH_SPECTRAL_K, iters=MESH_LOBPCG_ITERS)
+    finally:
+        fk.spmv_ell = launch
+    slot_ops = (ell.indices.shards[1], ell.weights.shards[1])
+    rows_unequal = [i for i, (Vb, got) in enumerate(applied) if not torch.equal(
+        got, fk.spmv_ell_plain(*slot_ops, Vb, ell.diag.shards[1], per))]
+    rows_args = slot_ops + (applied[len(applied) // 2][0], ell.diag.shards[1], per)
+    out["spectral"] = dict(
+        n=MESH_SPECTRAL_N, k=MESH_SPECTRAL_K, iters=MESH_LOBPCG_ITERS,
+        dropped_reverse_edges=ell.dropped_reverse_edges, ell_width=int(ell.indices.shape[1]),
+        edge_list_bytes=ell.edge_list_bytes, knn_ell_peak_bytes=int(peak),
+        eigenvalues=vals.tolist(), residuals=res.tolist(), residual_bound=0.1 * scale,
+        spmv_ell_rows_blocks=len(applied), spmv_ell_rows_unequal=rows_unequal[:5])
+    del applied
+    check(ell.dropped_reverse_edges == 0, "mesh spectral: reverse edges dropped under auto")
+    check(float(np.max(res)) < 0.1 * scale and bool(np.all(np.diff(vals) >= -1e-4)),
+          f"mesh spectral: residuals {res.tolist()} vs {0.1 * scale}, eigenvalues {vals.tolist()}")
+    check(out["spectral"]["spmv_ell_rows_blocks"] == MESH_LOBPCG_ITERS + 1 and not rows_unequal,
+          f"mesh spectral: kernel F rows vs plain on slot 1's LOBPCG blocks "
+          f"({len(rows_unequal)} unequal of {out['spectral']['spmv_ell_rows_blocks']})")
+    check(counts["lobpcg"]["spmv_ell"] == MESH_SLOTS * (MESH_LOBPCG_ITERS + 2),
+          f"mesh lobpcg: kernel F launches {counts['lobpcg']}")
+    del ss, ell
+    torch.cuda.empty_cache()
+
+    # 6. pipeline.build(mesh=...) at phase pipeline's size, cap 3,000, MST
+    # k = 32: λ against stage D on one device from the same Laplacian.
+    Xp = make_gaussian_hd(N_PIPELINE, 0.3).astype(np.float32)
+    cfg = pipeline.PipelineConfig(
+        clustering=pipeline.ClusteringConfig(max_clusters=PIPELINE_CAPS[1]),
+        mst=pipeline.MSTConfig(k_neighbors=PIPELINE_MST_K))
+    pres, secs["pipeline_d4"], counts["pipeline"] = _counted(
+        lambda: pipeline.build(Xp, cfg, mesh=meshes[MESH_SLOTS]))
+    check(pres.state.means.shape[1] == Xp.shape[1], "mesh pipeline: stage A projected the rows")
+    lam_one = spectral.compute_tau_mode(pres.laplacian, Xp, *Xp.shape)
+    out["pipeline"] = dict(
+        n=N_PIPELINE, cap=PIPELINE_CAPS[1], mst_k=PIPELINE_MST_K,
+        lambda_bit_equal=bool(np.array_equal(pres.lambdas, lam_one)),
+        lambda_max_rel=float(np.max(np.abs(pres.lambdas - lam_one) / np.maximum(np.abs(lam_one), 1.0))),
+        tau=pres.tau, stage_d_seconds=pres.timings["D:spectral"])
+    check(out["pipeline"]["lambda_max_rel"] <= TOL_LAMBDA, f"mesh pipeline: {out['pipeline']}")
+    del Xp, pres
+
+    # 7. The CLI, each subcommand in its own process: build-distributed on
+    # a store of phase 2's first rows, then serve --streaming --mesh 1 on
+    # the store it saved; --mesh 4 on one card must fail as the
+    # reference's make_mesh does.
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    with tempfile.TemporaryDirectory(prefix="mrs-mesh-cli-") as tmp:
+        tmp = Path(tmp)
+        shards.write_shards(X[:MESH_CLI_ROWS], tmp / "store", rows_per_shard=65_536)
+        qrow = int(batches[1][0]) % MESH_CLI_ROWS
+        np.save(tmp / "q.npy", X[qrow])
+        cfile = tmp / "bd.counts.json"
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", CLI_RUNNER, str(cfile), "build-distributed",
+                              str(tmp / "store"), "--n-devices", "1", "--k-clusters", "64",
+                              "--cluster-radius", "25", "--save-store", str(tmp / "saved"),
+                              "--query", str(tmp / "q.npy")],
+                             cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        secs["cli_build_distributed"] = time.perf_counter() - t0
+        check(run.returncode == 0, f"mesh cli build-distributed: {run.stderr[-2000:]}")
+        built = json.loads(run.stdout.strip().splitlines()[-1])
+        counts["cli_build_distributed"] = json.loads(cfile.read_text())
+        check(built["n_devices"] == 1 and built["query_top"][0]["index"] == qrow,
+              f"mesh cli build-distributed: {built}")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cfile = tmp / "serve.counts.json"
+        err_path = tmp / "serve.stderr"
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, str(cfile), "serve",
+                                     str(tmp / "saved"), "--streaming", "--mesh", "1", "--port",
+                                     str(port)], cwd=repo, env=env, stdout=subprocess.DEVNULL,
+                                    stderr=err)
+        base_url = f"http://127.0.0.1:{port}"
+        try:
+            healthy = False
+            while not healthy:
+                check(proc.poll() is None, f"mesh cli serve exited: {err_path.read_text()[-2000:]}")
+                check(time.perf_counter() - t0 < 300, "mesh cli serve: no /health within 300 s")
+                try:
+                    healthy = http_get(base_url + "/health", timeout=5)[1]["status"] == "ok"
+                except OSError:
+                    time.sleep(0.2)
+            secs["cli_serve_ready"] = time.perf_counter() - t0
+            code, body, _ = http_post(base_url + "/search", {"query": X[qrow].tolist(), "k": K})
+            check(code == 200 and body["results"][0]["index"] == qrow,
+                  f"mesh cli serve: {code} {str(body)[:300]}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        counts["cli_serve"] = json.loads(cfile.read_text())
+        # With MESH_SLOTS cards or more the mesh would build and serve()
+        # would block: the check runs only where it must fail.
+        n_cards = torch.cuda.device_count()
+        if n_cards < MESH_SLOTS:
+            try:
+                cli.main(["serve", str(tmp / "saved"), "--streaming", "--mesh", str(MESH_SLOTS)])
+                mesh4 = "no error"
+            except ValueError as e:
+                mesh4 = str(e)
+    check_name = f"serve --streaming --mesh {MESH_SLOTS} on {n_cards} card(s)"
+    if n_cards >= MESH_SLOTS:
+        print(json.dumps({"phase": "mesh", "check": check_name, "skipped": "enough cards"}),
+              flush=True)
+    else:
+        try:
+            make_mesh(MESH_SLOTS)
+            out["make_mesh4"] = "no error"
+        except ValueError as e:
+            out["make_mesh4"] = str(e)
+        out["cli_serve_mesh4_on_one_card"] = mesh4
+        want = f"requested {MESH_SLOTS} devices, only {n_cards} available"
+        print(json.dumps({"phase": "mesh", "check": check_name, "error": mesh4, "expected": want}),
+              flush=True)
+        check(mesh4 == want and out["make_mesh4"] == want,
+              f"mesh: --mesh {MESH_SLOTS} / make_mesh({MESH_SLOTS}) on {n_cards} card(s) gave "
+              f"{mesh4!r}, {out['make_mesh4']!r}")
+    del sas, sa4
+    torch.cuda.empty_cache()
+    emit(phase="mesh", step="index", card=card, n=n, f=X.shape[1], slots=MESH_SLOTS, seconds=secs,
+         launches={k: {n_: v for n_, v in c.items() if v} for k, c in counts.items()}, **out)
+    return counts, rows_args
+
+
 def main() -> int:
     import torch
 
@@ -2604,6 +3123,8 @@ def main() -> int:
         streamed_equal = bit_equal(torch.cat(parts), torch.from_numpy(Xj).to(dev))
         ids = jbatches[1]
         rows_equal = np.array_equal(shards.read_rows(tmp, ids), Xj[ids])
+        # Phase mesh's store build, on this store before it goes.
+        mesh_store_counts = mesh_store_step(dev, card, tmp, Xj, jbatches[1])
     nbytes = Xj.nbytes
     emit(phase="shards", card=card, n=N_JL, f=F_JL, rows_per_shard=SHARD_ROWS,
          block_rows=SHARD_BLOCK_ROWS, shard_rows=[sh["rows"] for sh in manifest["shards"]],
@@ -2946,9 +3467,12 @@ def main() -> int:
         # Phase 16's streaming step on this index, before its store goes.
         del X8s, mults_s, lams_s, valids_s, X8f, mult_f, lam_f
         serve_stream_counts = serve_streaming_step(dev, card, sidx, shards.read_rows(sdir, srows[1]))
+        # Phase mesh's sharded sketch, on this index before its store goes.
+        mesh_sketch_counts = mesh_sketch_step(dev, card, sidx, Qs)
         for row, kname in zip(sketch_rows, ("tilemax_only", "slab_dots")):
             by_path = {"streaming": row["launches"],
-                       "serve": sum(c[kname] for c in serve_stream_counts.values())}
+                       "serve": sum(c[kname] for c in serve_stream_counts.values()),
+                       "mesh": sum(c[kname] for c in mesh_sketch_counts.values())}
             row.update(launches=sum(by_path.values()), launches_by_path=by_path)
         del sidx, Qs, blk0
         torch.cuda.empty_cache()
@@ -2976,6 +3500,13 @@ def main() -> int:
     path_counts["serve"] = summed(serve_counts, serve_energy_counts, serve_stream_counts)
     path_counts["cli"] = summed(cli_counts)
     path_counts["models"] = summed(models_counts)
+    # -- mesh: the device-mesh layer (its store and sketch steps ran inside
+    # phases shards and streaming) ----------------------------------------
+    mesh_counts, mesh_rows_args = mesh_phase(dev, card, aspace, gl, X, batches, results)
+    # Kernel A's launches of the store build are F = 768's (the wide row);
+    # the sketch's D and E launches are the sketch rows'.
+    path_counts["mesh"] = summed(mesh_counts, mesh_store_counts)
+    path_counts["mesh"]["taumode"] -= summed(mesh_store_counts)["taumode"]
     torch.cuda.empty_cache()
 
     # -- 19. kernels against their plain versions -----------------------
@@ -3035,8 +3566,11 @@ def main() -> int:
     lam_row("taumode_lambda", "matternet_rs_tpu/ops/pallas/taumode_fused.py:79",
             Xt, gl.matrix.contiguous(), tau_launches)
     rows_out[-1]["launches_by_path"] = tau_by_path
+    wide_by_path = {"wide": wide_counts["taumode"],
+                    "mesh": summed(mesh_store_counts)["taumode"]}
     lam_row("taumode_lambda_wide_f", "matternet_rs_tpu/ops/pallas/taumode_fused.py:231",
-            waspace.data, wgl.matrix.contiguous(), wide_counts["taumode"])
+            waspace.data, wgl.matrix.contiguous(), sum(wide_by_path.values()))
+    rows_out[-1]["launches_by_path"] = wide_by_path
 
     r1, raw1 = results[1][0], results[1][3]
     Q = Xt[torch.from_numpy(r1).to(dev)].contiguous()
@@ -3161,7 +3695,9 @@ def main() -> int:
                      "energy": energy_counts.get(tier, {}).get("tilemax_only", 0),
                      "items": items_counts.get(tier, {}).get("tilemax_only", 0),
                      "serve": sum(serve_counts[s]["tilemax_only"] for s in SERVE_D_STEPS[tier]),
-                     "models": sum(models_counts[s]["tilemax_only"] for s in MODELS_D_STEPS[tier])}
+                     "models": sum(models_counts[s]["tilemax_only"] for s in MODELS_D_STEPS[tier]),
+                     "mesh": sum(c["tilemax_only"] for step, c in mesh_counts.items()
+                                 if step.startswith(f"{tier}_d"))}
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
@@ -3192,7 +3728,8 @@ def main() -> int:
                  "energy": energy_counts["bf16x3_rescored"]["slab_dots"],
                  "items": path_counts["items"]["slab_dots"],
                  "serve": sum(c["slab_dots"] for c in serve_counts.values()),
-                 "models": path_counts["models"]["slab_dots"]}
+                 "models": path_counts["models"]["slab_dots"],
+                 "mesh": path_counts["mesh"]["slab_dots"]}
     e_launches = sum(e_by_path.values())
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
@@ -3264,6 +3801,31 @@ def main() -> int:
         check(bit_equal(got, ref), f"{label}: kernel vs plain not bit for bit ({err_f})")
         record_resources(label, "spmv_ell", entry, fk.spmv_ell_plan(n_e, k_e, m),
                          fk.spmv_ell_plan_chosen(n_e, k_e, m))
+
+    # Kernel F's rows form on one mesh slot's rows of phase mesh's
+    # 100,000-row graph and one block its LOBPCG applied to them (the solve
+    # applies the form once a slot per product).
+    idx_r, w_r, V_r, d_r, row0_r = mesh_rows_args
+    got, ref = fk.spmv_ell(*mesh_rows_args, checked=True), fk.spmv_ell_plain(*mesh_rows_args)
+    live_r = int((w_r != 0).sum())
+    n_r, k_r = idx_r.shape
+    m_r = V_r.shape[1]
+    bms, by = bound(n_r * k_r * 8 + n_r * 4 + 2 * n_r * m_r * 4, 2 * live_r * m_r + 2 * n_r * m_r)
+    out_r = torch.empty((n_r, m_r), device=dev)
+    rows_out.append(dict(
+        name="spmv_ell (rows)", route="cuda", source="matternet_rs_tpu_torch/csrc/spmv_ell.cu",
+        replaces="matternet_rs_tpu/ops/pallas/spmv_ell.py:76", launches=path_counts["mesh"]["spmv_ell"],
+        launches_by_path={"mesh": path_counts["mesh"]["spmv_ell"]},
+        max_abs_err=float((got - ref).abs().max()),
+        ms=cuda_ms(lambda: fk.spmv_ell(*mesh_rows_args, checked=True), reps=20),
+        launch_ms=cuda_ms(lambda: fk._spmv_ell_launch(idx_r, w_r, V_r, d_r, out_r, row0_r), reps=20),
+        plain_ms=cuda_ms(lambda: fk.spmv_ell_plain(*mesh_rows_args), reps=5),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"rows={n_r} of {V_r.shape[0]} k={k_r} m={m_r} row0={row0_r} live_slots={live_r}",
+        library="none: torch.sparse.mm needs the slot's rows as a CSR matrix over all columns",
+    ))
+    check(bit_equal(got, ref), "spmv_ell (rows): kernel vs plain not bit for bit")
+    del mesh_rows_args, got, ref, V_r
 
     # L@V inside LOBPCG: every block the solver applies on the large graph,
     # held bit for bit against the plain version on the same block.

@@ -17,11 +17,14 @@ eigensolver); the energy pipeline and energy-mode search
 mutation and append, the λ-band, hybrid, sorted, range and IVF searches
 (:mod:`.index.ivf`); the staged pipeline (:mod:`.pipeline`); the HTTP
 serving layer (:mod:`.serve`), the command line (``python -m
-matternet_rs_tpu_torch``) and the model façades (:mod:`.models`); and a
+matternet_rs_tpu_torch``) and the model façades (:mod:`.models`); the
+device mesh (:mod:`.parallel`: sharded builds and searches, the sharded
+sketch, ring kNN and distributed LOBPCG, across processes through
+``torch.distributed``); and a
 hand-written CUDA kernel for every TPU kernel of the reference — the
 taumode λ, the fused score + sub-tile maxima producer, the sub-tile gather,
 the maxima-first scan, the slab rescore, the ELL sparse product and the
-streamed exact top-k (``csrc/``). ROADMAP.md lists the modules that wait.
+streamed exact top-k (``csrc/``).
 """
 
 from matternet_rs_tpu_torch.builder import ArrowSpaceBuilder

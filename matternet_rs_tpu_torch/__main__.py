@@ -14,9 +14,10 @@ Usage::
         [--device cpu]
 
 Every subcommand that builds or loads an index runs on the CUDA card
-unless ``--device cpu`` is given; without a card it fails. The
-mesh-sharded paths (``build-distributed``, ``serve --mesh D``) raise
-``NotImplementedError`` until ``parallel/`` is ported.
+unless ``--device cpu`` is given; without a card it fails. The mesh paths
+(``build-distributed --n-devices D``, ``serve --streaming --mesh D``) take
+D cards and fail with ``ValueError`` when fewer are visible; with
+``--device cpu`` all D slots run on the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +27,19 @@ import json
 
 import numpy as np
 
-from matternet_rs_tpu_torch.backend import PARALLEL_PENDING
+
+def _mesh(n: int | None, device):
+    """The subcommand's mesh: ``n`` cards (default every visible card), or
+    with ``--device cpu`` ``n`` slots on the CPU (default 1). Any CUDA
+    spelling takes ``n`` distinct cards and raises when fewer are visible."""
+    import torch
+
+    from matternet_rs_tpu_torch.parallel import make_mesh
+
+    if device is not None and torch.device(device).type == "cpu":
+        n = n or 1
+        return make_mesh(n, devices=[device] * n)
+    return make_mesh(n)
 
 
 def _load_matrix(path: str) -> np.ndarray:
@@ -117,13 +130,10 @@ def cmd_serve(args) -> None:
                 "indexes; the streaming sketch service has its own "
                 "candidate pool (see TUNING.md)"
             )
-        if getattr(args, "mesh", 0):
-            raise NotImplementedError(
-                f"serve --streaming --mesh {args.mesh} shards the sketch over a "
-                f"device mesh, which {PARALLEL_PENDING}"
-            )
+        mesh = _mesh(args.mesh, args.device) if getattr(args, "mesh", 0) else None
         service = StreamingIndexService.from_store(
-            args.index_dir, device=args.device, sketch=not args.no_sketch,
+            args.index_dir, device=args.device if mesh is None else mesh.lead,
+            sketch=not args.no_sketch, mesh=mesh,
             batch_window_ms=args.batch_window_ms, max_batch=args.max_batch,
         )
     else:
@@ -149,9 +159,34 @@ def cmd_shard_write(args) -> None:
 
 
 def cmd_build_distributed(args) -> None:
-    raise NotImplementedError(
-        f"build-distributed builds over a device mesh, which {PARALLEL_PENDING}"
+    from matternet_rs_tpu_torch.graph import GraphParams
+    from matternet_rs_tpu_torch.storage import shards as ss
+
+    params = GraphParams(
+        eps=args.eps, k=args.k, topk=min(args.k, 4), sparsity_check=False
     )
+    sa = ss.distributed_build_from_store(
+        args.store_dir, params, k_clusters=args.k_clusters,
+        mesh=_mesh(args.n_devices, args.device), lloyd_iters=args.lloyd_iters,
+        centroids=args.centroids, radius=args.cluster_radius,
+        centroid_sample=args.centroid_sample,
+    )
+    info = {
+        "status": "built",
+        "n_items": sa.n_items,
+        "n_devices": sa.mesh.size,
+        "lambda_range": sa.range_lambdas,
+    }
+    if args.save_store:
+        sa.to_store(args.save_store)
+        info["saved_store"] = str(args.save_store)
+    if args.query is not None:
+        q = _load_matrix(args.query).astype(np.float32)
+        q = q if q.ndim == 1 else q[0]
+        info["query_top"] = [
+            {"index": i, "score": round(s, 6)} for i, s in sa.search(q, k=args.topk)
+        ]
+    print(json.dumps(info))
 
 
 def cmd_build_streaming(args) -> None:
@@ -321,6 +356,7 @@ def main(argv=None) -> None:
              "resumable via load_from_store / StreamingIndex / "
              "search-streaming)",
     )
+    _device_option(pd)
     pd.set_defaults(fn=cmd_build_distributed)
 
     pbs = sub.add_parser(

@@ -20,10 +20,6 @@ log = logging.getLogger(__name__)
 
 T = TypeVar("T")
 
-# What every entry point that needs a device mesh raises with: the mesh
-# layer (the reference's ``parallel/``) is not ported yet.
-PARALLEL_PENDING = "waits for the port of parallel/ (the device-mesh layer)"
-
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → ``cuda`` (raises without a card); otherwise as given."""

@@ -1,6 +1,8 @@
 """State carried across: a built index, given as arrays, becomes the port's
-``(ArrowSpace, GraphLaplacian)`` on a chosen device. The graph comes as its
-dense matrix or, for an ELL-backed graph, as its three ELL arrays.
+``(ArrowSpace, GraphLaplacian)`` on a chosen device; a mesh index's padded
+arrays become a ``ShardedArrowSpace`` on a mesh, and a sharded sketch's
+buffers a ``ShardedSketch``. The graph comes as its dense matrix or, for
+an ELL-backed graph, as its three ELL arrays.
 
 The arrays may come from any build of the same model — in the tests, the
 JAX package's — so both packages can search one index. This module takes
@@ -117,3 +119,55 @@ def arrowspace_from_arrays(
     )
     gl.energy = sub_centroids is not None
     return aspace, gl
+
+
+def sharded_arrowspace_from_arrays(mesh, X, norms, lambdas, laplacian, *, n_items: int,
+                                   min_lambdas: float, range_lambdas: float,
+                                   mesh_shape: tuple | None = None,
+                                   graph_params: dict | None = None,
+                                   tau_mode: tuple[int, float] | TauMode = TauMode.median(),
+                                   projection: tuple[int, int, int] | None = None,
+                                   sub_centroids=None, subcentroid_lambdas=None):
+    """A mesh index, given as arrays, as the port's
+    :class:`..parallel.index.ShardedArrowSpace` on ``mesh``: ``X [N_pad,
+    F]``, ``norms`` and normalised ``lambdas [N_pad]`` are the whole padded
+    arrays (a sharded index's shards fetched and laid end to end in row
+    order), ``laplacian`` the graph as for :func:`graph_from_arrays`, the
+    λ stats as the index has them. ``mesh_shape``, when given, must be the
+    mesh's (the padding follows the slot count)."""
+    from matternet_rs_tpu_torch.parallel.index import ShardedArrowSpace
+    from matternet_rs_tpu_torch.parallel.mesh import shard_items
+
+    if mesh_shape is not None and tuple(mesh_shape) != tuple(mesh.devices.shape):
+        raise ValueError(f"mesh shape {tuple(mesh.devices.shape)} is not {tuple(mesh_shape)}")
+    X = np.array(X, np.float32)
+    if X.shape[0] % mesh.size:
+        raise ValueError(f"{X.shape[0]} rows do not split over {mesh.size} slots")
+    taumode = tau_mode if isinstance(tau_mode, TauMode) else TauMode(*tau_mode)
+    lead = mesh.lead
+    gl = graph_from_arrays(laplacian, graph_params=graph_params, nnodes=n_items, device=lead)
+    return ShardedArrowSpace(
+        mesh=mesh, X=shard_items(mesh, X), norms=shard_items(mesh, np.array(norms, np.float32)),
+        lambdas=shard_items(mesh, np.array(lambdas, np.float32)), gl=gl, n_items=int(n_items),
+        taumode=taumode, min_lambdas=float(min_lambdas), range_lambdas=float(range_lambdas),
+        projection=None if projection is None else ImplicitProjection(*(int(v) for v in projection)),
+        sub_centroids=None if sub_centroids is None
+        else torch.from_numpy(np.array(sub_centroids, np.float32)).to(lead),
+        subcentroid_lambdas=None if subcentroid_lambdas is None else np.array(subcentroid_lambdas),
+    )
+
+
+def sharded_sketch_from_arrays(index, mesh, X8, mult, lambdas_normalized, valid,
+                               sketch_maxfirst: bool | None = None):
+    """A sharded sketch's stacked buffers (``X8 [nb_pad, blk, F]`` int8,
+    ``mult`` and normalised λ ``[nb_pad, blk]``, ``valid [nb_pad]``) as the
+    port's :class:`..parallel.sketch.ShardedSketch` over ``index`` (a
+    :class:`..index.streaming.StreamingIndex` of the same store) on
+    ``mesh``."""
+    from matternet_rs_tpu_torch.parallel.sketch import ShardedSketch
+
+    sk = ShardedSketch.__new__(ShardedSketch)
+    sk._place(index, mesh, np.array(X8, np.int8), np.array(mult, np.float32),
+              np.array(lambdas_normalized, np.float32), np.array(valid, np.int32),
+              sketch_maxfirst)
+    return sk

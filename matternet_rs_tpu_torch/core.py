@@ -62,9 +62,10 @@ def _normalize_lambdas(raw: torch.Tensor):
     return (raw - mn) / rng, stats
 
 
-def _routed_batched_search(X, norms, lams, Q, q_lams, k: int, alphas):
+def _routed_batched_search(X, norms, lams, Q, q_lams, k: int, alphas, mask_from=None):
     """Exact batched search: the tile-max selection from TILEMAX_MIN_N
-    rows, from FUSED_TILEMAX_MIN_N when the fused path applies, else flat."""
+    rows, from FUSED_TILEMAX_MIN_N when the fused path applies, else flat.
+    Rows ≥ ``mask_from`` (a mesh slot's padding) score -inf."""
     n = X.shape[0]
     tilemax_n = (
         search_ops.FUSED_TILEMAX_MIN_N
@@ -72,8 +73,9 @@ def _routed_batched_search(X, norms, lams, Q, q_lams, k: int, alphas):
         else TILEMAX_MIN_N
     )
     if n >= tilemax_n:
-        return search_ops.search_lambda_aware_tilemax(X, norms, lams, Q, q_lams, k, alphas)
-    return search_ops.search_lambda_aware(X, norms, lams, Q, q_lams, k, alphas)
+        return search_ops.search_lambda_aware_tilemax(X, norms, lams, Q, q_lams, k, alphas,
+                                                      mask_from=mask_from)
+    return search_ops.flat_topk(X, norms, lams, Q, q_lams, k, alphas, mask_from)
 
 
 def quantize_rows(X: torch.Tensor):
@@ -96,21 +98,26 @@ def quantize_rows(X: torch.Tensor):
     return q8, mult
 
 
-def _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k: int, cand: int):
+def _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k: int, cand: int,
+                         mask_from=None):
     """Shared tail of the pool-cut tiers: the top-``cand`` candidates of
     the scan ``scores [B, N]`` (tile-max pruned from ``TILEMAX_MIN_N``),
-    their f32 rows rescored at full f32, the top-``k`` of those."""
+    their f32 rows rescored at full f32, the top-``k`` of those. Rows ≥
+    ``mask_from`` score -inf in the scan and again after the rescore (an
+    exact rescore of a padded zero row is 0 + λ-sim)."""
+    scores = search_ops.mask_rows(scores, mask_from)
     if X.shape[0] >= TILEMAX_MIN_N:
         _, idx = search_ops.tilemax_topk(scores, cand)
     else:
         _, idx = search_ops.topk_stable(scores, cand)
     d2 = mm(X[idx], Q[:, :, None])[..., 0]                     # [B, cand]
     s2 = blend(d2, norms[idx] * qn[:, None], lams[idx], q_lams[:, None], alphas[:, None])
-    top, sel = search_ops.topk_stable(s2, k)
+    top, sel = search_ops.topk_stable(search_ops.mask_rows(s2, mask_from, idx), k)
     return torch.gather(idx, 1, sel), top
 
 
-def _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, k: int, cand: int, alphas):
+def _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, k: int, cand: int, alphas,
+                       mask_from=None):
     """Pool-cut int8 scan: one bf16 pass over the int8 sketch (a plain
     ``[B, N]`` product on the f32 widening), per-row dequant to cosine,
     top-``cand`` cut, exact rescore."""
@@ -120,33 +127,36 @@ def _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, k: int, cand: int, a
     lam_sim = 1.0 - torch.clamp(torch.abs(lams[None, :] - q_lams[:, None]), max=1.0)
     a = alphas[:, None]
     scores = a * cos + (1.0 - a) * lam_sim
-    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand)
+    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand, mask_from)
 
 
-def _poolcut_scan(dots, X, norms, lams, Q, q_lams, k: int, cand: int, alphas):
+def _poolcut_scan(dots, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, mask_from=None):
     """Pool-cut tail over scan ``dots [B, N]``: guarded cosine with the
     exact f32 norms, blend, top-``cand`` cut, exact rescore."""
     qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
     scores = blend(dots, norms[None, :] * qn[:, None], lams[None, :], q_lams[:, None],
                    alphas[:, None])
-    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand)
+    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand, mask_from)
 
 
-def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, scan_rn=None):
+def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, scan_rn=None,
+                   mask_from=None):
     """The maxima-first tiers: kernel D scans ``Xscan`` (the int8 sketch
     with ``scan_rn`` its dequant multiplier, the bf16 copy, or the f32
     corpus at bf16x3), kernel E rescores the selected slabs exactly. Off
     the envelope, the pool-cut scan at the same precision — except f32,
     whose fallback takes full-f32 dots (the reference's
-    ``Precision.HIGH`` is plain f32 off the TPU)."""
+    ``Precision.HIGH`` is plain f32 off the TPU). Rows ≥ ``mask_from``
+    score -inf."""
     n, f = Xscan.shape
     if search_ops.fused_rescored_path(n, f, Q.shape[0], min(k, n), cand):
         return search_ops.fused_scan_rescored(Xscan, X, norms, lams, Q, q_lams, k, cand,
-                                              alphas, scan_rn=scan_rn)
+                                              alphas, scan_rn=scan_rn, mask_from=mask_from)
     if Xscan.dtype == torch.int8:
-        return _int8_poolcut_scan(Xscan, scan_rn, X, norms, lams, Q, q_lams, k, cand, alphas)
+        return _int8_poolcut_scan(Xscan, scan_rn, X, norms, lams, Q, q_lams, k, cand, alphas,
+                                  mask_from)
     return _poolcut_scan(search_ops._scan_dots_batch(Xscan, Q), X, norms, lams, Q, q_lams,
-                         k, cand, alphas)
+                         k, cand, alphas, mask_from)
 
 
 def _alpha_vector(alpha, b_pad: int, device) -> torch.Tensor:

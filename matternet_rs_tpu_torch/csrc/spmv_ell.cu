@@ -11,6 +11,12 @@
 // the stored diagonal of L_sym); LOBPCG calls it once per iteration with
 // m = 3·(eigenpairs wanted).
 //
+// mrs_spmv_ell computes rows row0 .. row0 + n − 1 of an operator that may
+// be taller than the rows given: X is [nx, m], the slots name rows of X in
+// [0, nx), and the diagonal term reads X[row0 + i, :]. A mesh slot applies
+// its rows of the sharded Laplacian to the whole replicated block this way
+// (parallel/knn_graph.py); the square product is nx = n, row0 = 0.
+//
 //   What bounds it on the H100: bytes, and at the LOBPCG shape the latency
 //   of dependent loads. idx and w are read once (n·k·8), X once (n·m·4; a
 //   neighbour's row is read again by every row that names it, which hits
@@ -39,7 +45,7 @@
 //     fit one wave.
 //   * A slot with w == 0 never touches X (empty slots carry index −1, and
 //     0·inf must not enter the sum) and is skipped by a select on the
-//     accumulator. A live slot whose index lies outside [0, n) is never
+//     accumulator. A live slot whose index lies outside [0, nx) is never
 //     dereferenced either: it makes the row NaN (the wrapper rejects such a
 //     graph on the host before any launch).
 //   * The adds run in ascending s with a rounded multiply and a rounded add
@@ -86,7 +92,7 @@ template <int G, int CPT>
 __global__ void __launch_bounds__(THREADS)
 spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
                 const float* __restrict__ X, const float* __restrict__ d,
-                float* __restrict__ out, int64_t n, int k, int m) {
+                float* __restrict__ out, int64_t n, int k, int m, int64_t nx, int64_t row0) {
   constexpr int S = Chunk<CPT>::SLOTS;
   constexpr int PER = S > G ? S / G : 1;        // slots each lane of the group reads per chunk
   const int g = threadIdx.x & (G - 1);          // this lane's place in its group
@@ -121,7 +127,7 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
         const int jt = G == 1 ? il[t] : __shfl_sync(0xffffffffu, il[t / G], t % G, G);
         const bool live = wt != 0.f;
         live_bits |= (unsigned)live << t;
-        const bool inside = jt >= 0 && (int64_t)jt < n;
+        const bool inside = jt >= 0 && (int64_t)jt < nx;
         const float* xr = X + (int64_t)(inside ? jt : 0) * m;
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
@@ -147,7 +153,8 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
         const int col = c0 + c * G + g;
         if (col < m) {
           const int64_t o = row * m + col;
-          out[o] = d != nullptr ? __fsub_rn(__fmul_rn(dv, X[o]), acc[c]) : acc[c];
+          out[o] = d != nullptr ? __fsub_rn(__fmul_rn(dv, X[(row0 + row) * m + col]), acc[c])
+                                : acc[c];
         }
       }
     }
@@ -156,8 +163,9 @@ spmv_ell_kernel(const int* __restrict__ idx, const float* __restrict__ w,
 
 template <int G, int CPT>
 int launch(const Plan& p, const int* idx, const float* w, const float* X, const float* d,
-           float* out, int64_t n, int k, int m, cudaStream_t st) {
-  spmv_ell_kernel<G, CPT><<<(unsigned)p.blocks, THREADS, 0, st>>>(idx, w, X, d, out, n, k, m);
+           float* out, int64_t n, int k, int m, int64_t nx, int64_t row0, cudaStream_t st) {
+  spmv_ell_kernel<G, CPT><<<(unsigned)p.blocks, THREADS, 0, st>>>(idx, w, X, d, out, n, k, m,
+                                                                  nx, row0);
   return (int)cudaGetLastError();
 }
 
@@ -181,23 +189,25 @@ int mrs_spmv_ell_plan(int64_t n, int k, int m, int* group, int* cpt, int* rows_p
   return 0;
 }
 
-// idx [n, k] int32, w [n, k], X [n, m], d [n] or null → out [n, m]; float32,
+// idx [n, k] int32, w [n, k], X [nx, m], d [n] or null → out [n, m], rows
+// row0 .. row0 + n − 1 of the operator (row0 + n ≤ nx); float32,
 // contiguous; out must not alias X. Returns cudaGetLastError().
 int mrs_spmv_ell(const int* idx, const float* w, const float* X, const float* d,
-                 float* out, int64_t n, int k, int m, void* stream) {
-  if (n <= 0 || k <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+                 float* out, int64_t n, int k, int m, int64_t nx, int64_t row0,
+                 void* stream) {
+  if (n <= 0 || k <= 0 || m <= 0 || row0 < 0 || row0 + n > nx) return (int)cudaErrorInvalidValue;
   const Plan p = plan_of(n, m);
   cudaStream_t st = (cudaStream_t)stream;
   switch (p.group * 16 + p.cpt) {
-    case 1 * 16 + 1: return launch<1, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 2 * 16 + 1: return launch<2, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 4 * 16 + 1: return launch<4, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 8 * 16 + 1: return launch<8, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 16 * 16 + 1: return launch<16, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 32 * 16 + 1: return launch<32, 1>(p, idx, w, X, d, out, n, k, m, st);
-    case 32 * 16 + 2: return launch<32, 2>(p, idx, w, X, d, out, n, k, m, st);
-    case 32 * 16 + 4: return launch<32, 4>(p, idx, w, X, d, out, n, k, m, st);
-    case 32 * 16 + 8: return launch<32, 8>(p, idx, w, X, d, out, n, k, m, st);
+    case 1 * 16 + 1: return launch<1, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 2 * 16 + 1: return launch<2, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 4 * 16 + 1: return launch<4, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 8 * 16 + 1: return launch<8, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 16 * 16 + 1: return launch<16, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 32 * 16 + 1: return launch<32, 1>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 32 * 16 + 2: return launch<32, 2>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 32 * 16 + 4: return launch<32, 4>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
+    case 32 * 16 + 8: return launch<32, 8>(p, idx, w, X, d, out, n, k, m, nx, row0, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -60,8 +60,8 @@ SIGNATURES = {
         "mrs_slab_dots_plan": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "spmv_ell": {
-        # idx, w, X, d (or null), out, n, k, m, stream
-        "mrs_spmv_ell": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
+        # idx, w, X, d (or null), out, n, k, m, nx, row0, stream
+        "mrs_spmv_ell": [_P, _P, _P, _P, _P, _I64, _I, _I, _I64, _I64, _P],
         # n, k, m, group (out), cols per lane (out), rows per block (out),
         # blocks (out, int64), passes (out)
         "mrs_spmv_ell_plan": [_I64, _I, _I, _P, _P, _P, _P, _P],

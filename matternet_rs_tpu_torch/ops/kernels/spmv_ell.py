@@ -11,6 +11,10 @@ with ``w == 0`` contributes nothing and its index is never used. A slot
 with ``w != 0`` must name a row in ``[0, n)``; :func:`check_ell` verifies
 that on the host, and the callers run it once per graph.
 
+:func:`spmv_ell` also takes the rows form: rows ``row0 .. row0 + n − 1``
+of a taller operator against ``X [nx, m]`` (a mesh slot's rows of the
+sharded Laplacian applied to the whole replicated block).
+
 :func:`spmv_ell_plan` mirrors the launch plan the C entry point chooses
 (``mrs_spmv_ell_plan``); :func:`spmv_ell_plan_chosen` asks the built
 library.
@@ -65,10 +69,10 @@ def spmv_ell_plan_chosen(n: int, k: int, m: int) -> dict:
                 blocks=blocks.value, passes=passes.value)
 
 
-def check_ell(indices: torch.Tensor, weights: torch.Tensor) -> None:
+def check_ell(indices: torch.Tensor, weights: torch.Tensor, nx: int | None = None) -> None:
     """Raise unless ``indices`` is int32, shaped like ``weights``, and every
-    slot with a non-zero weight names a row in ``[0, n)``. Reads one scalar
-    back from the device."""
+    slot with a non-zero weight names a row in ``[0, nx)`` (``nx`` defaults
+    to the graph's own ``n``). Reads one scalar back from the device."""
     if indices.dtype != torch.int32:
         raise ValueError(f"ELL indices must be int32, got {indices.dtype}")
     if indices.ndim != 2 or indices.shape != weights.shape:
@@ -76,29 +80,31 @@ def check_ell(indices: torch.Tensor, weights: torch.Tensor) -> None:
             f"ELL indices {tuple(indices.shape)} and weights {tuple(weights.shape)} "
             "must share one [n, k] shape"
         )
-    n = indices.shape[0]
-    bad = (weights != 0) & ((indices < 0) | (indices >= n))
+    nx = indices.shape[0] if nx is None else nx
+    bad = (weights != 0) & ((indices < 0) | (indices >= nx))
     n_bad = int(bad.sum())
     if n_bad:
         raise ValueError(
-            f"{n_bad} ELL slots with a non-zero weight name a row outside [0, {n})"
+            f"{n_bad} ELL slots with a non-zero weight name a row outside [0, {nx})"
         )
 
 
-def spmv_ell_plain(indices, weights, X, d=None):
+def spmv_ell_plain(indices, weights, X, d=None, row0: int = 0):
     """Slot-by-slot accumulation in ascending slot order; slots with
-    ``w == 0`` are masked out of the sum and never index ``X``."""
-    acc = torch.zeros_like(X)
+    ``w == 0`` are masked out of the sum and never index ``X``. The
+    diagonal term reads rows ``row0 ..`` of ``X``."""
+    n = indices.shape[0]
+    acc = torch.zeros((n, X.shape[1]), dtype=X.dtype, device=X.device)
     zero = torch.zeros((), dtype=X.dtype, device=X.device)
     for s in range(indices.shape[1]):
         w = weights[:, s]
         live = w != 0
         rows = X[torch.where(live, indices[:, s], 0).long()]
         acc = acc + torch.where(live[:, None], w[:, None] * rows, zero)
-    return acc if d is None else d[:, None] * X - acc
+    return acc if d is None else d[:, None] * X[row0:row0 + n] - acc
 
 
-def _spmv_ell_launch(indices, weights, X, d, out) -> None:
+def _spmv_ell_launch(indices, weights, X, d, out, row0: int = 0) -> None:
     """Launch kernel F into ``out [n, m]`` on arguments that
     :func:`spmv_ell` has checked (``chip_smoke.py`` times it alone)."""
     lib = _cuda.library("spmv_ell")
@@ -106,29 +112,31 @@ def _spmv_ell_launch(indices, weights, X, d, out) -> None:
     rc = lib.mrs_spmv_ell(
         indices.data_ptr(), weights.data_ptr(), X.data_ptr(),
         None if d is None else d.data_ptr(), out.data_ptr(), n, k, X.shape[1],
-        _cuda.stream_ptr(out.device),
+        X.shape[0], row0, _cuda.stream_ptr(out.device),
     )
     _cuda.check(lib, rc, "spmv_ell kernel")
     kernels.count("spmv_ell")
 
 
-def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):
-    """``W @ X`` (``d is None``) or ``d∘X − W@X`` → ``[n, m]`` float32.
+def spmv_ell(indices, weights, X, d=None, row0: int = 0, *, checked: bool = False):
+    """Rows ``row0 .. row0 + n − 1`` of ``W @ X`` (``d is None``) or
+    ``d∘X − W@X`` → ``[n, m]`` float32.
 
-    ``indices [n, k]`` int32, ``weights [n, k]``, ``X [n, m]``, ``d [n]``.
-    ``checked=True`` says :func:`check_ell` already passed for this graph;
-    otherwise it runs here. CPU tensors take the plain version; CUDA
-    tensors launch kernel F."""
+    ``indices [n, k]`` int32 and ``weights [n, k]`` name rows of
+    ``X [nx, m]``, ``d [n]``; the square product is ``nx = n``,
+    ``row0 = 0``. ``checked=True`` says :func:`check_ell` already passed
+    for this graph against ``nx``; otherwise it runs here. CPU tensors take
+    the plain version; CUDA tensors launch kernel F."""
     if not checked:
-        check_ell(indices, weights)
+        check_ell(indices, weights, X.shape[0])
     n, k = indices.shape
-    if X.ndim != 2 or X.shape[0] != n or (d is not None and d.shape != (n,)):
+    if X.ndim != 2 or row0 < 0 or row0 + n > X.shape[0] or (d is not None and d.shape != (n,)):
         raise ValueError(
-            f"spmv_ell: indices {tuple(indices.shape)}, X {tuple(X.shape)}"
+            f"spmv_ell: indices {tuple(indices.shape)}, X {tuple(X.shape)}, row0 {row0}"
             + ("" if d is None else f", d {tuple(d.shape)}")
         )
     if X.device.type == "cpu":
-        return spmv_ell_plain(indices, weights, X, d)
+        return spmv_ell_plain(indices, weights, X, d, row0)
     _cuda.library("spmv_ell")                 # without a card: raise before anything is computed
     tensors = dict(weights=weights, X=X) if d is None else dict(weights=weights, X=X, d=d)
     for name, t in tensors.items():
@@ -140,6 +148,6 @@ def spmv_ell(indices, weights, X, d=None, *, checked: bool = False):
     if n == 0 or m == 0:
         return out
     if k == 0:
-        return out.zero_() if d is None else d[:, None] * X
-    _spmv_ell_launch(indices, weights, X, d, out)
+        return out.zero_() if d is None else d[:, None] * X[row0:row0 + n]
+    _spmv_ell_launch(indices, weights, X.contiguous(), d, out, row0)
     return out

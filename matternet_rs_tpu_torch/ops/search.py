@@ -62,6 +62,17 @@ def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def mask_rows(scores: torch.Tensor, mask_from: int | None, ids=None) -> torch.Tensor:
+    """``scores`` with -inf wherever the row id is ≥ ``mask_from``: the
+    padded rows of a mesh slot. ``ids`` (broadcast against ``scores``)
+    defaults to the column index; ``None`` masks nothing."""
+    if mask_from is None:
+        return scores
+    if ids is None:
+        ids = torch.arange(scores.shape[-1], device=scores.device)
+    return torch.where(ids < mask_from, scores, torch.full_like(scores, -float("inf")))
+
+
 def _tilemax_degenerate(n: int, kk: int, t: int, margin: int = SELECT_MARGIN) -> bool:
     """True when the candidate set would cover the whole corpus."""
     nt0 = n // t
@@ -109,6 +120,16 @@ def _batched_scores(X, norms, lambdas, queries, query_lambdas, alphas) -> torch.
                               query_lambdas, a)
 
 
+def flat_topk(X, norms, lambdas, queries, query_lambdas, k: int, alphas,
+              mask_from: int | None = None):
+    """Flat exact top-k of ``queries [B, F]``; rows ≥ ``mask_from`` score
+    -inf. Returns ``(indices [B, k], scores [B, k])``."""
+    scores = mask_rows(_batched_scores(X, norms, lambdas, queries, query_lambdas, alphas),
+                       mask_from)
+    top, idx = topk_stable(scores, min(k, X.shape[0]))
+    return idx, top
+
+
 def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
                         alphas=0.7, approx: bool = False, recall_target: float = 0.95):
     """Flat exact top-k. ``queries [B, F]`` (or one ``[F]`` query with a
@@ -119,8 +140,7 @@ def search_lambda_aware(X, norms, lambdas, queries, query_lambdas, k: int,
     single = queries.ndim == 1
     Q = queries[None, :] if single else queries
     ql = torch.as_tensor(query_lambdas, dtype=torch.float32, device=Q.device).reshape(-1)
-    scores = _batched_scores(X, norms, lambdas, Q, ql, alphas)
-    top, idx = topk_stable(scores, min(k, X.shape[0]))
+    idx, top = flat_topk(X, norms, lambdas, Q, ql, k, alphas)
     return (idx[0], top[0]) if single else (idx, top)
 
 
@@ -224,16 +244,19 @@ def tilemax_topk(scores: torch.Tensor, k: int, tile: int = DEFAULT_TILE,
 
 
 def search_lambda_aware_tilemax(X, norms, lambdas, queries, query_lambdas, k: int,
-                                alphas, tile: int = DEFAULT_TILE):
+                                alphas, tile: int = DEFAULT_TILE, mask_from: int | None = None):
     """Exact batched top-k with tile-max selection; the fused producer when
-    it applies. Returns ``(indices [B, k], scores [B, k])``."""
+    it applies. Rows ≥ ``mask_from`` score -inf. Returns ``(indices
+    [B, k], scores [B, k])``."""
     b, n = queries.shape[0], X.shape[0]
     kk = min(k, n)
     t = min(tile, n)
     if not _tilemax_degenerate(n, kk, t) and fused_supported(X, b, t):
-        top, idx = fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk, alphas, t)
+        top, idx = fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk, alphas, t,
+                                 mask_from=mask_from)
         return idx, top
-    scores = _batched_scores(X, norms, lambdas, queries, query_lambdas, alphas)
+    scores = mask_rows(_batched_scores(X, norms, lambdas, queries, query_lambdas, alphas),
+                       mask_from)
     top, idx = tilemax_topk(scores, k, tile=tile)
     return idx, top
 
@@ -260,10 +283,9 @@ def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
     )
     tail = None
     if n0 < n:
-        tail = _batched_scores(X[n0:], norms[n0:], lambdas[n0:], queries, query_lambdas, a)
-        if mask_from is not None:
-            col = torch.arange(n0, n, device=X.device)
-            tail = torch.where(col[None, :] >= mask_from, torch.full_like(tail, -float("inf")), tail)
+        tail = mask_rows(_batched_scores(X[n0:], norms[n0:], lambdas[n0:], queries,
+                                         query_lambdas, a),
+                         mask_from, torch.arange(n0, n, device=X.device))
     ts = t // tmk.SUBS
     ns = nt0 * tmk.SUBS
     return select(
@@ -356,7 +378,5 @@ def fused_scan_rescored(Xscan, X, norms, lambdas, queries, query_lambdas, k: int
         tail = _batched_scores(X[n0:], norms[n0:], lambdas[n0:], queries, query_lambdas, a)
         s = torch.cat([s, tail], dim=1)
         gidx = torch.cat([gidx, torch.arange(n0, n, device=sel.device).expand(b, n - n0)], dim=1)
-    if mask_from is not None:
-        s = torch.where(gidx < mask_from, s, torch.full_like(s, -float("inf")))
-    top, pos = topk_stable(s, kk)
+    top, pos = topk_stable(mask_rows(s, mask_from, gidx), kk)
     return torch.gather(gidx, 1, pos), top

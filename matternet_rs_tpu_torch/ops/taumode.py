@@ -141,14 +141,18 @@ def taumode_lambdas_ell(X: torch.Tensor, ell: EllLaplacian, tau_mode: int = TAU_
 
 
 def taumode_lambdas_auto(X: torch.Tensor, L, tau_mode: int = TAU_MEDIAN,
-                         tau_param: float = 0.0) -> torch.Tensor:
+                         tau_param: float = 0.0, route_n: int | None = None) -> torch.Tensor:
     """λ batch with the reference's routing: the sparse route for an
     :class:`EllLaplacian` at any F or for ``F > SPARSE_F_THRESHOLD`` (a
     dense ``L`` is extracted to ELL first — callers that come back cache
     that, see ``GraphLaplacian.ell``); kernel A for ``N >= KERNEL_MIN_N``
-    and ``F <= MAX_KERNEL_F``; the closed form below."""
+    and ``F <= MAX_KERNEL_F``; the closed form below. ``route_n`` routes
+    ``X`` as part of a corpus of that many rows (a mesh slot's rows route
+    as the whole corpus would on one card; λ is row-independent)."""
     X = X.to(torch.float32)
     n, f = X.shape
+    if route_n is not None:
+        n = int(route_n)
     if isinstance(L, EllLaplacian) or f > SPARSE_F_THRESHOLD:
         ell = L if isinstance(L, EllLaplacian) else ell_from_dense_laplacian(L)
         return taumode_lambdas_ell(X, ell, tau_mode, tau_param)

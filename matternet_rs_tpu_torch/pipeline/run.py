@@ -3,8 +3,8 @@
 
 Stage A (the host clustering scan) gives the centroid state; B0–C run at
 centroid scale on the device (with B1's tree walks and B2's recursion as
-their modules say), and stage D scores every row. ``build`` runs on the
-CUDA card unless ``device="cpu"``.
+their modules say), and stage D scores every row — over a device mesh
+with ``mesh=``. ``build`` runs on the CUDA card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -63,20 +63,17 @@ class PipelineResult:
 
 def build(rows, config: Optional[PipelineConfig] = None, mesh=None,
           device=None) -> PipelineResult:
-    """Run the whole pipeline on ``[N, F]`` rows. ``mesh`` (the reference
-    shards stage D over a device mesh) raises ``NotImplementedError``
-    until ``parallel/`` is ported (``backend.PARALLEL_PENDING``).
+    """Run the whole pipeline on ``[N, F]`` rows. With ``mesh`` (a
+    :class:`..parallel.mesh.Mesh`) stage D, the only stage that grows with
+    N, shards the rows over the mesh with the F×F Laplacian replicated
+    (:func:`_compute_tau_mode_sharded`); the other stages run on
+    ``device`` (default: the mesh's lead device).
 
     As in the reference, an MST that does not reach every centroid leaves
     the traversal order short of C, and mapping the items' centroids
     through it raises ``IndexError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"pipeline.build(mesh=...) shards stage D over a device mesh, which "
-            f"{backend.PARALLEL_PENDING}"
-        )
     cfg = config or PipelineConfig()
-    dev = backend.resolve_device(device)
+    dev = backend.resolve_device(mesh.lead if device is None and mesh is not None else device)
     X = np.asarray(rows, np.float32)
     timings: dict[str, float] = {}
     backend.print_backend_info()
@@ -102,8 +99,11 @@ def build(rows, config: Optional[PipelineConfig] = None, mesh=None,
     lap = timed("C:laplacian", LaplacianStage(cfg.laplacian).execute, smoothed)
     # Stage D on the rows stage A clustered (projected, if it projected).
     work = a_out.working if a_out.working is not None else X
-    lambdas = timed("D:spectral", spectral.compute_tau_mode, lap, work,
-                    work.shape[0], work.shape[1])
+    if mesh is not None:
+        lambdas = timed("D:spectral", _compute_tau_mode_sharded, mesh, lap, work)
+    else:
+        lambdas = timed("D:spectral", spectral.compute_tau_mode, lap, work,
+                        work.shape[0], work.shape[1])
     tau = compute_tau(lambdas, cfg.taumode)
 
     # Stage-A centroid ids → rows of the MST-ordered smoothed state.
@@ -115,6 +115,31 @@ def build(rows, config: Optional[PipelineConfig] = None, mesh=None,
         centroid_positions=pos_of[np.asarray(a_out.assignments, np.int64)],
         mst=mst, kalman=kalman, laplacian=lap, lambdas=lambdas, tau=tau, timings=timings,
     )
+
+
+def _compute_tau_mode_sharded(mesh, lap: LaplacianOutput, work) -> np.ndarray:
+    """Stage D over a mesh: each slot takes the Rayleigh terms and edge
+    energies of its rows against the replicated Laplacian; the row
+    energies are gathered so the Dirichlet total is summed over the N real
+    rows in one pass, in row order, as on one device. Returns λ ``[N]``
+    float64."""
+    import torch
+
+    from matternet_rs_tpu_torch.parallel.mesh import (
+        all_gather,
+        local_map,
+        replicate,
+        shard_items,
+    )
+
+    n = work.shape[0]
+    Xs = shard_items(mesh, torch.as_tensor(work, dtype=torch.float32))
+    terms = local_map(mesh, lambda _, Xl, Ll: spectral.stage_d_terms(Ll, Xl), Xs,
+                      replicate(mesh, lap.matrix.to(torch.float32)))
+    rayleigh = all_gather(mesh, [t[0] for t in terms], tiled=True)[:n]
+    row_sums = all_gather(mesh, [t[1] for t in terms], tiled=True)[:n]
+    lam = rayleigh + torch.clamp(row_sums / (torch.sum(row_sums) + 1e-12), 0.0, 1.0)
+    return lam.cpu().numpy().astype(np.float64)
 
 
 def save_result(result: PipelineResult, path, name: str = "pipeline") -> None:

@@ -18,7 +18,10 @@ from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.pipeline.laplacian import LaplacianOutput
 
 
-def _stage_d(L: torch.Tensor, X: torch.Tensor):
+def stage_d_terms(L: torch.Tensor, X: torch.Tensor):
+    """The row-local part of stage D: each row's clamped Rayleigh quotient
+    and its edge energy (the Dirichlet terms need the total over all
+    rows)."""
     XL = mm(X, L.T)
     x_sq = X * X
     num = torch.sum(X * XL, dim=-1)
@@ -27,7 +30,11 @@ def _stage_d(L: torch.Tensor, X: torch.Tensor):
     W = torch.clamp(-L, min=0.0)
     deg = torch.sum(W, dim=1)
     edge_energy = deg[None, :] * x_sq - 2.0 * X * mm(X, W.T) + mm(x_sq, W.T)
-    row_sums = torch.sum(torch.clamp(edge_energy, min=0.0), dim=-1)
+    return rayleigh, torch.sum(torch.clamp(edge_energy, min=0.0), dim=-1)
+
+
+def _stage_d(L: torch.Tensor, X: torch.Tensor):
+    rayleigh, row_sums = stage_d_terms(L, X)
     total = torch.sum(row_sums)
     dirichlet = torch.clamp(row_sums / (total + 1e-12), 0.0, 1.0)
     return rayleigh + dirichlet, rayleigh, dirichlet

@@ -38,7 +38,6 @@ from typing import Optional
 
 import numpy as np
 
-from matternet_rs_tpu_torch.backend import PARALLEL_PENDING
 from matternet_rs_tpu_torch.core import (
     LOW_RECALL_TIERS as _LOW_RECALL_TIERS,
     QUANT_TIERS as _QUANT_TIERS,
@@ -418,26 +417,29 @@ class StreamingIndexService(IndexService):
     card serves every query with an exact disk rescore. On ``POST
     /search``, ``approx=True`` selects the sketch-only mode
     (``refine=False``), and ``quantized`` selects bf16 blocks on the
-    streamed exact path without the sketch. ``mesh`` (the sketch sharded
-    over a device mesh) raises ``NotImplementedError`` until ``parallel/``
-    is ported.
+    streamed exact path without the sketch. With ``mesh`` the sketch is
+    sharded over a device mesh (:class:`..parallel.sketch.ShardedSketch`:
+    sketches larger than one card) behind the same search contract, so
+    the dispatch is shared.
     """
 
     def __init__(self, index, batch_window_ms: float = 2.0,
                  max_batch: int = 256, sketch: bool = True,
                  candidates: Optional[int] = None, mesh=None,
                  max_queue_depth: Optional[int] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"StreamingIndexService(mesh=...) shards the sketch over a device "
-                f"mesh, which {PARALLEL_PENDING}"
-            )
         self.index = index
         self.use_sketch = sketch
         self.candidates = candidates
         self._nfeatures = index.n_features
         self.mesh_devices = 0
-        if sketch:
+        if sketch and mesh is not None:
+            from matternet_rs_tpu_torch.parallel.sketch import ShardedSketch
+
+            sk = ShardedSketch(index, mesh)
+            self._sketch_search = sk.search_batch
+            self._energy_search = sk.search_energy_batch
+            self.mesh_devices = mesh.size
+        elif sketch:
             index.build_sketch()     # pay the one-time upload up front
             self._sketch_search = index.search_batch_sketch
             self._energy_search = index.search_energy_batch_sketch

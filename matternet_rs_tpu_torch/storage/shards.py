@@ -1,12 +1,13 @@
-"""Raw shard store, single-host half (twin of the reference's
-``storage/shards.py``): a corpus as raw float32 shard files plus a JSON
-manifest, streamed in fixed-size row blocks by the native read-ahead reader
+"""Raw shard store (twin of the reference's ``storage/shards.py``): a
+corpus as raw float32 shard files plus a JSON manifest, streamed in
+fixed-size row blocks by the native read-ahead reader
 (:class:`..native.ShardReader`), so at most two blocks sit on the host
 whatever N is. The files are byte for byte the reference's for the same
 input, and each package reads the other's store.
 
-The mesh-sharded assembly and the distributed build from a store wait for
-the port of ``parallel/`` (``backend.PARALLEL_PENDING``).
+The distributed half places a store over a device mesh, each slot reading
+its own row range (:func:`shard_items_from_store`), and builds the mesh
+index from it (:func:`distributed_build_from_store`).
 """
 
 from __future__ import annotations
@@ -17,10 +18,7 @@ from typing import Iterable
 
 import numpy as np
 
-from matternet_rs_tpu_torch.backend import PARALLEL_PENDING
-
 MANIFEST = "shards.json"
-DISTRIBUTED_PENDING = f"the distributed build from a shard store {PARALLEL_PENDING}"
 
 
 def write_shards(blocks: Iterable[np.ndarray] | np.ndarray, directory,
@@ -124,8 +122,33 @@ def read_rows(directory, row_ids) -> np.ndarray:
 
 
 def shard_items_from_store(mesh, directory):
-    """Mesh-sharded assembly of a store: not ported yet."""
-    raise NotImplementedError(DISTRIBUTED_PENDING)
+    """The mesh-sharded ``[N_pad, F]`` rows of a store: each of this
+    process's slots reads its own global row range (a seek; a slot past
+    ``n`` gets zeros), so at most one slot's block and the reader's
+    read-ahead sit on the host. Returns ``(ShardedArray, n)``."""
+    import torch
+
+    from matternet_rs_tpu_torch.parallel.mesh import ShardedArray
+
+    m = read_manifest(directory)
+    n, f = m["n_rows"], m["n_features"]
+    d = mesh.size
+    n_pad = n + ((-n) % d)
+    per = n_pad // d
+    shards = [None] * d
+    devs = mesh.slot_devices
+    for i in mesh.local_slots:
+        start = i * per
+        take = max(0, min(per, n - start))
+        block = np.zeros((per, f), np.float32)
+        if take:
+            reader = stream_blocks(directory, per, start_row=start)
+            try:
+                reader.read_into(block)          # stops at n: rows past it stay 0
+            finally:
+                reader.close()
+        shards[i] = torch.from_numpy(block).to(devs[i])
+    return ShardedArray(mesh, shards, (n_pad, f)), n
 
 
 def distributed_build_from_store(directory, graph_params, k_clusters: int, taumode=None,
@@ -133,5 +156,25 @@ def distributed_build_from_store(directory, graph_params, k_clusters: int, taumo
                                  centroids: str = "serial", radius: float = 25.0,
                                  centroid_sample: int | None = None,
                                  sample_block_rows: int = 65536):
-    """The distributed build streamed from a store: not ported yet."""
-    raise NotImplementedError(DISTRIBUTED_PENDING)
+    """The distributed build streamed from a store, with
+    ``ShardedArrowSpace.distributed_build``'s stage-1 choices and defaults
+    (so the two builds give the same λ on the same rows): ``"serial"`` the
+    serial builder's scan over the first ``centroid_sample`` rows streamed
+    in store order (default all: the sample is held on the host for stage
+    1 only), ``"lloyd"`` the mesh-reduced Lloyd."""
+    from matternet_rs_tpu_torch.core import TAUDEFAULT
+    from matternet_rs_tpu_torch.parallel.index import build_from_rows
+    from matternet_rs_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = mesh if mesh is not None else make_mesh(n_devices)
+    Xs, n = shard_items_from_store(mesh, directory)
+
+    def sample_blocks():
+        reader = stream_blocks(directory, sample_block_rows)
+        try:
+            yield from reader
+        finally:
+            reader.close()
+
+    return build_from_rows(mesh, Xs, n, graph_params, k_clusters, taumode or TAUDEFAULT,
+                           lloyd_iters, centroids, radius, centroid_sample, sample_blocks)

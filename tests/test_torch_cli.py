@@ -5,9 +5,9 @@ JAX-CPU, and ``serve`` as a subprocess.
 Checks: the two CLIs build the same ``.npy`` into checkpoints that each
 package's ``search`` reads, with the same ids (scores within 1e-5, the
 CLI rounds to 6 digits); ``info`` prints the metadata; the streaming
-subcommands run on a small store; the mesh-sharded subcommands raise
-``NotImplementedError``; the ``serve`` subprocess answers as the
-in-process search of its checkpoint."""
+subcommands run on a small store; the mesh subcommands run on CPU slots;
+the ``serve`` subprocess answers as the in-process search of its
+checkpoint."""
 
 import json
 import os
@@ -108,12 +108,54 @@ def test_streaming_subcommands(data_file, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["build-distributed", "store", "--k-clusters", "8", "--n-devices", "4"],
-    ["serve", "store", "--streaming", "--mesh", "4", *CPU],
+    ["build-distributed", "--k-clusters", "8", "--n-devices", "4", "--cluster-radius", "4.0"],
+    ["serve", "--streaming", "--mesh", "4"],
 ], ids=["build-distributed", "serve-mesh"])
-def test_mesh_subcommands_wait_for_parallel(argv):
-    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
-        tmain(argv)
+def test_mesh_subcommands_wait_for_parallel(argv, data_file, tmp_path, capsys, monkeypatch):
+    """The mesh subcommands, which waited for the port of ``parallel/``,
+    now run on a store: ``build-distributed`` (4 CPU slots with ``--device
+    cpu``, the reference on 4 of its devices) prints the reference's
+    build line and query results (scores within 1e-5, rounded to 6
+    digits) and saves a store the streaming index reads; ``serve
+    --streaming --mesh 4`` serves the sketch sharded over 4 slots. Without
+    ``--device cpu`` a mesh needs that many cards and fails as the
+    reference's ``make_mesh`` does, whatever CUDA spelling ``--device``
+    gives (``cuda:0`` does not repeat the one card)."""
+    data_path, q_path, data = data_file
+    store = tmp_path / "store"
+    _run(tmain, ["shard-write", str(data_path), "--out", str(store), "--rows-per-shard", "50"],
+         capsys)
+    if argv[0] == "build-distributed":
+        cmd = [argv[0], str(store), *argv[1:], "--query", str(q_path), "--topk", "5"]
+        ref = _run(jmain, cmd, capsys)
+        got = _run(tmain, cmd + ["--save-store", str(tmp_path / "saved"), *CPU], capsys)
+        assert got["n_devices"] == ref["n_devices"] == 4 and got["n_items"] == 120
+        assert got["lambda_range"] == pytest.approx(ref["lambda_range"], rel=TOL)
+        assert [r["index"] for r in got["query_top"]] == [r["index"] for r in ref["query_top"]]
+        np.testing.assert_allclose([r["score"] for r in got["query_top"]],
+                                   [r["score"] for r in ref["query_top"]], atol=TOL, rtol=0)
+        from matternet_rs_tpu_torch.index.streaming import StreamingIndex
+
+        si = StreamingIndex.load(tmp_path / "saved", device="cpu")
+        assert si.search(data[7], 5)[0][0] == got["query_top"][0]["index"] == 7
+    else:
+        _run(tmain, ["build-streaming", str(store), "--max-clusters", "10", "--radius", "4.0",
+                     "--block-rows", "16", "--sample-rows", "120", *CPU], capsys)
+        from matternet_rs_tpu_torch import serve as tsv
+
+        served = {}
+        monkeypatch.setattr(tsv, "serve", lambda svc, host, port: served.setdefault("svc", svc))
+        line = _run(tmain, [argv[0], str(store), *argv[1:], "--port", "0", *CPU], capsys)
+        svc = served["svc"]
+        try:
+            assert line["mesh_devices"] == 4 and line["streaming"] and line["sketch"]
+            assert svc.search(data[30], k=3)[0]["index"] == 30
+        finally:
+            svc.close()
+    if not __import__("torch").cuda.is_available():
+        for extra in ([], ["--device", "cuda:0"]):
+            with pytest.raises(ValueError, match="requested 4 devices, only 0 available"):
+                tmain([argv[0], str(store), *argv[1:], *extra])
 
 
 def test_arguments_follow_the_reference():
@@ -141,7 +183,8 @@ def test_arguments_follow_the_reference():
 
     (pp, port), (_, ref) = parsers(tmain), parsers(jmain)
     assert pp.prog == "matternet_rs_tpu_torch" and set(port) == set(ref)
-    loads = {"build", "search", "serve", "build-streaming", "search-streaming"}
+    loads = {"build", "search", "serve", "build-distributed", "build-streaming",
+             "search-streaming"}
     for name in ref:
         want = dict(ref[name], **({"device": None} if name in loads else {}))
         assert {k: v for k, v in port[name].items() if k != "fn"} == \

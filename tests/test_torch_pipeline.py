@@ -576,8 +576,26 @@ def test_stage_c_graph_empties_as_centroids_grow(c, empty):
 
 
 def test_mesh_waits_for_the_parallel_port():
-    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
-        tp.build(np.ones((4, 3), np.float32), mesh=object(), device=CPU)
+    """``build(mesh=...)``, which waited for the port of ``parallel/``, now
+    shards stage D over the mesh: λ equal to the unsharded build's (the
+    Dirichlet total summed over the gathered rows in row order, as on one
+    device) and to the reference's mesh build within its relative
+    tolerance; the other stages are the same."""
+    from matternet_rs_tpu.parallel import make_mesh as jmake_mesh
+    from matternet_rs_tpu_torch.parallel import make_mesh
+
+    X = jfix.make_gaussian_blob(150, 0.4).astype(np.float32)
+    cfg = dict(clustering=dict(max_clusters=20, radius_threshold=16.0, batch_size=64))
+    one = tp.build(X, tp.PipelineConfig(clustering=tp.ClusteringConfig(**cfg["clustering"])),
+                   device=CPU)
+    for slots in (1, 4, 8):
+        got = tp.build(X, tp.PipelineConfig(clustering=tp.ClusteringConfig(**cfg["clustering"])),
+                       mesh=make_mesh(slots, devices=[CPU] * slots), device=CPU)
+        assert np.array_equal(got.lambdas, one.lambdas), slots
+        assert got.tau == one.tau
+    ref = jp.build(X, jp.PipelineConfig(clustering=jp.ClusteringConfig(**cfg["clustering"])),
+                   mesh=jmake_mesh(8))
+    _close_rel(ref.lambdas, got.lambdas)
 
 
 def test_build_runs_on_the_card_unless_asked():

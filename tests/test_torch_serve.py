@@ -681,8 +681,32 @@ def test_streaming_without_sketch_and_with_a_mesh(streaming_pair):
             assert [r["index"] for r in res] == ref[0][0].tolist() and res[0]["index"] == 42
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
-        tsv.StreamingIndexService.from_store(d, device=CPU, mesh=object())
+    # With a mesh the sketch is sharded (4 CPU slots here; it waited for
+    # the port of parallel/ before): info names the slots, and the
+    # answers equal the reference's service over its 4-device mesh and the
+    # single-card sketch search (the carry scan is exact at sketch
+    # precision, so the sharded scan keeps the same candidates).
+    from matternet_rs_tpu.parallel import make_mesh as jmake_mesh
+    from matternet_rs_tpu.serve import StreamingIndexService as JStreamingService
+    from matternet_rs_tpu_torch.parallel import make_mesh
+
+    svc = tsv.StreamingIndexService.from_store(d, device=CPU,
+                                               mesh=make_mesh(4, devices=[CPU] * 4))
+    ref_svc = JStreamingService.from_store(d, mesh=jmake_mesh(4))
+    try:
+        assert svc.info()["mesh_devices"] == ref_svc.info()["mesh_devices"] == 4
+        for approx in (False, True):
+            for qi in (3, 42):
+                res = svc.search(data[qi], k=5, approx=approx)
+                ref = ref_svc.search(data[qi], k=5, approx=approx)
+                one = svc.index.search_batch_sketch(data[qi][None], 5, refine=not approx)
+                assert [r["index"] for r in res] == [r["index"] for r in ref] == one[0][0].tolist()
+                np.testing.assert_allclose([r["score"] for r in res], one[1][0], rtol=0, atol=0)
+        e = svc.search_energy(data[3], k=3) if svc.index.sub_centroids is not None else None
+        assert e is None
+    finally:
+        svc.close()
+        ref_svc.close()
 
 
 def test_module_names_follow_the_reference():

@@ -94,11 +94,34 @@ def test_write_rejects_bad_blocks(tmp_path):
         tshards.write_shards([ROWS[0]], tmp_path / "b")
 
 
-def test_distributed_half_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
-        tshards.shard_items_from_store(None, "unused")
-    with pytest.raises(NotImplementedError, match="waits for the port of parallel/"):
-        tshards.distributed_build_from_store("unused", None, 4)
+def test_distributed_half_waits_for_parallel(tmp_path):
+    """The distributed half, which waited for the port of ``parallel/``:
+    ``shard_items_from_store`` gives each slot its own rows, per slot as
+    the reference's devices hold them, and ``distributed_build_from_store``
+    builds the λ of ``ShardedArrowSpace.distributed_build`` on the same
+    rows (equal: one route, one order)."""
+    import torch
+
+    from matternet_rs_tpu.parallel import make_mesh as jmake_mesh
+    from matternet_rs_tpu_torch.graph import GraphParams
+    from matternet_rs_tpu_torch.parallel import make_mesh
+    from matternet_rs_tpu_torch.parallel.index import ShardedArrowSpace
+
+    tshards.write_shards(ROWS, tmp_path, rows_per_shard=7)
+    for d in (1, 3, 8):
+        xs, n = tshards.shard_items_from_store(make_mesh(d, devices=["cpu"] * d), tmp_path)
+        ref, n_ref = jshards.shard_items_from_store(jmake_mesh(d), tmp_path)
+        assert n == n_ref == len(ROWS)
+        ref_parts = sorted(ref.addressable_shards, key=lambda s: s.index[0].start or 0)
+        for (_, got), want in zip(xs.local(), ref_parts):
+            assert np.array_equal(got.numpy(), np.asarray(want.data))
+    params = GraphParams(eps=1.0, k=3, topk=3, sparsity_check=False)
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    sa = tshards.distributed_build_from_store(tmp_path, params, 4, mesh=mesh, radius=2.0,
+                                              sample_block_rows=5)
+    direct = ShardedArrowSpace.distributed_build([ROWS], params, 4, mesh=mesh, radius=2.0)
+    assert torch.equal(sa.lambdas.gather(), direct.lambdas.gather())
+    assert (sa.min_lambdas, sa.range_lambdas) == (direct.min_lambdas, direct.range_lambdas)
 
 
 @pytest.mark.parametrize("native_lib", [True, False], ids=["native", "python"])
