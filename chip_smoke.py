@@ -20,11 +20,14 @@ Phases, one output line each (JSON):
    one launch of ``subtile_topk`` a batch (4 in all) and kernel C is not
    launched. The three timed batches then run again through that stage and
    through the selection chain it replaced (kernel C's gather and the
-   stable sorts), in turns (stage, chain, chain, stage), each route also
+   stable sorts), in turns (chain, stage, stage, chain), each route also
    once under ``torch.profiler``: ms per batch, device-busy ms and idle
-   share of each go on the phase's line. One more search at k = 40 takes
-   the chain: kernel C launches once, the stage never, and its first ten
-   ids are the k = 10 search's.
+   share of each go on the phase's line; the same at k = 100 (the wide
+   design of the stage). Then one search each at k = 40 and k = 100
+   launches the stage once and kernel C never, and one at k = 200 takes
+   the chain: kernel C once, the stage never; the first ten ids of each
+   are the k = 10 search's, and the k = 100 search's ids and score bits
+   are the chain's.
    Then ``torch.profiler`` traces the three timed batches again: wall ms
    per batch (host clock), device-busy ms (the union of the traced
    kernels' intervals), the idle share 1 − busy/wall, and the kernels
@@ -233,7 +236,8 @@ Phases, one output line each (JSON):
    HTTP burst at the reference's defaults (2 ms window, ``max_batch``
    256): 256 client threads POST 8 requests each over loopback, 2,048
    corpus rows with the six alphas, three in four on the exact tier and
-   one in four on ``bf16x3_rescored``, 16 exact ones at k = 40 (kernel C).
+   one in four on ``bf16x3_rescored``, 16 exact ones at k = 40 (the wide
+   candidate stage; kernel C never).
    Every status 200; each top-1 the query's own row or a score at least
    its own blended score less 1e-5; each answer the direct
    ``search_batch`` of its query, alpha, tier and k under the same-k rule
@@ -294,7 +298,8 @@ Phases, one output line each (JSON):
    and D = 4; the exact ``search_batch`` of phase 2's timed batches (k = 10,
    α = 0.7) against phase 2's results, bit for bit where they are and
    under the near-tie rule otherwise (the line says which), kernel B and
-   the candidate stage once a slot, kernel C once a slot at k = 40;
+   the candidate stage once a slot, also at k = 40 (the wide design;
+   kernel C never);
    ``bf16x3_rescored`` and ``int8_rescored`` at D = 4 (D and E once a slot,
    recall@10 against the exact ids); ms a batch of the single card, D = 1
    and D = 4 in turns, with a ``torch.profiler`` pass of each; the merge's
@@ -360,15 +365,22 @@ Phases, one output line each (JSON):
    tail) carries ``launch_ms`` (its C entry point alone), ``launch_floor_ms``,
    ``plain_ms`` (the selection chain on the plain gather), ``chain_ms``
    (the chain with kernel C as its gather) and ``library_ms`` (one
-   ``torch.topk`` over the full [B, n] plane, no id tie-break); kernel C's
-   row keeps the k = 10 shape (c = 14) with its main-path launches (0) and
-   those of the k = 40 search beside them; C is also held bit for bit at
-   c = 44. The stage is held bit for bit (values and ids) against the chain
+   ``torch.topk`` over the full [B, n] plane, no id tie-break), the chain
+   timed first; the same rows at k = 40 and k = 100 (``subtile_topk_wide_k40``,
+   ``_k100``: the wide design, its launch plan held to the library's);
+   kernel C's row has its only route's shape, k = 200 (c = 204), and the
+   k = 200 search's launch; C is also held bit for bit at c = 14. The stage
+   is held bit for bit (values and ids) against the chain
    at random, all-equal, ±0.0-only, half −inf and 1% NaN scores and at
    scores and maxima one element off 16 bytes, for B in {1, 7, 256}, k in
    {1, 10, 16} and tails of 0, 1 and 2,047 columns (64 sub-tiles); with
    every sub-tile selected (1 and 8 sub-tiles); and with the maxima staged
-   in two chunks (5,000 sub-tiles). The rows of kernels E and F carry ``launch_ms``
+   in two chunks (5,000 sub-tiles); the wide design at k in {17, 40, 100,
+   128} with every kind (and scores whose large values lie in 31 threads'
+   positions), B and tail on 140 sub-tiles, with every sub-tile selected,
+   and at the 10M-row index's 39,056 sub-tiles, each at the list cap the
+   wrapper passes and at a cap of 0 (every selection through the radix
+   select). The rows of kernels E and F carry ``launch_ms``
    (the kernel alone) and ``launch_floor_ms`` (the same empty kernel).
    Their launch plans (held equal to the library's) and ptxas reports go to the phase's
    line. Kernel F is held bit for bit at every n in {1, 31, 16384} with
@@ -402,7 +414,8 @@ import time
 N_MAIN, F_MAIN, SEED_MAIN = 1_000_000, 128, 44
 N_WIDE, F_WIDE, SEED_WIDE = 40_000, 768, 45
 BATCH, K, ALPHA, N_BATCHES = 256, 10, 0.7, 3
-K_CHAIN = 40                  # a k past the candidate stage's 16: the selection chain with kernel C
+K_WIDE = (40, 100)            # k of the wide candidate stage (16 < k ≤ 128)
+K_CHAIN = 200                 # a k past the stage's 128: the selection chain with kernel C
 TOL_LAMBDA, TOL_SCORE = 1e-5, 1e-5
 # The quantised tiers of phase 3: (tier, extra search_batch arguments).
 TIERS = (
@@ -437,6 +450,7 @@ EDGE_KINDS_G = ("shuffled", "ties", "zeros", "fills")
 # The candidate stage's edge cases: score kinds, queries, tail widths, k.
 EDGE_KINDS_H = ("random", "equal", "zeros", "fills", "nan", "offset")
 EDGE_B_H, EDGE_NR_H, EDGE_K_H = (1, 7, 256), (0, 1, 2047), (1, 10, 16)
+EDGE_K_WIDE = (17, 40, 100, 128)
 EDGE_SHAPES_D = ((3, 100, 16), (300, 100, 8), (3, 768, 8), (300, 768, 16))
 EDGE_SHAPES_B = ((3, 100), (3, 768), (300, 768))
 # Kernel F's edge cases: every n with every k and m, both forms.
@@ -1571,7 +1585,7 @@ def serve_phase(dev, card, aspace, gl, X):
         n_req = SERVE_CLIENTS * SERVE_PER_CLIENT
         brows = rng.choice(N_MAIN, n_req, replace=False)
         tiers = [("bf16x3_rescored" if i % 4 == 3 else False) for i in range(n_req)]
-        ks = [K_CHAIN if i % (n_req // SERVE_K40) == 0 else K for i in range(n_req)]
+        ks = [K_WIDE[0] if i % (n_req // SERVE_K40) == 0 else K for i in range(n_req)]
         balphas = [SERVE_ALPHAS[i % len(SERVE_ALPHAS)] for i in range(n_req)]
         docs = [{"query": X[r].tolist(), "k": k, "alpha": a, "quantized": t}
                 for r, k, a, t in zip(brows, ks, balphas, tiers)]
@@ -1625,8 +1639,9 @@ def serve_phase(dev, card, aspace, gl, X):
         c_burst = counts["burst"] = kernels.launch_counts()
         burst = burst_metrics(burst_svc, answers, wall)
         verify(answers, "burst")
-        for kname in ("scores_tilemax", "subtile_topk", "gather_subtiles", "tilemax_only", "slab_dots"):
+        for kname in ("scores_tilemax", "subtile_topk", "tilemax_only", "slab_dots"):
             check(c_burst[kname] > 0, f"serve burst: kernel {kname} not launched")
+        check(c_burst["gather_subtiles"] == 0, f"serve burst: the k={K_WIDE[0]} requests launched kernel C")
         # The same traffic's first SERVE_FEW_REQUESTS from SERVE_FEW_CLIENTS
         # threads: fewer Python threads in the process.
         burst_svc.reset_metrics()
@@ -1716,7 +1731,7 @@ def serve_phase(dev, card, aspace, gl, X):
     emit(phase="serve", step="in_memory", card=card, n=N_MAIN, f=F_MAIN, k=K, alphas=SERVE_ALPHAS,
          one_dispatch=one,
          burst=dict(clients=SERVE_CLIENTS, per_client=SERVE_PER_CLIENT,
-                    bf16x3_share=tiers.count("bf16x3_rescored") / n_req, k40_requests=ks.count(K_CHAIN),
+                    bf16x3_share=tiers.count("bf16x3_rescored") / n_req, k40_requests=ks.count(K_WIDE[0]),
                     **burst, launches=c_burst, profile=profile_),
          burst_few_clients=few, errors=errors, closed_services=len(services))
     return counts
@@ -2251,8 +2266,9 @@ def mesh_phase(dev, card, aspace, gl, X, batches, results):
                   f"mesh exact D={d}: launches {c}")
             agree[f"d{d}"].append(rule)
     out["exact_vs_single_card"] = agree
-    (_, _), _, counts["exact_k40"] = _counted(lambda: sa4.search_batch(X[batches[1]], K_CHAIN, ALPHA))
-    check(counts["exact_k40"]["gather_subtiles"] == MESH_SLOTS, f"mesh k=40: {counts['exact_k40']}")
+    (_, _), _, counts["exact_k40"] = _counted(lambda: sa4.search_batch(X[batches[1]], K_WIDE[0], ALPHA))
+    check(counts["exact_k40"]["subtile_topk"] == MESH_SLOTS and counts["exact_k40"]["gather_subtiles"] == 0,
+          f"mesh k={K_WIDE[0]}: the wide stage must launch once a slot and kernel C never: {counts['exact_k40']}")
 
     # 2. The rescored tiers at D = 4: recall@10 against the exact ids.
     out["recall10_vs_exact"] = {}
@@ -2630,9 +2646,9 @@ def main() -> int:
     # The exact tier's candidate stage against the selection chain it
     # replaced (kernel C's gather, the stable sorts), the same timed batches
     # in turns: stage, chain, chain, stage; then a profiled pass of each.
-    def exact_search(route):
+    def exact_search(route, k=K):
         def search(r):
-            return aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)
+            return aspace.search_batch(X[r], gl, k=k, alpha=ALPHA)
         if route == "stage":
             return search
         chain = functools.partial(fused_tilemax, select=tmk.select_topk_plain)
@@ -2646,36 +2662,53 @@ def main() -> int:
         return via_chain
 
     fused_tilemax = so.fused_tilemax
-    turns = {"stage": [], "chain": []}
-    for route in ("stage", "chain", "chain", "stage"):
-        search = exact_search(route)
-        for r in batches[1:]:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            search(r)
-            torch.cuda.synchronize()
-            turns[route].append((time.perf_counter() - t1) * 1e3)
-    stage_vs_chain = {route: dict(search_ms_per_batch_median=statistics.median(ms), search_ms_per_batch=ms,
-                                  profile=traced(exact_search(route)))
-                      for route, ms in turns.items()}
-    for route in stage_vs_chain.values():
-        route["profile"].pop("top_kernels")
 
-    # Kernel C's path: k > 16 keeps the selection chain with kernel C.
-    kernels.reset_launches()
-    k40 = aspace.search_batch(X[batches[1]], gl, k=K_CHAIN, alpha=ALPHA)
-    k40_counts = kernels.launch_counts()
-    check(k40[0].shape == (BATCH, K_CHAIN) and np.array_equal(k40[0][:, :K], results[1][1]),
-          f"k={K_CHAIN}: the first {K} ids differ from the k={K} search's")
-    check(k40_counts["gather_subtiles"] == 1 and k40_counts["subtile_topk"] == 0,
-          f"k={K_CHAIN}: kernel C must launch once and the candidate stage never: {k40_counts}")
+    def stage_vs_chain_at(k):
+        """Whole searches at k through the stage and through the chain, in
+        turns (chain first), then a profiled pass of each route."""
+        turns = {"chain": [], "stage": []}
+        for route in ("chain", "stage", "stage", "chain"):
+            search = exact_search(route, k)
+            for r in batches[1:]:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                search(r)
+                torch.cuda.synchronize()
+                turns[route].append((time.perf_counter() - t1) * 1e3)
+        out = {route: dict(search_ms_per_batch_median=statistics.median(ms), search_ms_per_batch=ms,
+                           profile=traced(exact_search(route, k)))
+               for route, ms in turns.items()}
+        for route in out.values():
+            route["profile"].pop("top_kernels")
+        return out
+
+    stage_vs_chain = {f"k{k}": stage_vs_chain_at(k) for k in (K, K_WIDE[1])}
+
+    # The wide stage's path (16 < k ≤ 128): one launch, kernel C never; at
+    # k = 100 the same ids and score bits as the chain's; kernel C's path
+    # beyond 128.
+    k_counts, k_res = {}, {}
+    for kw in (*K_WIDE, K_CHAIN):
+        kernels.reset_launches()
+        k_res[kw] = aspace.search_batch(X[batches[1]], gl, k=kw, alpha=ALPHA)
+        k_counts[kw] = kernels.launch_counts()
+        check(k_res[kw][0].shape == (BATCH, kw) and np.array_equal(k_res[kw][0][:, :K], results[1][1]),
+              f"k={kw}: the first {K} ids differ from the k={K} search's")
+        stage, chain = (1, 0) if kw <= tmk.TOPK_MAX_K_WIDE else (0, 1)
+        check(k_counts[kw]["subtile_topk"] == stage and k_counts[kw]["gather_subtiles"] == chain,
+              f"k={kw}: the candidate stage must launch {stage} and kernel C {chain} times: {k_counts[kw]}")
+    k100_chain = exact_search("chain", K_WIDE[1])(batches[1])
+    k100_equal = bool(np.array_equal(k100_chain[0], k_res[K_WIDE[1]][0])
+                      and np.array_equal(k100_chain[1].view(np.int32), k_res[K_WIDE[1]][1].view(np.int32)))
+    check(k100_equal, f"k={K_WIDE[1]}: the stage's ids or score bits differ from the chain's")
     emit(phase="main", n=N_MAIN, f=F_MAIN, batch=BATCH, k=K, card=card,
          build_seconds=build_s, stage_seconds=builder.last_stage_timings,
          n_clusters=aspace.n_clusters, warmup_ms=batch_ms[0],
          search_ms_per_batch_median=statistics.median(batch_ms[1:]),
          search_ms_per_batch=batch_ms[1:], launches=main_counts,
          self_query_failures=self_fail[:10], plain_route_mismatches=plain_mismatch[:10],
-         candidate_stage_vs_chain=stage_vs_chain, launches_at_k40=k40_counts)
+         candidate_stage_vs_chain=stage_vs_chain, launches_at_k=k_counts,
+         k100_bit_equal_to_chain=k100_equal)
 
     emit(phase="profile", card=card,
          **traced(lambda r: aspace.search_batch(X[r], gl, k=K, alpha=ALPHA)))
@@ -3602,18 +3635,18 @@ def main() -> int:
                      tmk.scores_tilemax_plan(BATCH, F_MAIN), tmk.scores_tilemax_plan_chosen(Xt, Q))
 
     c = min(ns, K + so.SELECT_MARGIN)
+    c_chain = min(ns, K_CHAIN + so.SELECT_MARGIN)           # kernel C's live shape: k = 200
     ts = tile // tmk.SUBS
     s3 = s_k.view(BATCH, ns, ts)
-    for c_g in (c, min(ns, K_CHAIN + so.SELECT_MARGIN)):     # the shapes of k = 10 and k = 40
+    for c_g in (c, c_chain):
         sel = torch.sort(so.topk_stable(m_k, c_g)[1], dim=1).values
         g_k = tmk.gather_subtiles(s_k, sel, ts)
         g_p = tmk.gather_subtiles_plain(s_k, sel, ts)
         check(bool(torch.equal(g_k, g_p)), f"gather_subtiles c={c_g}: kernel vs plain")
-    sel = torch.sort(so.topk_stable(m_k, c)[1], dim=1).values
-    err_c = float((tmk.gather_subtiles(s_k, sel, ts) - tmk.gather_subtiles_plain(s_k, sel, ts)).abs().max())
-    gidx = sel[:, :, None].expand(BATCH, c, ts)
-    c_launches, c_by_path = launches_by_path("gather_subtiles", main_counts["gather_subtiles"])
-    bms, by = bound(2 * 4 * BATCH * c * ts + 8 * BATCH * c, 0)
+    err_c = float((g_k - g_p).abs().max())
+    gidx = sel[:, :, None].expand(BATCH, c_chain, ts)
+    c_launches, c_by_path = launches_by_path("gather_subtiles", k_counts[K_CHAIN]["gather_subtiles"])
+    bms, by = bound(2 * 4 * BATCH * c_chain * ts + 8 * BATCH * c_chain, 0)
     rows_out.append(dict(
         name="gather_subtiles", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
         replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
@@ -3622,54 +3655,66 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: tmk.gather_subtiles_plain(s_k, sel, ts), reps=20),
         bound_ms=bms, bound_by=by,
         library_ms=cuda_ms(lambda: torch.gather(s3, 1, gidx), reps=20),
-        shape=f"B={BATCH} c={c} ts={ts}",
-        launches_at_k40=k40_counts["gather_subtiles"],
+        shape=f"B={BATCH} c={c_chain} ts={ts} (k = {K_CHAIN}, its only route)",
     ))
 
     # The candidate stage on the same batch: kernel B's scores and maxima,
-    # the ragged tail as fused_tilemax scores it.
+    # the ragged tail as fused_tilemax scores it; at k = 10 (warp lists)
+    # and at k = 40 and 100 (the wide design). The chain with kernel C (the
+    # route each k took before the stage) is timed first.
     tail = so._batched_scores(Xt[n0:], norms[n0:], lams[n0:], Q, ql, alphas)
     nr = tail.shape[1]
-    stage_args = (s3, m_k, tail, N_MAIN, K, so.SELECT_MARGIN)
-    top_k, idx_k = tmk.select_topk(*stage_args)
-    top_p, idx_p = tmk.select_topk_plain(*stage_args, gather=lambda sel: tmk.gather_subtiles_plain(s_k, sel, ts))
-    check(bool(torch.equal(idx_k, idx_p)) and bit_equal(top_k, top_p), "subtile_topk: kernel vs plain")
-    lib_t = _cuda.library("tilemax")
-    top_o, idx_o = torch.empty_like(top_k), torch.empty_like(idx_k)
-    stream = _cuda.stream_ptr(dev)
-
-    def stage_launch():
-        _cuda.check(lib_t, lib_t.mrs_subtile_topk(
-            s3.data_ptr(), m_k.data_ptr(), tail.data_ptr(), BATCH, ns, nr, c, K,
-            top_o.data_ptr(), idx_o.data_ptr(), stream), "subtile_topk kernel")
-
     full = torch.cat([s_k, tail], dim=1)
-    bms, by = bound(4 * BATCH * (ns + c * ts + nr) + 12 * BATCH * K, 0)
-    h_launches, h_by_path = launches_by_path("subtile_topk", main_counts["subtile_topk"])
-    rows_out.append(dict(
-        name="subtile_topk", route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
-        replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
-        launches=h_launches, launches_by_path=h_by_path,
-        max_abs_err=float((top_k - top_p).abs().max()),
-        ms=cuda_ms(lambda: tmk.select_topk(*stage_args), reps=20),
-        launch_ms=cuda_ms(stage_launch, reps=20),
-        launch_floor_ms=cuda_ms(lambda: sfk.empty_launch(dev), reps=20),
-        plain_ms=cuda_ms(lambda: tmk.select_topk_plain(
-            *stage_args, gather=lambda sel: tmk.gather_subtiles_plain(s_k, sel, ts)), reps=20),
-        chain_ms=cuda_ms(lambda: tmk.select_topk_plain(
-            *stage_args, gather=lambda sel: tmk.gather_subtiles(s_k, sel, ts)), reps=20),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.topk(full, K, dim=1), reps=20),
-        shape=f"B={BATCH} ns={ns} c={c} ts={ts} tail={nr} k={K}",
-        replaces_also="matternet_rs_tpu/ops/search.py:290 (_tilemax_select, the XLA selection around the gather)",
-        chain="the selection chain with kernel C as its gather",
-        library="torch.topk over the full [B, n] score plane (no id tie-break)",
-        launch_floor="an empty kernel, timed the same way",
-    ))
+    floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
     log = buildcache.BUILD_LOG.get("tilemax")
-    resources["subtile_topk"] = dict(ptxas=ptxas_resources(log, "subtile_topk_kernel"))
-    check(log is None or resources["subtile_topk"]["ptxas"] is not None,
-          "subtile_topk: no ptxas report in the build log")
+
+    def stage_row(kk, name, launches, by_path):
+        c_s = min(ns, kk + so.SELECT_MARGIN)
+        stage_args = (s3, m_k, tail, N_MAIN, kk, so.SELECT_MARGIN)
+
+        def chain(gather):
+            return tmk.select_topk_plain(*stage_args, gather=lambda sel: gather(s_k, sel, ts))
+
+        chain_ms = cuda_ms(lambda: chain(tmk.gather_subtiles), reps=20)
+        top_k, idx_k = tmk.select_topk(*stage_args)
+        top_p, idx_p = chain(tmk.gather_subtiles_plain)
+        check(bool(torch.equal(idx_k, idx_p)) and bit_equal(top_k, top_p), f"{name}: kernel vs plain")
+        ops = tmk._subtile_topk_operands(*stage_args)      # the wrapper's checks and outputs, made once
+        bms, by = bound(4 * BATCH * (ns + c_s * ts + nr) + 12 * BATCH * kk, 0)
+        rows_out.append(dict(
+            name=name, route="cuda", source="matternet_rs_tpu_torch/csrc/tilemax.cu",
+            replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:622",
+            launches=launches, launches_by_path=by_path,
+            max_abs_err=float((top_k - top_p).abs().max()),
+            ms=cuda_ms(lambda: tmk.select_topk(*stage_args), reps=20),
+            launch_ms=cuda_ms(lambda: tmk._subtile_topk_launch(*ops), reps=20),
+            launch_floor_ms=floor_ms,
+            plain_ms=cuda_ms(lambda: chain(tmk.gather_subtiles_plain), reps=20),
+            chain_ms=chain_ms,
+            bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(lambda: torch.topk(full, kk, dim=1), reps=20),
+            shape=f"B={BATCH} ns={ns} c={c_s} ts={ts} tail={nr} k={kk}",
+            design="warp lists in registers" if kk <= tmk.TOPK_MAX_K else "shared-memory lists, radix fallback",
+            replaces_also="matternet_rs_tpu/ops/search.py:290 (_tilemax_select, the XLA selection around the gather)",
+            chain="the selection chain with kernel C as its gather",
+            library="torch.topk over the full [B, n] score plane (no id tie-break)",
+            launch_floor="an empty kernel, timed the same way",
+        ))
+        entry = "subtile_topk_kernel" if kk <= tmk.TOPK_MAX_K else "subtile_topk_wide_kernel"
+        resources[name] = dict(ptxas=ptxas_resources(log, entry))
+        if kk > tmk.TOPK_MAX_K:
+            record_resources(name, "tilemax", entry, tmk.subtile_topk_wide_plan(),
+                             tmk.subtile_topk_wide_plan_chosen())
+        check(log is None or resources[name]["ptxas"] is not None, f"{name}: no ptxas report in the build log")
+
+    # One counter for both designs: serving and the mesh launch the stage
+    # at k = 10 and at k = 40, counted in this row.
+    stage_row(K, "subtile_topk", *launches_by_path("subtile_topk", main_counts["subtile_topk"]))
+    for kk in K_WIDE:
+        by_path = {f"main_k{kk}": k_counts[kk]["subtile_topk"]}
+        if kk == K_WIDE[0]:
+            by_path["mesh_k40"] = mesh_counts["exact_k40"]["subtile_topk"]
+        stage_row(kk, f"subtile_topk_wide_k{kk}", sum(by_path.values()), by_path)
     del s_k, s_p, s3, full, tail
 
     # Kernel D in its three modes, on the tiers' own inputs; the bf16x3 and
@@ -4120,8 +4165,10 @@ def main() -> int:
             v = torch.where(u < 0.5, -float("inf"), v)
         elif kind == "nan":
             v = torch.where(u < 0.01, float("nan"), v)
+        elif kind == "striped":
+            v = v + 10.0 * ((torch.arange(n_e, device=dev) % 2048) < 124)
         main = v[:, :ns_e * 256].contiguous()
-        tmax = main.view(b_e, ns_e, 256).amax(dim=2)
+        tmax = main.view(b_e, ns_e, 256).amax(dim=2) + (1.0 if kind == "overstated" else 0.0)
         if kind == "offset":
             main, tmax = misaligned(main), misaligned(tmax)
         return main.view(b_e, ns_e, 256), tmax, (v[:, ns_e * 256:].contiguous() if nr_e else None), n_e
@@ -4131,13 +4178,30 @@ def main() -> int:
     stage_cases += [(b_e, ns_e, nr_e, kind, 16) for ns_e in (1, 8) for kind in ("random", "equal")
                     for b_e in EDGE_B_H for nr_e in EDGE_NR_H]
     stage_cases += [(7, 5000, 576, "random", k_e) for k_e in EDGE_K_H]
+    # The wide design (16 < k ≤ 128): every kind with every B, tail and k
+    # (140 sub-tiles: c < ns up to k = 128; also maxima 1 above their
+    # sub-tiles, where the first bar fails its count), every sub-tile
+    # selected with the large scores in 31 threads' positions (more than a
+    # list holds reach either bar: the radix select), the 10M-row index's
+    # maxima; each also with a list cap of 0 (every selection through the
+    # radix select).
+    stage_cases += [(b_e, 140, nr_e, kind, k_e) for kind in EDGE_KINDS_H + ("striped", "overstated")
+                    for b_e in EDGE_B_H for nr_e in EDGE_NR_H for k_e in EDGE_K_WIDE]
+    stage_cases += [(b_e, k_e + so.SELECT_MARGIN, nr_e, kind, k_e) for kind in ("striped", "equal")
+                    for b_e in EDGE_B_H for nr_e in EDGE_NR_H for k_e in EDGE_K_WIDE]
+    stage_cases += [(7, 39_056, 576, kind, k_e) for kind in ("random", "striped") for k_e in EDGE_K_WIDE]
     for b_e, ns_e, nr_e, kind, k_e in stage_cases:
         main_e, tmax_e, tail_e, n_e = stage_scores(b_e, ns_e, nr_e, kind)
-        tk_, ik_ = tmk.select_topk(main_e, tmax_e, tail_e, n_e, k_e, so.SELECT_MARGIN)
-        tp_, ip_ = tmk.select_topk_plain(main_e, tmax_e, tail_e, n_e, k_e, so.SELECT_MARGIN)
-        same = bool(torch.equal(ik_, ip_)) and bit_equal(tk_, tp_)
+        args_e = (main_e, tmax_e, tail_e, n_e, k_e, so.SELECT_MARGIN)
+        tp_, ip_ = tmk.select_topk_plain(*args_e)
+        got = [tmk.select_topk(*args_e)]
+        if k_e > tmk.TOPK_MAX_K:
+            ops_e = tmk._subtile_topk_operands(*args_e)
+            tmk._subtile_topk_launch(*ops_e, cap=0)
+            got.append(ops_e[2:])
+        same = all(bool(torch.equal(ik_, ip_)) and bit_equal(tk_, tp_) for tk_, ik_ in got)
         what = (f"subtile_topk B={b_e} ns={ns_e} c={min(ns_e, k_e + so.SELECT_MARGIN)} tail={nr_e} "
-                f"k={k_e} {kind}")
+                f"k={k_e} {kind}{' (cap 512 and 0)' if len(got) > 1 else ''}")
         edge.append(dict(case=what, bit_equal=same))
         check(same, f"{what}: kernel vs plain")
     torch.cuda.synchronize()

@@ -50,8 +50,8 @@
 //   sub-tile) copies ts contiguous floats with coalesced 16-byte loads
 //   and stores. The TPU's 8-row DMA band and masked sublane sum existed
 //   for Mosaic's alignment rules and do not carry over; any B works. The
-//   exact tier calls it only for kk > 16; below, the stage that follows
-//   takes its place.
+//   exact tier calls it only for kk > 128 (c = kk + 4 > 132); below, the
+//   stage that follows takes its place.
 //
 // The exact tier's candidate stage (subtile_topk_kernel) replaces
 // tilemax_fused.py:622 `gather_subtiles` together with the XLA selection
@@ -82,6 +82,22 @@
 //   take_filtered keeps the per-candidate work to one 32-bit compare and
 //   lets only the few candidates that reach its bar (about c, then kk, on
 //   the main path) into the bitonic networks, ranked by warp 0 alone.
+//
+// For 16 < kk ≤ 128 the same stage is subtile_topk_wide_kernel: one
+// register lane a list entry stops at 32, so this design keeps its lists in
+// shared memory. What bounds it: bytes, 4·B·(ns + c·ts + nr) + 12·B·kk
+// (32.2 MB, 9.6 µs at B = 256, ns = 3,904, c = 104, nr = 576, kk = 100).
+// One block of 512 threads per query reads the maxima, then the c
+// sub-tiles and the tail, where they lie (no staging: 12 KB of shared
+// memory a block, two blocks an SM). Each selection takes a bar that at
+// least k keys reach, lists the few candidates that reach it and ranks
+// them against each other, and falls back to an exact radix select where a
+// row lets through more than the list holds, so it is exact whatever the
+// data (select_best below). Staging the sub-tiles in shared memory (up to
+// 140 KB: one block an SM), a 512-wide bitonic sort of the thread bests and
+// a ballot per position each measured slower (clock64 per step); what
+// bounds this design is the latency of each thread's chain of loads and
+// compares, not the bytes (a warm L2 is no faster).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -306,6 +322,347 @@ subtile_topk_kernel(const float* __restrict__ scores, const float* __restrict__ 
   }
 }
 
+// ---- The candidate stage for 16 < k ≤ 128 (subtile_topk_wide_kernel) ----
+//
+// One block of WIDE_THREADS per query. Each of its two selections (the c
+// best sub-tiles by (maximum, sub-tile id), then the best k candidates by
+// (score, global id)) takes the best k of n distinct 64-bit keys
+// (warp_topk.cuh's order_key) in select_best:
+//   1. a bar that at least k keys reach, so every one of the best k does:
+//      for the candidates, the c-th best maximum's score (each selected
+//      sub-tile holds its maximum), checked by counting; otherwise, or
+//      where fewer than k or more than `cap` keys reach it, the k-th best
+//      of the thread bests (thread t's best key of its units of 4
+//      positions t, t + WIDE_THREADS, ...), found by a sort of 32 in each
+//      warp and the thread bests' ranks by binary search in the 16 sorted
+//      lists;
+//   2. the keys that reach it are compacted (an atomic each: few reach it)
+//      into a list of `cap` (≤ WIDE_CAP) entries; a pass compares
+//      the score's half of each key and computes a position's id only
+//      where the score ties the bar's or passes;
+//   3. where more than `cap` reach it, an exact MSB-first radix select on
+//      the keys that reach it — 8-bit digits, a shared histogram, warp-
+//      aggregated increments — finds the k-th key itself, and the keys
+//      from there are compacted again: exactly k;
+//   4. each listed key's rank is the number of listed keys above it (the
+//      keys are distinct): ranks below k are written out in key order.
+// Every pass reads the maxima or the candidates from device memory where
+// they lie, 16 bytes a thread where the row is aligned, the next UNROLL
+// units of 4 in flight while a thread compares the last (the candidates
+// once on the common path; a fallback reads them again from L2), so a
+// block needs 12 KB of shared memory and two share an SM (64 registers).
+// Nothing is read back to the host or allocated; positions are 32-bit.
+
+constexpr int WIDE_THREADS = 512;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_MAX_K = 128;
+constexpr int WIDE_MAX_C = WIDE_MAX_K + 4;            // c ≤ kk + SELECT_MARGIN
+constexpr int WIDE_CAP = 512;                         // a bar's survivors ranked directly
+constexpr int UNROLL = 2;                             // units of 4 positions a thread loads at a time
+constexpr unsigned FULL = 0xffffffffu;
+
+struct WideShared {
+  uint64_t key[WIDE_CAP];                             // the listed candidates' keys
+  uint32_t pos[WIDE_CAP];                             // and positions
+  uint64_t best[WIDE_THREADS];                        // the thread bests, a sorted list a warp
+  uint32_t hist[256];
+  int top[WIDE_MAX_C];                                // the best c sub-tiles, by key
+  int sel[WIDE_MAX_C];                                // the same, ids ascending
+  uint64_t prefix, bar, kth;
+  int count, need, done;
+};
+
+__device__ __forceinline__ void load4(const float* p, bool vec, float (&v)[4]) {
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = p[j];
+  }
+}
+
+// A query's sub-tile maxima: position e is sub-tile e.
+struct MaximaRow {
+  const float* row;
+  int n;
+  bool vec;                                           // row 16-byte aligned
+  __device__ void load(int u, float (&v)[4]) const {
+    const int e = 4 * u;
+    if (e + 4 <= n) {
+      load4(row + e, vec, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = e + j < n ? row[e + j] : 0.f;
+    }
+  }
+  __device__ int id(int e) const { return e; }
+  __device__ float value(int e) const { return row[e]; }
+};
+
+// A query's candidates in the plain chain's order: the selected sub-tiles
+// (ids ascending, `sel`), then the tail; n = main_len + nr.
+struct CandidateRow {
+  const float* srow;                                  // the query's scores [n0]
+  const float* trow;                                  // its tail [nr]
+  const int* sel;
+  int main_len, n, n0;
+  bool vec;                                           // srow 16-byte aligned
+  __device__ void load(int u, float (&v)[4]) const {
+    const int e = 4 * u;                              // main_len is a multiple of 4
+    if (e < main_len) {
+      load4(srow + sel[e / TOPK_TS] * TOPK_TS + e % TOPK_TS, vec, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = e + j < n ? trow[e + j - main_len] : 0.f;
+    }
+  }
+  __device__ int id(int e) const {
+    return e < main_len ? sel[e / TOPK_TS] * TOPK_TS + e % TOPK_TS : n0 + (e - main_len);
+  }
+  __device__ float value(int e) const {
+    return e < main_len ? srow[sel[e / TOPK_TS] * TOPK_TS + e % TOPK_TS] : trow[e - main_len];
+  }
+};
+
+// UNROLL units of the row from unit u0 on (this thread's: u0 + i·WIDE_THREADS
+// + tid), and f for each of their positions.
+template <class Row>
+__device__ __forceinline__ void load_units(const Row& row, int u0, int units, int tid, float (&v)[UNROLL][4]) {
+#pragma unroll
+  for (int i = 0; i < UNROLL; ++i) {
+    const int u = u0 + i * WIDE_THREADS + tid;
+    if (u < units) row.load(u, v[i]);
+  }
+}
+template <class Row, class F>
+__device__ __forceinline__ void take_units(const Row& row, int u0, int tid, const float (&v)[UNROLL][4], F& f) {
+#pragma unroll
+  for (int i = 0; i < UNROLL; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = 4 * (u0 + i * WIDE_THREADS + tid) + j;
+      const bool valid = e < row.n;
+      f(e, valid ? warptopk::score_bits(v[i][j]) : 0u, valid);
+    }
+}
+
+// f(e, bits, valid) for every position e of the row, `bits` its score's
+// half of the key (warp_topk.cuh's score_bits): thread t takes the units
+// of 4 positions t, t + WIDE_THREADS, ..., ascending, UNROLL units loaded
+// at once and the next UNROLL in flight while it compares. Every lane of a
+// warp calls f together (it may use warp votes). A position's id, the
+// key's other half, is computed only where the score leaves the order
+// open.
+template <class Row, class F>
+__device__ __forceinline__ void for_scores(const Row& row, int tid, F f) {
+  constexpr int STEP = UNROLL * WIDE_THREADS;
+  const int units = (row.n + 3) / 4;
+  float a[UNROLL][4], b[UNROLL][4];
+  load_units(row, 0, units, tid, a);
+  for (int u0 = 0; u0 < units; u0 += 2 * STEP) {
+    if (u0 + STEP < units) load_units(row, u0 + STEP, units, tid, b);
+    take_units(row, u0, tid, a, f);
+    if (u0 + STEP >= units) break;                  // block-uniform
+    if (u0 + 2 * STEP < units) load_units(row, u0 + 2 * STEP, units, tid, a);
+    take_units(row, u0 + STEP, tid, b, f);
+  }
+}
+
+// Whether position e's key (its score's `bits`, then its id) is ≥ bar.
+template <class Row>
+__device__ __forceinline__ bool reaches(const Row& row, int e, uint32_t bits, uint64_t bar) {
+  const uint32_t bar_bits = (uint32_t)(bar >> 32);
+  return bits > bar_bits || (bits == bar_bits && warptopk::id_bits(row.id(e)) >= (uint32_t)bar);
+}
+
+// The k-th best of the thread bests (0 where fewer than k threads saw a
+// candidate: every key is above 0). Ids ascend with positions, so a
+// thread's first position of its best score holds its best key.
+template <class Row>
+__device__ uint64_t thread_best_bar(WideShared& s, const Row& row, int k, int tid) {
+  const int lane = tid & 31;
+  uint32_t best_bits = 0;                             // below every score's (−inf's: 0x007fffff)
+  int best_e = -1;
+  for_scores(row, tid, [&](int e, uint32_t bits, bool) {
+    if (bits > best_bits) {
+      best_bits = bits;
+      best_e = e;
+    }
+  });
+  uint64_t best = best_e < 0 ? 0ull : ((uint64_t)best_bits << 32) | warptopk::id_bits(row.id(best_e));
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)        // bitonic, best in lane 0
+#pragma unroll
+    for (int m = size >> 1; m > 0; m >>= 1) {
+      const uint64_t o = __shfl_xor_sync(FULL, best, m);
+      const bool take_larger = ((lane & m) == 0) == ((lane & size) == 0);
+      best = take_larger == (o > best) ? o : best;
+    }
+  s.best[tid] = best;
+  if (tid == 0) s.bar = 0;
+  __syncthreads();
+  if (best != 0) {                                    // its rank: the larger keys of every list
+    int lo[WIDE_WARPS];
+#pragma unroll
+    for (int w = 0; w < WIDE_WARPS; ++w) lo[w] = 0;
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)       // the 16 searches side by side
+#pragma unroll
+      for (int w = 0; w < WIDE_WARPS; ++w)
+        if (s.best[w * 32 + lo[w] + step - 1] > best) lo[w] += step;
+    int r = 0;
+#pragma unroll
+    for (int w = 0; w < WIDE_WARPS; ++w) r += lo[w] + (s.best[w * 32 + lo[w]] > best ? 1 : 0);
+    if (r == k - 1) s.bar = best;
+  }
+  __syncthreads();
+  const uint64_t bar = s.bar;
+  __syncthreads();                                    // s.bar is reset by the next call
+  return bar;
+}
+
+// The keys ≥ bar into the list (the first `room` of them); returns how
+// many there are, counted past `room`.
+template <class Row>
+__device__ int compact(WideShared& s, const Row& row, uint64_t bar, int room, int tid) {
+  if (tid == 0) s.count = 0;
+  __syncthreads();
+  for_scores(row, tid, [&](int e, uint32_t bits, bool valid) {
+    if (valid && reaches(row, e, bits, bar)) {      // few do: an atomic each
+      const int i = atomicAdd(&s.count, 1);
+      if (i < room) {
+        s.key[i] = ((uint64_t)bits << 32) | warptopk::id_bits(row.id(e));
+        s.pos[i] = (uint32_t)e;
+      }
+    }
+  });
+  __syncthreads();
+  const int count = s.count;
+  __syncthreads();                                    // s.count is reset by the next call
+  return count;
+}
+
+// The k-th best key among the keys ≥ lo (at least k of them), MSB first,
+// 8 bits a round; returns the threshold from which exactly k keys are ≥ lo
+// and ≥ it. A round ends the search once the digit that holds the k-th
+// key holds nothing beyond it; the last round always does (distinct keys).
+template <class Row>
+__device__ uint64_t radix_kth(WideShared& s, const Row& row, int k, uint64_t lo, int tid) {
+  uint64_t prefix = 0;
+  int need = k;
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    const uint64_t hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    if (tid < 256) s.hist[tid] = 0;
+    __syncthreads();
+    for_scores(row, tid, [&](int e, uint32_t bits, bool valid) {
+      const uint64_t key = valid ? ((uint64_t)bits << 32) | warptopk::id_bits(row.id(e)) : 0ull;
+      const int d = valid && key >= lo && (key & hi) == prefix ? (int)((key >> shift) & 255) : -1;
+      const unsigned peers = __match_any_sync(FULL, d);   // one increment per digit a warp
+      if (d >= 0 && (tid & 31) == __ffs(peers) - 1) atomicAdd(&s.hist[d], (uint32_t)__popc(peers));
+    });
+    __syncthreads();
+    if (tid < 32) {                                   // lane l holds digits 8l .. 8l + 7
+      uint32_t h[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        h[j] = s.hist[tid * 8 + j];
+        sum += h[j];
+      }
+      uint32_t suf = sum;                             // the digits of lanes ≥ this one
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t t = __shfl_down_sync(FULL, suf, o);
+        if (tid + o < 32) suf += t;
+      }
+      uint32_t acc = suf - sum;                       // keys in larger digits
+#pragma unroll
+      for (int j = 7; j >= 0; --j) {
+        if (acc < (uint32_t)need && acc + h[j] >= (uint32_t)need) {
+          s.prefix = prefix | ((uint64_t)(tid * 8 + j) << shift);
+          s.need = need - (int)acc;
+          s.done = h[j] == (uint32_t)(need - (int)acc);
+        }
+        acc += h[j];
+      }
+    }
+    __syncthreads();
+    prefix = s.prefix;
+    need = s.need;
+    if (s.done) break;                                // block-uniform
+  }
+  return prefix > lo ? prefix : lo;
+}
+
+// Steps 1-3 above: lists at least k and at most WIDE_CAP candidates, the
+// best k among them; returns how many. `hint` (0: none) is a bar to try
+// first; where fewer than k or more than `cap` keys reach it, the thread
+// bests' bar is taken if it is the higher (both are valid bars then).
+template <class Row>
+__device__ int select_best(WideShared& s, const Row& row, int k, int cap, uint64_t hint, int tid) {
+  uint64_t bar = hint;
+  int m = hint != 0 ? compact(s, row, bar, cap, tid) : 0;
+  if (m < k || m > cap) {
+    const uint64_t own = thread_best_bar(s, row, k, tid);
+    if (m < k || own > bar) {
+      bar = own;
+      m = compact(s, row, bar, cap, tid);
+    }
+  }
+  if (m > cap) m = compact(s, row, radix_kth(s, row, k, bar, tid), WIDE_CAP, tid);
+  return m;
+}
+
+// Step 4: emit(r, pos) for the listed candidates of rank r < k; s.kth
+// becomes the k-th key.
+template <class Emit>
+__device__ void rank_best(WideShared& s, int m, int k, int tid, Emit emit) {
+  for (int i = tid; i < m; i += WIDE_THREADS) {
+    const uint64_t key = s.key[i];
+    int r = 0;
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) r += s.key[j] > key;
+    if (r < k) emit(r, s.pos[i]);
+    if (r == k - 1) s.kth = key;
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+subtile_topk_wide_kernel(const float* __restrict__ scores, const float* __restrict__ submax,
+                         const float* __restrict__ tail, int ns, int nr, int c, int k, int cap,
+                         float* __restrict__ top, int64_t* __restrict__ idx) {
+  __shared__ WideShared s;
+  const int64_t bq = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n0 = ns * TOPK_TS, main_len = c * TOPK_TS;
+  const float* mrow = submax + bq * ns;
+  const float* srow = scores + bq * n0;
+
+  // (a) The c sub-tiles with the largest maxima; (b) their ids ascending.
+  const MaximaRow maxima{mrow, ns, (reinterpret_cast<uintptr_t>(mrow) & 15) == 0};
+  int m = select_best(s, maxima, c, cap, 0ull, tid);
+  rank_best(s, m, c, tid, [&](int r, uint32_t pos) { s.top[r] = (int)pos; });
+  __syncthreads();
+  for (int i = tid; i < c; i += WIDE_THREADS) {
+    const int id = s.top[i];
+    int r = 0;
+#pragma unroll 8
+    for (int j = 0; j < c; ++j) r += s.top[j] < id;
+    s.sel[r] = id;
+  }
+  __syncthreads();
+
+  // (c, d) The best k of the candidates, written in order; the first bar
+  // is the c-th best maximum's score, whatever the id.
+  const CandidateRow cand{srow, tail + bq * nr, s.sel, main_len, main_len + nr, n0,
+                          (reinterpret_cast<uintptr_t>(srow) & 15) == 0};
+  m = select_best(s, cand, k, cap, s.kth & 0xffffffff00000000ull, tid);
+  rank_best(s, m, k, tid, [&](int r, uint32_t pos) {
+    top[bq * k + r] = cand.value((int)pos);
+    idx[bq * k + r] = cand.id((int)pos);
+  });
+}
+
 // 16-byte copies need f a multiple of 4 floats and both addresses aligned.
 inline int vec_copies(const float* X, const float* Q, int f) {
   return f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
@@ -382,6 +739,31 @@ int mrs_subtile_topk(const float* scores, const float* submax, const float* tail
   subtile_topk_kernel<<<b, TOPK_THREADS, 0, (cudaStream_t)stream>>>(scores, submax, tail, ns, nr,
                                                                      c, k, top, idx);
   return (int)cudaGetLastError();
+}
+
+
+// As mrs_subtile_topk for 16 < k ≤ 128 (any k ≥ 1 is taken): c ≤ 132 and
+// c ≤ ns, k ≤ c·256 + nr. `cap` (0 .. 512; the wrapper passes 512) is how
+// many candidates a bar may let through before the radix select takes
+// over; 0 sends every selection through the radix select. Returns
+// cudaGetLastError() after the launch.
+int mrs_subtile_topk_wide(const float* scores, const float* submax, const float* tail, int b, int ns,
+                          int nr, int c, int k, int cap, float* top, int64_t* idx, void* stream) {
+  if (b <= 0 || ns <= 0 || c < 1 || c > WIDE_MAX_C || c > ns || k < 1 || k > WIDE_MAX_K ||
+      k > c * TOPK_TS + nr || cap < 0 || cap > WIDE_CAP || nr < 0 || nr > TOPK_MAX_TAIL ||
+      (nr > 0 && tail == nullptr) || (int64_t)ns * TOPK_TS + nr > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  subtile_topk_wide_kernel<<<b, WIDE_THREADS, 0, (cudaStream_t)stream>>>(scores, submax, tail, ns, nr, c,
+                                                                       k, cap, top, idx);
+  return (int)cudaGetLastError();
+}
+
+// What mrs_subtile_topk_wide chooses: *threads a block (one block a
+// query) and the *cap the wrapper passes.
+int mrs_subtile_topk_wide_plan(int* threads, int* cap) {
+  *threads = WIDE_THREADS;
+  *cap = WIDE_CAP;
+  return 0;
 }
 
 }  // extern "C"

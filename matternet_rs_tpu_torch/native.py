@@ -86,8 +86,18 @@ def get_lib():
             ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        lib.mrs_nearest_centroid.restype = None
+        lib.mrs_nearest_centroid.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the clustering library built and loaded."""
+    return get_lib() is not None
 
 
 def incremental_cluster(X: np.ndarray, max_clusters: int, radius: float,
@@ -122,6 +132,24 @@ def incremental_cluster(X: np.ndarray, max_clusters: int, radius: float,
     # Copies, so the results do not pin the [cap, F] buffers.
     return (centroids[:ncent].astype(np.float32), assignments, counts[:ncent].copy(),
             m2[:ncent].copy())
+
+
+def nearest_centroid_batch(X: np.ndarray, centroids: np.ndarray):
+    """Native batch nearest-centroid (no creation): each row's nearest
+    centroid by float64 squared distance, the first of equal distances.
+    Returns ``(idx [N] i64, d2 [N] f64)`` or None when the library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    X = np.ascontiguousarray(X, np.float32)
+    C = np.ascontiguousarray(centroids, np.float64)
+    n, f = X.shape
+    idx = np.zeros(n, np.int64)
+    d2 = np.zeros(n, np.float64)
+    lib.mrs_nearest_centroid(X.ctypes.data, n, f, C.ctypes.data, len(C),
+                             idx.ctypes.data, d2.ctypes.data)
+    return idx, d2
 
 
 def get_shard_lib():

@@ -41,3 +41,9 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``torch.matmul`` on bf16 tensors would round the result to bf16, so
     this multiplies the f32 widenings at full f32 instead."""
     return torch.matmul(_bf16_values(a), _bf16_values(b))
+
+
+def mm_fast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The reference's default-precision product (``mm_fast``: bf16
+    multiplicands on its chip, sums in f32), which is :func:`mm_bf16`."""
+    return mm_bf16(a, b)

@@ -45,6 +45,10 @@ SIGNATURES = {
         "mrs_gather_subtiles": [_P, _P, _P, _I, _I, _I, _I64, _P],
         # scores, submax, tail (or null), b, ns, nr, c, k, top, idx, stream
         "mrs_subtile_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        # scores, submax, tail (or null), b, ns, nr, c, k, cap, top, idx, stream
+        "mrs_subtile_topk_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        # threads (out), cap (out)
+        "mrs_subtile_topk_wide_plan": [_P, _P],
     },
     "rescored": {
         # X, rn, lams, qhi, qlo, aqrn, beta, ql, mask_from, n0, f, b, ts,

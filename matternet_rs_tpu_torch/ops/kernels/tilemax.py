@@ -10,8 +10,9 @@
 * :func:`select_topk` — the candidate stage in one launch
   (``subtile_topk``), in place of ``gather_subtiles`` and the selection
   around it: the sub-tiles with the largest maxima, their scores and the
-  ragged tail ranked to the best ``kk ≤ 16``. Its plain version is the
-  selection chain, :func:`select_topk_plain`, which larger ``kk`` take
+  ragged tail ranked to the best ``kk ≤ 128`` (two designs: warp lists in
+  registers up to 16, lists in shared memory beyond). Its plain version is
+  the selection chain, :func:`select_topk_plain`, which larger ``kk`` take
   (with kernel C as their gather).
 
 Each has its plain PyTorch version beside it, taken only for CPU tensors.
@@ -32,10 +33,16 @@ SUBS = 8
 # Kernel B's limit: a block owns one sub-tile of exactly KERNEL_TS corpus
 # rows, so it serves tile = SUBS * KERNEL_TS = 2048 (the default tile).
 KERNEL_TS = 256
-# The candidate stage's limits: kk up to kernel G's merge width, at most
-# kk + 4 (the search's SELECT_MARGIN) sub-tiles, a tail shorter than a tile.
+# The candidate stage's limits: kk up to TOPK_MAX_K in warp lists (one
+# register lane an entry, as kernel G's merge), up to TOPK_MAX_K_WIDE in
+# shared-memory lists; at most kk + 4 (the search's SELECT_MARGIN)
+# sub-tiles; a tail shorter than a tile.
 TOPK_MAX_K = 16
-_TOPK_MAX_C, _TOPK_MAX_TAIL = 20, 2048
+TOPK_MAX_K_WIDE = 128
+_TOPK_MAX_C, _TOPK_MAX_C_WIDE, _TOPK_MAX_TAIL = 20, TOPK_MAX_K_WIDE + 4, 2048
+# The wide design's block (one a query) and how many candidates a bar may
+# let through before its radix select takes over.
+WIDE_THREADS, WIDE_CAP = 512, 512
 # Kernel B's block: 64 queries × 256 corpus rows, 32 features a chunk, a
 # ring of 3 chunks in dynamic shared memory (``csrc/f32_tile_product.cuh``).
 _BLOCK_QUERIES, _CHUNK_FEATURES, _RING = 64, 32, 3
@@ -206,27 +213,40 @@ def select_topk_plain(main, tmax, tail, n: int, kk: int, margin: int, gather=Non
 
 def select_route(device: torch.device, kk: int) -> str:
     """Which way :func:`select_topk` goes: ``"kernel"`` (the one-launch
-    stage) for a tensor off the CPU and ``kk ≤ 16``, else ``"chain"``."""
-    return "kernel" if device.type != "cpu" and kk <= TOPK_MAX_K else "chain"
+    stage) for a tensor off the CPU and ``kk ≤ 128``, else ``"chain"``."""
+    return "kernel" if device.type != "cpu" and kk <= TOPK_MAX_K_WIDE else "chain"
 
 
-def select_topk(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
-    """:func:`select_topk_plain`'s result, values and ids bit for bit. CPU
-    tensors and ``kk > 16`` take the chain (``gather`` its candidate
-    gather); otherwise one launch of the candidate stage, which needs
-    sub-tiles of ``KERNEL_TS`` rows, ``c = min(nt0, kk + margin) ≤ 20`` and
-    a tail of at most 2,048 columns, and raises on anything else."""
-    if select_route(main.device, kk) == "chain":
-        return select_topk_plain(main, tmax, tail, n, kk, margin, gather)
+def subtile_topk_wide_plan() -> dict:
+    """What the C entry point of the wide stage (16 < kk ≤ 128) chooses:
+    ``threads`` a block (one block a query) and the ``cap`` of its lists,
+    the one the wrapper passes."""
+    return dict(threads=WIDE_THREADS, cap=WIDE_CAP)
+
+
+def subtile_topk_wide_plan_chosen() -> dict:
+    """:func:`subtile_topk_wide_plan` as the built library reports it."""
     lib = _cuda.library("tilemax")
+    threads, cap = ctypes.c_int(), ctypes.c_int()
+    rc = lib.mrs_subtile_topk_wide_plan(ctypes.byref(threads), ctypes.byref(cap))
+    _cuda.check(lib, rc, "subtile_topk wide plan")
+    return dict(threads=threads.value, cap=cap.value)
+
+
+def _subtile_topk_operands(main, tmax, tail, n: int, kk: int, margin: int) -> tuple:
+    """The candidate stage's launch on CUDA tensors, checked, with its
+    outputs allocated: ``(wide, args, top, idx)``, ``wide`` for the entry of
+    16 < kk ≤ 128. Raises on what the kernel does not take."""
+    _cuda.library("tilemax")                       # raises without a card
     b, ns, ts = main.shape
     nr = 0 if tail is None else tail.shape[1]
     c = min(ns, kk + margin)
+    wide = kk > TOPK_MAX_K
     if ts != KERNEL_TS or tmax.shape != (b, ns) or n != ns * ts + nr \
             or (tail is not None and tail.shape[0] != b):
         raise ValueError(f"subtile_topk kernel: main {tuple(main.shape)}, maxima "
                          f"{tuple(tmax.shape)}, tail {None if tail is None else tuple(tail.shape)}, n {n}")
-    if c > _TOPK_MAX_C or nr > _TOPK_MAX_TAIL or n >= 2**31:
+    if c > (_TOPK_MAX_C_WIDE if wide else _TOPK_MAX_C) or nr > _TOPK_MAX_TAIL or n >= 2**31:
         raise ValueError(f"subtile_topk kernel: c={c}, tail {nr}, n {n} beyond its limits")
     tensors = dict(main=main, tmax=tmax) | ({} if tail is None else dict(tail=tail))
     for name, t in tensors.items():
@@ -235,12 +255,35 @@ def select_topk(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
     dev = _cuda.require_cuda("subtile_topk kernel", **tensors)
     top = torch.empty((b, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((b, kk), dtype=torch.int64, device=dev)
-    if b == 0 or kk == 0:
-        return top, idx
-    rc = lib.mrs_subtile_topk(
-        main.data_ptr(), tmax.data_ptr(), None if tail is None else tail.data_ptr(),
-        b, ns, nr, c, kk, top.data_ptr(), idx.data_ptr(), _cuda.stream_ptr(dev),
-    )
+    args = (main.data_ptr(), tmax.data_ptr(), None if tail is None else tail.data_ptr(),
+            b, ns, nr, c, kk)
+    return wide, args, top, idx
+
+
+def _subtile_topk_launch(wide, args, top, idx, cap: int = WIDE_CAP) -> None:
+    """One launch of the stage on prepared operands (``cap``: the wide
+    entry's; 0 sends its every selection through the radix select)."""
+    lib = _cuda.library("tilemax")
+    stream = _cuda.stream_ptr(top.device)
+    if wide:
+        rc = lib.mrs_subtile_topk_wide(*args, cap, top.data_ptr(), idx.data_ptr(), stream)
+    else:
+        rc = lib.mrs_subtile_topk(*args, top.data_ptr(), idx.data_ptr(), stream)
     _cuda.check(lib, rc, "subtile_topk kernel")
+
+
+def select_topk(main, tmax, tail, n: int, kk: int, margin: int, gather=None):
+    """:func:`select_topk_plain`'s result, values and ids bit for bit. CPU
+    tensors and ``kk > 128`` take the chain (``gather`` its candidate
+    gather); otherwise one launch of the candidate stage, which needs
+    sub-tiles of ``KERNEL_TS`` rows, ``c = min(nt0, kk + margin)`` of at
+    most 20 (``kk ≤ 16``) or 132, and a tail of at most 2,048 columns, and
+    raises on anything else."""
+    if select_route(main.device, kk) == "chain":
+        return select_topk_plain(main, tmax, tail, n, kk, margin, gather)
+    wide, args, top, idx = _subtile_topk_operands(main, tmax, tail, n, kk, margin)
+    if main.shape[0] == 0 or kk == 0:
+        return top, idx
+    _subtile_topk_launch(wide, args, top, idx)
     kernels.count("subtile_topk")
     return top, idx

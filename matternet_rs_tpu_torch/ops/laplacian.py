@@ -32,6 +32,9 @@ log = logging.getLogger(__name__)
 
 WEIGHT_FLOOR = 1e-12
 SPARSIFY_AVG_DEGREE = 10.0
+# The share of a row's candidates that sparsification keeps (its best half,
+# ``n_valid // 2`` in :func:`_degree_sparsify`), the reference's constant.
+SPARSIFY_KEEP_FRACTION = 0.5
 # Node count from which build_laplacian_matrix takes the direct ELL build:
 # memory O(n·k) plus one [DIRECT_ELL_ROW_TILE, n] distance strip.
 DIRECT_ELL_N = 8192

@@ -10,7 +10,7 @@ cosine. Exact routes, with the reference's thresholds:
 * fused (``N >= FUSED_TILEMAX_MIN_N`` when :func:`fused_fast_path` holds) —
   kernel B writes the scores and the sub-tile maxima in one pass; one
   launch selects the sub-tiles and ranks their scores and the ragged tail
-  (``k ≤ 16``), or kernel C gathers the selected sub-tiles for the
+  (``k ≤ 128``), or kernel C gathers the selected sub-tiles for the
   selection chain (:func:`fused_tilemax`).
 
 Rescored route (:func:`fused_scan_rescored`, where
@@ -268,7 +268,7 @@ def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
     """Fused-producer tile-max top-k: kernel B for the scores and sub-tile
     maxima, the ragged tail scored by :func:`_batched_scores`, then
     ``select`` at sub-tile granularity — on the card the candidate stage in
-    one launch for ``kk ≤ 16``, the selection chain with kernel C as its
+    one launch for ``kk ≤ 128``, the selection chain with kernel C as its
     ``gather`` beyond. ``producer``, ``gather`` and ``select`` default to
     the kernel wrappers; passing their plain versions runs the same path
     without the kernels (a comparison run; ``select=tmk.select_topk_plain``

@@ -196,8 +196,83 @@ def test_subtile_topk_kernel_matches_the_chain_bit_for_bit(cuda_device, b, ns, n
         assert _bit_equal(top, ptop)
 
 
+WIDE_KS = (17, 32, 33, 40, 100, 128)
+WIDE_KINDS = ("random", "ties", "zeros", "fills", "nan", "striped", "overstated", "misaligned")
+
+
+def _wide_inputs(b, ns, nr, kind, device, seed):
+    """The wide stage's inputs, made on the card: random normal scores;
+    integers 0..2 (ties everywhere); ±0.0 only; half −inf; 1% NaN; large
+    scores only at positions p with p mod 2048 < 124 (31 threads' units of
+    4: where every sub-tile is selected, more than a list holds reach
+    either bar, and the radix select takes over);
+    maxima 1 above their sub-tiles' scores (the first bar fails its count);
+    or random scores and maxima one element off 16 bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = ns * 256 + nr
+    u = torch.rand((b, n), device=device, generator=gen)
+    v = torch.randn((b, n), device=device, generator=gen)
+    if kind == "ties":
+        v = torch.floor(u * 3)
+    elif kind == "zeros":
+        v = torch.where(u < 0.5, -0.0, 0.0)
+    elif kind == "fills":
+        v = torch.where(u < 0.5, -float("inf"), v)
+    elif kind == "nan":
+        v = torch.where(u < 0.01, float("nan"), v)
+    elif kind == "striped":
+        v = v + 10.0 * ((torch.arange(n, device=device) % 2048) < 124)
+    main = v[:, :ns * 256].contiguous()
+    tmax = main.view(b, ns, 256).amax(dim=2) + (1.0 if kind == "overstated" else 0.0)
+    if kind == "misaligned":
+        main, tmax = _misaligned(main), _misaligned(tmax)
+    return main.view(b, ns, 256), tmax, (v[:, ns * 256:].contiguous() if nr else None), n
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("nr", [0, 1, 576, 2047])
+@pytest.mark.parametrize("ns", ["c", 3904, 39_056])
+def test_subtile_topk_wide_kernel_matches_the_chain_bit_for_bit(cuda_device, ns, nr, kind):
+    """For 16 < kk ≤ 128 one launch of the wide stage, values and ids equal
+    to the chain's; with every sub-tile selected (ns = kk + 4), phase 2's
+    ns and the 10M-row index's; and with a list cap of 0 (every selection
+    through the radix select)."""
+    assert ttmk.subtile_topk_wide_plan_chosen() == ttmk.subtile_topk_wide_plan()
+    b = {"c": 7, 3904: 64, 39_056: 3}[ns]
+    shared = None if ns == "c" else _wide_inputs(b, ns, nr, kind, cuda_device, seed=ns + nr)
+    for kk in WIDE_KS:
+        main, tmax, tail, n = shared or _wide_inputs(b, kk + tso.SELECT_MARGIN, nr, kind, cuda_device,
+                                                     seed=kk + nr)
+        c = min(main.shape[1], kk + tso.SELECT_MARGIN)
+        before = kernels.launch_counts()
+        top, idx = ttmk.select_topk(main, tmax, tail, n, kk, tso.SELECT_MARGIN)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["subtile_topk"] == before["subtile_topk"] + 1
+        assert after["gather_subtiles"] == before["gather_subtiles"]
+        ptop, pidx = ttmk.select_topk_plain(main, tmax, tail, n, kk, tso.SELECT_MARGIN)
+        assert idx.dtype == torch.int64 and torch.equal(idx, pidx)
+        assert _bit_equal(top, ptop)
+        wide, args, rtop, ridx = ttmk._subtile_topk_operands(main, tmax, tail, n, kk, tso.SELECT_MARGIN)
+        assert wide
+        ttmk._subtile_topk_launch(wide, args, rtop, ridx, cap=0)
+        torch.cuda.synchronize()
+        assert torch.equal(ridx, pidx) and _bit_equal(rtop, ptop)
+
+
+def test_subtile_topk_wide_kernel_refuses_what_it_does_not_take(cuda_device):
+    main, tmax, tail, n = _wide_inputs(2, 200, 7, "random", cuda_device, seed=1)
+    with pytest.raises(ValueError, match="beyond its limits"):
+        ttmk.select_topk(main, tmax, tail, n, 100, 40)          # c = 140 > 132
+    wide, args, top, idx = ttmk._subtile_topk_operands(main, tmax, tail, n, 100, tso.SELECT_MARGIN)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ttmk._subtile_topk_launch(wide, args, top, idx, cap=513)
+
+
 @pytest.mark.parametrize("k,kernel,other", [(10, "subtile_topk", "gather_subtiles"),
-                                            (40, "gather_subtiles", "subtile_topk")])
+                                            (40, "subtile_topk", "gather_subtiles"),
+                                            (100, "subtile_topk", "gather_subtiles"),
+                                            (200, "gather_subtiles", "subtile_topk")])
 def test_fused_search_selects_in_one_launch_up_to_k16_and_gathers_beyond(cuda_device, k, kernel, other):
     arrs = _fixture(40_000, 64, 16, 2, cuda_device)
     before = kernels.launch_counts()
@@ -210,12 +285,14 @@ def test_fused_search_selects_in_one_launch_up_to_k16_and_gathers_beyond(cuda_de
 
 
 # mask_from inside a sub-tile, inside the ragged tail (n0 = 38,912).
+@pytest.mark.parametrize("k", [10, 100])
 @pytest.mark.parametrize("mask_from", [None, 30_000, 39_000])
-def test_fused_search_makes_no_synchronising_call_after_kernel_b(cuda_device, mask_from):
-    """From kernel B's launch to its return, ``fused_tilemax`` (k = 10)
-    makes no call that waits for the card."""
+def test_fused_search_makes_no_synchronising_call_after_kernel_b(cuda_device, mask_from, k):
+    """From kernel B's launch to its return, ``fused_tilemax`` (k = 10 and
+    k = 100, both candidate-stage designs) makes no call that waits for the
+    card."""
     arrs = _fixture(40_000, 64, 16, 3, cuda_device)
-    ref = tso.fused_tilemax(*arrs[:5], 10, arrs[5], mask_from=mask_from)
+    ref = tso.fused_tilemax(*arrs[:5], k, arrs[5], mask_from=mask_from)
     torch.cuda.synchronize()
 
     def producer(*a, **kw):
@@ -225,7 +302,7 @@ def test_fused_search_makes_no_synchronising_call_after_kernel_b(cuda_device, ma
 
     before = kernels.launch_counts()
     try:
-        top, idx = tso.fused_tilemax(*arrs[:5], 10, arrs[5], mask_from=mask_from, producer=producer)
+        top, idx = tso.fused_tilemax(*arrs[:5], k, arrs[5], mask_from=mask_from, producer=producer)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()

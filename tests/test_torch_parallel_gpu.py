@@ -74,8 +74,8 @@ def test_exact_batch_launches_b_and_the_stage_per_slot(index):
     assert counts["gather_subtiles"] == 0
     ri, rs = aspace.search_batch(data[rows], gl, K + 1)
     assert not topk_mismatches(ri, rs, gi, gs, 1e-5)
-    (_, _), counts = _launched(lambda: sa.search_batch(data[rows], 40))
-    assert counts["gather_subtiles"] == D and counts["subtile_topk"] == 0
+    (_, _), counts = _launched(lambda: sa.search_batch(data[rows], 40))     # the wide stage
+    assert counts["subtile_topk"] == D and counts["gather_subtiles"] == 0
 
 
 @pytest.mark.parametrize("tier", ["bf16x3_rescored", "int8_rescored"])
