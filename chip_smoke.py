@@ -52,14 +52,16 @@ Phases, one output line each (JSON):
    Launch counts are set to 0 just before phase 2, each tier of phase 3,
    phase 4, each LOBPCG call of phase 5, phase 6, phases 7–9 (build and
    searches), phase 11 (build and searches), each tier of phase 12, each
-   step of phase 13, phases 14 and 15, each step of phases 16–19, and read
-   just after each; every kernel of a path must have launched. The kernel
-   rows of A, B, C and the candidate stage add the launches of phases 7–9,
-   11–14 and 16–19 to phase 2's (``launches_by_path``; kernel A's F = 768
-   launches of phase 19's store build go to its wide row); those of D and
-   E add phases 12's, 13's, 16's, 18's and 19's to phase 3's, and the
-   sketch rows phase 16's and 19's streaming steps to phase 11's; kernel
-   F's rows form (row ``spmv_ell (rows)``) has phase 19's launches.
+   step of phase 13, phases 14 and 15, each step of phases 16–19, each
+   check of phase 20, and read just after each; every kernel of a path
+   must have launched. The kernel rows of A, B, C and the candidate stage
+   add the launches of phases 7–9, 11–14 and 16–20 to phase 2's
+   (``launches_by_path``; kernel A's F = 768 launches of phase 19's store
+   build go to its wide row); those of D and E add phases 12's, 13's,
+   16's, 18's, 19's and 20's to phase 3's (E's int8 row phase 20's sketch
+   check to phase 11's), and the sketch rows phase 16's and 19's streaming
+   steps to phase 11's; kernel F's rows form (row ``spmv_ell (rows)``) has
+   phase 19's launches.
 5. largef — the large-F sparse path at the reference benchmark's shapes,
    (F, N) = (4096, 20,000) and (16,384, 10,000): normal data from a numpy
    seed, 200 centroids (each the mean of 20 rows), ``GraphParams(eps=1.0,
@@ -319,7 +321,50 @@ Phases, one output line each (JSON):
    row), and ``serve --streaming --mesh 4`` on one card failing with the
    reference's ``ValueError`` (skipped, and said so, with 4 cards or more). No multi-card collective is measured: the
    machine has one card.
-20. kernels — each kernel against its plain PyTorch version on the inputs
+20. ties — the adversarial exact-tie corpora of the reference's
+   ``tests/test_fuzz_invariants.py`` through the kernels, by the normal
+   entry points (``tie_checks``; ``tests/test_torch_ties_gpu.py`` runs the
+   same checks at a smaller size, ``tests/test_torch_fuzz_tie_corpora.py``
+   on the CPU's plain versions). Corpora (``tie_corpus``): integer
+   coordinates in [−level, level], so that every dot is exact in f32, bf16
+   and int8 and every tie is a true tie; a quarter of the rows exact
+   duplicates of others; λ in quarters; the rows at offsets < 16 of every
+   256-row sub-tile one row (row 0) with one λ, so that a quarter of each
+   256-query batch (``search_batch``'s queries are corpus rows, the first
+   quarter row 0) meets a tie group in every sub-tile. At 1,000,000 × 128,
+   levels 2, 3 and 17 (an index each, ``ArrowSpace.from_items`` with the
+   quantised λ and a 64-centroid graph for the query λ): the exact tier at
+   k = 10 (kernel B and ``subtile_topk``'s warp lists), 40 and 100 (its
+   wide design; the line counts the queries whose list overflowed into the
+   radix select, replayed from the plain scores by the kernel's own rule,
+   ``wide_stage_radix_rows``) and 200 (the chain with kernel C), and
+   ``bf16x3_rescored``, ``int8_rescored`` and ``bf16_rescored`` at k = 10
+   and 40 (kernel D in its three modes, kernel E on f32 rows); at level 2
+   also ``mask_from``: 3,000 zero rows after the corpus whose λ is each
+   query's (λ = 0.125, α = 0.1, so unmasked each would score 0.9, above
+   every real row) through the routes a mesh slot runs (the exact tier and
+   the three rescored tiers), and the sketch's maxima-first scan (kernel E
+   on int8 rows) with its last 3,000 rows past ``n_items``, and kernel G
+   (``search_fused``, its own entry point) on the row-normalised corpus,
+   whose identical rows still tie. At 40,960 rows,
+   F = 128, 256, 512 and 1,536 (the fused wide-F envelope), level 3: the
+   exact tier and the three rescored tiers at k = 10. On 4 mesh slots on
+   the card, 262,145 rows (3 padded rows on the last slot, their λ the hub
+   queries', α = 0.1): the exact, bf16x3 and int8 rescored tiers. Each check
+   holds the reference's contract (``tie_faults``: ids in range, never a
+   padded row, distinct, carrying their flat scores within 2e-5; each at or
+   above the flat k-th less the tier's margin, 0.03 for int8; on the exact
+   scans the score multiset is the flat top-k's within 2e-5 and a tie-free
+   k-th gives the flat ids), the kernel route against the plain route
+   (the exact tier under the near-tie rule at k + 1, ``bit_equal_plain``
+   saying whether ids and score bits agree; the rescored tiers under the
+   same-k rule where both select the same slabs, elsewhere a near tie at
+   the c-th maximum), padded rows that would win unmasked, and its kernels'
+   launches (B and the stage, or C at k = 200; D and E; G's scan and
+   merge). One line per
+   check: corpus, k, tier, rows whose k-th and (k+1)-th flat scores tie,
+   launches, the radix rows, ok and faults; then a summary line.
+21. kernels — each kernel against its plain PyTorch version on the inputs
    the main path gave it (λ: |Δ| ≤ 1e-5·max(1, |λ|); scores and maxima:
    ≤ 1e-5 abs; gather: bit for bit; slab dots: ≤ 1e-5·‖q‖·‖x‖; the ELL
    product: bit for bit, also on every block LOBPCG applies in one more
@@ -2525,6 +2570,446 @@ def mesh_phase(dev, card, aspace, gl, X, batches, results):
     return counts, rows_args
 
 
+TIE_N, TIE_F, TIE_B = 1_000_000, 128, 256
+TIE_LEVELS = (2, 3, 17)       # coordinates in [−level, level]: f32, bf16 and int8 dots are exact
+TIE_N_WIDE = 40_960           # ≥ FUSED_TILEMAX_MIN_N: 20 tiles of the fused producer
+TIE_F_WIDE = (128, 256, 512, 1536)
+TIE_KS = (10, 40, 100, 200)   # warp lists, the wide design twice, the chain with kernel C
+TIE_K_RESCORED = (10, 40)     # k = 100 passes the rescored tiers' 64-slab cap
+TIE_TIERS = ("bf16x3_rescored", "int8_rescored", "bf16_rescored")
+TIE_INT8_MARGIN = 0.03        # the int8 scan's margin (tests/test_fuzz_invariants.py)
+TIE_TOL = 2e-5                # the reference's score tolerance there
+TIE_HUB = 16                  # rows at offsets < 16 of every 256-row sub-tile are one row
+TIE_HUB_SHARE = 4             # the first quarter of a batch queries that row
+TIE_MASK_ALPHA, TIE_MASK_LAMBDA, TIE_PAD = 0.1, 0.125, 3_000
+TIE_MESH_N = 262_145          # 4 slots of 65,537 rows: 3 padded rows on the last
+SEED_TIES = 50
+
+
+def tie_corpus(n, f, level, seed, hub=TIE_HUB):
+    """An adversarial exact-tie corpus: integer coordinates in [−level,
+    level] (every dot exact), a quarter of the rows exact duplicates of
+    others scattered over the corpus, λ in quarters; the rows at offsets <
+    ``hub`` of every 256-row sub-tile are row 0 with row 0's λ, a tie group
+    in every sub-tile. Returns ``(X float32 [n, f], λ float32 [n])``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.integers(-level, level + 1, (n, f), dtype=np.int8)
+    X[rng.integers(0, n, n // 4)] = X[rng.integers(0, n, n // 4)]
+    lams = (rng.integers(0, 4, n) / 4.0).astype(np.float32)
+    hub_rows = np.flatnonzero(np.arange(n) % 256 < hub)
+    X[hub_rows] = X[0]
+    lams[hub_rows] = lams[0]
+    return X.astype(np.float32), lams
+
+
+def tie_query_rows(n, b, seed):
+    """Corpus rows to query: the first quarter the hub row 0, the rest at
+    random."""
+    import numpy as np
+
+    rows = np.random.default_rng(seed).integers(0, n, b)
+    rows[:b // TIE_HUB_SHARE] = 0
+    return rows
+
+
+def tie_faults(sref, ids, top, margin=None, tol=TIE_TOL):
+    """The reference's tie contract (``tests/test_fuzz_invariants.py``) for
+    ``ids``/``top [B, k]`` against the flat scores ``sref [B, n]`` of the
+    real rows: ids in range (no padded row) and distinct, each returned
+    score its id's flat score (``tol`` plus 1e-6 relative), each id's flat
+    score at least the flat k-th less ``margin`` and ``tol``. With
+    ``margin=None`` (an exact scan) the scores are also the flat top-k's
+    (within ``tol``) and a row whose k-th score has no near tie returns the
+    flat top-k's ids. Returns ``(faults, rows whose k-th and (k+1)-th flat
+    scores are equal bit for bit)``."""
+    import torch
+
+    b, n = sref.shape
+    k = ids.shape[1]
+    vals, fidx = torch.topk(sref, min(k + 1, n), dim=1)
+    faults = []
+    outside = (ids < 0) | (ids >= n)
+    if bool(outside.any()):
+        faults.append(f"{int(outside.sum())} ids outside the {n} real rows")
+    ids_c = ids.clamp(0, n - 1)
+    srt = torch.sort(ids_c, dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        faults.append("repeated ids")
+    carried = torch.gather(sref, 1, ids_c)
+    gap = (top - carried).abs()
+    if not bool((gap <= tol + 1e-6 * carried.abs()).all()):
+        faults.append(f"returned scores off their ids' flat scores by {float(gap.max()):.3g}")
+    if not bool((carried >= (vals[:, k - 1] - (margin or 0.0) - tol)[:, None]).all()):
+        faults.append("an id below the flat k-th score less the margin")
+    tied = int((vals[:, k - 1] == vals[:, k]).sum()) if n > k else 0
+    if margin is None:
+        ft = vals[:, :k]
+        err = float((torch.sort(top, dim=1, descending=True).values - ft).abs().max())
+        if err > tol:
+            faults.append(f"score multiset off the flat top-k by {err:.3g}")
+        near = (ft[:, :-1] - ft[:, 1:] <= 2 * tol).any(dim=1)
+        if n > k:
+            near |= vals[:, k - 1] - vals[:, k] <= 2 * tol
+        if bool((~near).any()) and not torch.equal(torch.sort(ids[~near], dim=1).values,
+                                                   torch.sort(fidx[~near, :k], dim=1).values):
+            faults.append("ids off the flat top-k's where the k-th score has no near tie")
+    return faults, tied
+
+
+def wide_stage_radix_rows(smain, submax, tail, k, margin, cap, threads):
+    """Queries whose wide candidate stage (``subtile_topk_wide_kernel``, 16
+    < k ≤ 128) finds more entries at a bar than its list of ``cap`` holds,
+    so that its exact radix select chooses: the kernel's two selections
+    (``select_best`` in ``csrc/tilemax.cu``, as the numpy model in
+    ``tests/test_torch_exact_candidates.py`` states them: the sub-tiles by
+    the thread bests' bar, the candidates by the c-th best maximum's score,
+    the thread bests' bar where that lists fewer than k or more than
+    ``cap``) replayed from the plain producer's scores ``smain [B, n0]``,
+    maxima ``submax [B, ns]`` and ``tail``."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch.ops import search as so
+    from matternet_rs_tpu_torch.ops.kernels.search_fused import order_keys
+
+    b, ns = submax.shape
+    ts = smain.shape[1] // ns
+    c = min(ns, k + margin)
+    _, best = so.topk_stable(submax, c)
+    hint_v = torch.gather(submax, 1, best[:, -1:]).cpu().numpy()
+    sel = torch.sort(best, dim=1).values
+    cand = torch.gather(smain.view(b, ns, ts), 1, sel[:, :, None].expand(b, c, ts)).reshape(b, c * ts)
+    gid = (sel[:, :, None] * ts + torch.arange(ts, device=sel.device)).reshape(b, c * ts)
+    if tail is not None and tail.shape[1]:
+        cand = torch.cat([cand, tail], dim=1)
+        gid = torch.cat([gid, (ns * ts + torch.arange(tail.shape[1], device=gid.device)).expand(b, -1)], dim=1)
+
+    def radix(keys, kk, hint):
+        span = 4 * threads
+        padded = np.concatenate([keys, np.zeros((b, (-keys.shape[1]) % span), np.uint64)], axis=1)
+        own = np.sort(padded.reshape(b, -1, threads, 4).max(axis=(1, 3)), axis=1)[:, threads - kk]
+        m = np.zeros(b, np.int64) if hint is None else (keys >= hint[:, None]).sum(axis=1)
+        bar = np.zeros(b, np.uint64) if hint is None else hint
+        bar = np.where(((m < kk) | (m > cap)) & ((m < kk) | (own > bar)), own, bar)
+        return (keys >= bar[:, None]).sum(axis=1) > cap
+
+    max_keys = order_keys(submax.cpu().numpy(), np.broadcast_to(np.arange(ns, dtype=np.int32), (b, ns)))
+    hint = order_keys(hint_v, np.zeros((b, 1), np.int32))[:, 0] & np.uint64(0xFFFFFFFF00000000)
+    keys = order_keys(cand.cpu().numpy(), gid.cpu().numpy().astype(np.int32))
+    return int((radix(max_keys, c, None) | radix(keys, k, hint)).sum())
+
+
+def tie_checks(dev, n_main=TIE_N, levels=TIE_LEVELS, n_wide=TIE_N_WIDE, f_wide=TIE_F_WIDE,
+               mesh_n=TIE_MESH_N, b=TIE_B, seed=SEED_TIES):
+    """Phase ties' checks on ``dev`` (module docstring): ``(records,
+    launches)``, a record a check with its ``faults`` (empty when it
+    passed), and the launches of all the checks' searches by kernel. On the
+    CPU the same entry points run the kernels' plain versions and no launch
+    is asked for; ``mesh_n=None`` leaves the mesh out."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import ArrowSpace, GraphParams, core
+    from matternet_rs_tpu_torch.index import streaming as sti
+    from matternet_rs_tpu_torch.ops import kernels
+    from matternet_rs_tpu_torch.ops import laplacian as lap
+    from matternet_rs_tpu_torch.ops import search as so
+    from matternet_rs_tpu_torch.ops._mm import mm
+    from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
+    from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
+    from matternet_rs_tpu_torch.parallel import make_mesh
+    from matternet_rs_tpu_torch.parallel.index import ShardedArrowSpace
+    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
+
+    cuda = dev.type == "cuda"
+    records, totals = [], dict.fromkeys(kernels.LAUNCHES, 0)
+    exact_need = {True: ("scores_tilemax", "subtile_topk"), False: ("scores_tilemax", "gather_subtiles")}
+    rescored_need = ("tilemax_only", "slab_dots")
+
+    def counted(fn):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        kernels.reset_launches()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        counts = kernels.launch_counts()
+        for kn, v in counts.items():
+            totals[kn] += v
+        return out, counts
+
+    def record(corpus, k, tier, faults, tied, counts, need, **extra):
+        launches = {kn: counts[kn] for kn in need}
+        if cuda:
+            faults = faults + [f"kernel {kn} not launched" for kn, v in launches.items() if v == 0]
+        records.append(dict(corpus=corpus, k=k, tier=tier, rows_tied_at_k=tied, launches=launches,
+                            ok=not faults, faults=faults[:3], **extra))
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def index(X, lams):
+        aspace = ArrowSpace.from_items(t(X), device=dev)
+        aspace.update_lambdas(t(lams))
+        gl = lap.build_laplacian_from_k_cluster(
+            aspace.data[TIE_HUB:TIE_HUB + 64], GraphParams(eps=1.0, k=6, topk=6, sparsity_check=False),
+            n_items=X.shape[0])
+        return aspace, gl
+
+    def scan_of(aspace, tier):
+        if tier == "int8_rescored":
+            return aspace._ensure_int8()
+        return (aspace.data if tier == "bf16x3_rescored" else aspace._scan_corpus(True)), None
+
+    def slabs_agree(Xscan, rn, norms, lams, Q, ql, a, c, mask_from=None):
+        """Rows whose kernel D selects the plain version's c slabs, and rows
+        that select others without a near tie at the c-th maximum."""
+        kw = dict(subs=so.RESCORE_SUBS, rn=rn, mask_from=mask_from)
+        mk = rsk.tilemax_only(Xscan, norms, lams, Q, ql, a, **kw)
+        mp = rsk.tilemax_only_plain(Xscan, norms, lams, Q, ql, a, **kw)
+        sel_k = torch.sort(so.topk_stable(mk, c)[1], dim=1).values
+        top_m, sel_p = so.topk_stable(mp, c + 1)
+        same = torch.all(sel_k == torch.sort(sel_p[:, :c], dim=1).values, dim=1)
+        unexplained = ~same & ((top_m[:, c - 1] - top_m[:, c]).abs() > TOL_SCORE)
+        return same.cpu().numpy(), int(unexplained.sum())
+
+    def searched(aspace, gl, Q, k, tier):
+        (idx, sc, raw), counts = counted(lambda: aspace.search_batch(
+            Q, gl, k=k, alpha=ALPHA, quantized=tier, return_raw=True, allow_low_recall=True))
+        mn = torch.tensor(aspace.min_lambdas, dtype=torch.float32, device=dev)
+        rng = torch.tensor(aspace.range_lambdas, dtype=torch.float32, device=dev)
+        return idx, sc, torch.clamp((t(raw) - mn) / rng, 0.0, 1.0), counts
+
+    def exact_check(name, aspace, gl, Qn, k, radix=False):
+        X, norms, lams = aspace.data, aspace.norms, aspace.lambdas
+        idx, sc, ql, counts = searched(aspace, gl, Qn, k, False)
+        Q = t(Qn)
+        a = torch.full((Q.shape[0],), ALPHA, dtype=torch.float32, device=dev)
+        faults, tied = tie_faults(so._batched_scores(X, norms, lams, Q, ql, a), t(idx), t(sc))
+        top_p, idx_p = so.fused_tilemax(X, norms, lams, Q, ql, k + 1, a, so.DEFAULT_TILE,
+                                        producer=tmk.scores_and_tilemax_plain,
+                                        gather=tmk.gather_subtiles_plain, select=tmk.select_topk_plain)
+        top_p, idx_p = top_p.cpu().numpy(), idx_p.cpu().numpy()
+        faults += topk_mismatches(idx_p, top_p, idx, sc, TOL_SCORE)[:2]
+        extra = dict(bit_equal_plain=bool(np.array_equal(idx, idx_p[:, :k])
+                                          and np.array_equal(sc.view(np.int32), top_p[:, :k].view(np.int32))))
+        if radix:
+            n0 = (X.shape[0] // so.DEFAULT_TILE) * so.DEFAULT_TILE
+            smain, submax = tmk.scores_and_tilemax_plain(X, norms, lams, Q, ql, a)
+            tail = so._batched_scores(X[n0:], norms[n0:], lams[n0:], Q, ql, a)
+            extra["radix_rows"] = wide_stage_radix_rows(smain, submax, tail, k, so.SELECT_MARGIN,
+                                                        tmk.WIDE_CAP, tmk.WIDE_THREADS)
+        record(name, k, "exact", faults, tied, counts, exact_need[k <= tmk.TOPK_MAX_K_WIDE], **extra)
+
+    def rescored_check(name, aspace, gl, Qn, k, tier):
+        X, norms, lams = aspace.data, aspace.norms, aspace.lambdas
+        idx, sc, ql, counts = searched(aspace, gl, Qn, k, tier)
+        Q = t(Qn)
+        a = torch.full((Q.shape[0],), ALPHA, dtype=torch.float32, device=dev)
+        margin = TIE_INT8_MARGIN if tier == "int8_rescored" else None
+        faults, tied = tie_faults(so._batched_scores(X, norms, lams, Q, ql, a), t(idx), t(sc), margin)
+        Xscan, rn = scan_of(aspace, tier)
+        cand = aspace._int8_cand(k, None)
+        pidx, ptop = so.fused_scan_rescored(Xscan, X, norms, lams, Q, ql, k, cand, a, scan_rn=rn,
+                                            producer=rsk.tilemax_only_plain,
+                                            slab_reader=rsk.slab_dots_plain)
+        c = max(k + so.SELECT_MARGIN, -(-cand // (so.DEFAULT_TILE // so.RESCORE_SUBS)))
+        same, unexplained = slabs_agree(Xscan, rn, norms, lams, Q, ql, a, c)
+        faults += same_k_mismatches(pidx.cpu().numpy()[same], ptop.cpu().numpy()[same],
+                                    idx[same], sc[same], TOL_SCORE)[:2]
+        if unexplained:
+            faults.append(f"{unexplained} rows select other slabs without a near tie")
+        record(name, k, tier, faults, tied, counts, rescored_need,
+               slab_selection_differs_rows=int((~same).sum()))
+
+    def mask_checks(name, aspace, Qn):
+        """``mask_from`` on one device: 3,000 zero rows after the corpus,
+        their λ every query's (λ = 0.125, α = 0.1), so that unmasked each
+        scores 0.9, above every real row (at most 0.1 + 0.9·0.875); through
+        the routes a mesh slot runs (``core._routed_batched_search`` and
+        ``core._rescored_tier`` with ``mask_from``) and the sketch's
+        maxima-first scan (kernel E on int8 rows) with its last 3,000 rows
+        past ``n_items``."""
+        X, norms, lams = aspace.data, aspace.norms, aspace.lambdas
+        n, f = X.shape
+        Q = t(Qn)
+        ql = torch.full((Q.shape[0],), TIE_MASK_LAMBDA, dtype=torch.float32, device=dev)
+        a = torch.full_like(ql, TIE_MASK_ALPHA)
+        zeros = torch.zeros(TIE_PAD, dtype=torch.float32, device=dev)
+        Xp = torch.cat([X, zeros[:, None].expand(TIE_PAD, f)])
+        normsp = torch.cat([norms, zeros])
+        lamsp = torch.cat([lams, zeros + TIE_MASK_LAMBDA])
+        sref = so._batched_scores(X, norms, lams, Q, ql, a)
+        won = int((torch.topk(so._batched_scores(Xp, normsp, lamsp, Q, ql, a), 10, dim=1).indices
+                   >= n).any(dim=1).sum())
+        k = 10
+        cand = aspace._int8_cand(k, None)
+        c = max(k + so.SELECT_MARGIN, -(-cand // (so.DEFAULT_TILE // so.RESCORE_SUBS)))
+        for tier in (False,) + TIE_TIERS:
+            if tier is False:
+                (idx, top), counts = counted(lambda: core._routed_batched_search(
+                    Xp, normsp, lamsp, Q, ql, k, a, mask_from=n))
+                faults, tied = tie_faults(sref, idx, top)
+                top_p, idx_p = so.fused_tilemax(Xp, normsp, lamsp, Q, ql, k + 1, a, so.DEFAULT_TILE,
+                                                mask_from=n, producer=tmk.scores_and_tilemax_plain,
+                                                gather=tmk.gather_subtiles_plain,
+                                                select=tmk.select_topk_plain)
+                faults += topk_mismatches(idx_p.cpu().numpy(), top_p.cpu().numpy(), idx.cpu().numpy(),
+                                          top.cpu().numpy(), TOL_SCORE)[:2]
+                need, differs = exact_need[True], 0
+            else:
+                Xs, rn = {"int8_rescored": lambda: core.quantize_rows(Xp),
+                          "bf16x3_rescored": lambda: (Xp, None),
+                          "bf16_rescored": lambda: (Xp.to(torch.bfloat16), None)}[tier]()
+                (idx, top), counts = counted(lambda: core._rescored_tier(
+                    Xs, Xp, normsp, lamsp, Q, ql, k, cand, a, scan_rn=rn, mask_from=n))
+                faults, tied = tie_faults(sref, idx, top,
+                                          TIE_INT8_MARGIN if tier == "int8_rescored" else None)
+                pidx, ptop = so.fused_scan_rescored(Xs, Xp, normsp, lamsp, Q, ql, k, cand, a,
+                                                    scan_rn=rn, mask_from=n,
+                                                    producer=rsk.tilemax_only_plain,
+                                                    slab_reader=rsk.slab_dots_plain)
+                same, unexplained = slabs_agree(Xs, rn, normsp, lamsp, Q, ql, a, c, mask_from=n)
+                faults += same_k_mismatches(pidx.cpu().numpy()[same], ptop.cpu().numpy()[same],
+                                            idx.cpu().numpy()[same], top.cpu().numpy()[same],
+                                            TOL_SCORE)[:2]
+                if unexplained:
+                    faults.append(f"{unexplained} rows select other slabs without a near tie")
+                need, differs = rescored_need, int((~same).sum())
+            if not won:
+                faults.append("no padded row would win unmasked")
+            record(f"{name}, {TIE_PAD} padded rows", k, "exact" if tier is False else tier, faults,
+                   tied, counts, need, pad_rows_win_unmasked=won, slab_selection_differs_rows=differs)
+
+        # The sketch's maxima-first scan: its flat rows end at a tile.
+        n_flat = (n // so.DEFAULT_TILE) * so.DEFAULT_TILE
+        n_items = n_flat - TIE_PAD
+        X8, mult = aspace._ensure_int8()
+        X8f, mult_f, lam_f = X8[:n_flat].clone(), mult[:n_flat].clone(), lams[:n_flat].clone()
+        X8f[n_items:], mult_f[n_items:], lam_f[n_items:] = 0, 0.0, TIE_MASK_LAMBDA
+        rows_out = 4 * k
+        qn = torch.clamp(torch.sqrt(torch.sum(Q * Q, dim=-1)), min=1e-12)
+
+        def sketch_scores(rows):
+            cos = torch.clamp(mm(Q, X8f[:rows].to(torch.float32).T) * mult_f[:rows] / qn[:, None],
+                              -1.0, 1.0)
+            return sti._blend(cos, lam_f[None, :rows], ql[:, None], a[:, None])
+
+        def sketch():
+            return sti._sketch_maxfirst_topk(X8f, mult_f, lam_f, Q, ql, a, rows_out=rows_out,
+                                             kfinal=k, n_items=n_items)
+
+        (top, ids), counts = counted(sketch)
+        won = int((torch.topk(sketch_scores(n_flat), k, dim=1).indices >= n_items).any(dim=1).sum())
+        faults, tied = tie_faults(sketch_scores(n_items), ids[:, :k], top[:, :k])
+        saved = rsk.tilemax_only, so._slab_dots_checked
+        rsk.tilemax_only = rsk.tilemax_only_plain
+        so._slab_dots_checked = lambda X_, Q_, sel, ts: rsk.slab_dots_plain(X_, Q_, sel, ts)
+        try:
+            ptop, pids = sketch()
+        finally:
+            rsk.tilemax_only, so._slab_dots_checked = saved
+        c_s = min((n_flat // so.DEFAULT_TILE) * so.RESCORE_SUBS,
+                  max(k + so.SELECT_MARGIN, -(-rows_out // (so.DEFAULT_TILE // so.RESCORE_SUBS))))
+        same, unexplained = slabs_agree(X8f, mult_f, mult_f, lam_f, Q, ql, a, c_s, mask_from=n_items)
+        faults += same_k_mismatches(pids[:, :k].cpu().numpy()[same], ptop[:, :k].cpu().numpy()[same],
+                                    ids[:, :k].cpu().numpy()[same], top[:, :k].cpu().numpy()[same],
+                                    TOL_SCORE)[:2]
+        if unexplained:
+            faults.append(f"{unexplained} rows select other slabs without a near tie")
+        if not won:
+            faults.append("no padded row would win unmasked")
+        record(f"{name} sketch, {TIE_PAD} rows past n_items", k, "sketch_int8", faults, tied, counts,
+               rescored_need, pad_rows_win_unmasked=won, slab_selection_differs_rows=int((~same).sum()))
+
+    def streamed_check(name, aspace, gl, Qn):
+        """Kernel G (``search_fused``, its own entry point) on the
+        row-normalised corpus: identical rows stay identical, so the hub
+        row's ties survive the normalisation."""
+        from matternet_rs_tpu_torch.ops.kernels import search_fused as sfk
+
+        k = 10
+        X, lams = aspace.data, aspace.lambdas
+        Xn = X / torch.linalg.norm(X, dim=1, keepdim=True)
+        Q = t(Qn)
+        Qn_ = Q / torch.linalg.norm(Q, dim=1, keepdim=True)
+        _, _, ql, _ = searched(aspace, gl, Qn, k, False)
+        (ids, top), counts = counted(lambda: sfk.search_fused(Xn, lams, Qn_, ql, k, ALPHA))
+        a = torch.full((Q.shape[0],), ALPHA, dtype=torch.float32, device=dev)
+        ones = torch.ones(X.shape[0], dtype=torch.float32, device=dev)
+        faults, tied = tie_faults(so._batched_scores(Xn, ones, lams, Qn_, ql, a), ids.long(), top)
+        pidx, ptop = sfk.search_fused_plain(Xn, lams, Qn_, ql, k + 1, ALPHA)
+        faults += topk_mismatches(pidx.cpu().numpy(), ptop.cpu().numpy(), ids.cpu().numpy(),
+                                  top.cpu().numpy(), TOL_SCORE)[:2]
+        record(f"{name} row-normalised", k, "search_fused", faults, tied, counts,
+               ("search_fused", "search_fused_merge"))
+
+    def mesh_checks(level):
+        """The 4-slot mesh on one device: the last slot's 3 padded rows get
+        the hub queries' λ and α = 0.1, so that each scores 0.9 against at
+        most 0.1 + 0.9·0.75 for a real row, whose λ is a quarter or more
+        from the query's."""
+        X, lams = tie_corpus(mesh_n, TIE_F, level, seed + 300)
+        aspace, gl = index(X, lams)
+        sa = ShardedArrowSpace.from_arrowspace(aspace, gl, mesh=make_mesh(4, devices=[dev] * 4))
+        Qn = X[tie_query_rows(mesh_n, b, seed + 301)]
+        Q = t(Qn)
+        ql = sa.prepare_query_lambdas_batch(Q)
+        n_pad = sa.lambdas.shape[0]
+        lam_all = torch.remainder(ql[0] + 0.25 * (1 + torch.arange(n_pad, device=dev) % 3), 1.0)
+        lam_all[mesh_n:] = ql[0]
+        per = sa.lambdas.per
+        for i, shard in sa.lambdas.local():
+            shard.copy_(lam_all[i * per:(i + 1) * per])
+        a = torch.full((Q.shape[0],), TIE_MASK_ALPHA, dtype=torch.float32, device=dev)
+        sref = so._batched_scores(aspace.data, aspace.norms, lam_all[:mesh_n], Q, ql, a)
+        pads = torch.zeros(n_pad - mesh_n, dtype=torch.float32, device=dev)
+        Xpad = torch.cat([aspace.data, pads[:, None].expand(-1, TIE_F)])
+        won = int((torch.topk(so._batched_scores(Xpad, torch.cat([aspace.norms, pads]), lam_all, Q, ql, a),
+                              10, dim=1).indices >= mesh_n).any(dim=1).sum())
+        for tier in (False, "bf16x3_rescored", "int8_rescored"):
+            (idx, sc), counts = counted(lambda: sa.search_batch(Qn, 10, alpha=TIE_MASK_ALPHA,
+                                                                quantized=tier))
+            faults, tied = tie_faults(sref, t(idx), t(sc),
+                                      TIE_INT8_MARGIN if tier == "int8_rescored" else None)
+            if not won:
+                faults.append("no padded row would win unmasked")
+            record(f"{mesh_n}x{TIE_F} level {level}, 4 slots, {n_pad - mesh_n} padded rows", 10,
+                   "exact" if tier is False else tier, faults, tied, counts,
+                   exact_need[True] if tier is False else rescored_need, pad_rows_win_unmasked=won)
+
+    # -- the main path's size: one integer index a level ------------------
+    for level in levels:
+        X, lams = tie_corpus(n_main, TIE_F, level, seed + level)
+        aspace, gl = index(X, lams)
+        Qn = X[tie_query_rows(n_main, b, seed + 100 + level)]
+        name = f"{n_main}x{TIE_F} level {level}"
+        for k in TIE_KS:
+            exact_check(name, aspace, gl, Qn, k, radix=tmk.TOPK_MAX_K < k <= tmk.TOPK_MAX_K_WIDE)
+        for tier in TIE_TIERS:
+            for k in TIE_K_RESCORED:
+                rescored_check(name, aspace, gl, Qn, k, tier)
+        if level == levels[0]:
+            mask_checks(name, aspace, Qn)
+            streamed_check(name, aspace, gl, Qn)
+        del aspace, gl, X
+    # -- the fused producer's wide-F envelope -----------------------------
+    for f in f_wide:
+        X, lams = tie_corpus(n_wide, f, 3, seed + f)
+        aspace, gl = index(X, lams)
+        Qn = X[tie_query_rows(n_wide, b, seed + 200 + f)]
+        name = f"{n_wide}x{f} level 3"
+        exact_check(name, aspace, gl, Qn, 10)
+        for tier in TIE_TIERS:
+            rescored_check(name, aspace, gl, Qn, 10, tier)
+        del aspace, gl, X
+    if mesh_n:
+        mesh_checks(TIE_LEVELS[1])
+    return records, totals
+
+
 def main() -> int:
     import torch
 
@@ -3542,7 +4027,21 @@ def main() -> int:
     path_counts["mesh"]["taumode"] -= summed(mesh_store_counts)["taumode"]
     torch.cuda.empty_cache()
 
-    # -- 19. kernels against their plain versions -----------------------
+    # -- 20. ties: adversarial exact-tie corpora through the kernels --------
+    t0 = time.perf_counter()
+    tie_records, path_counts["ties"] = tie_checks(dev)
+    for rec in tie_records:
+        emit(phase="ties", **rec)
+    tie_failed = [r for r in tie_records if not r["ok"]]
+    radix_rows = sum(r.get("radix_rows", 0) for r in tie_records)
+    emit(phase="ties", step="summary", card=card, checks=len(tie_records), failed=len(tie_failed),
+         radix_rows=radix_rows, bit_equal_plain=sum(r.get("bit_equal_plain", False) for r in tie_records),
+         seconds=time.perf_counter() - t0, launches=path_counts["ties"])
+    check(not tie_failed, f"ties: {[(r['corpus'], r['k'], r['tier'], r['faults']) for r in tie_failed[:3]]}")
+    check(radix_rows > 0, "ties: no query reached the wide candidate stage's radix select")
+    torch.cuda.empty_cache()
+
+    # -- 21. kernels against their plain versions -----------------------
     rows_out = []
     resources = {}        # kernels A, B, D, E, F: launch plan and compiler report, by row name
 
@@ -3742,7 +4241,9 @@ def main() -> int:
                      "serve": sum(serve_counts[s]["tilemax_only"] for s in SERVE_D_STEPS[tier]),
                      "models": sum(models_counts[s]["tilemax_only"] for s in MODELS_D_STEPS[tier]),
                      "mesh": sum(c["tilemax_only"] for step, c in mesh_counts.items()
-                                 if step.startswith(f"{tier}_d"))}
+                                 if step.startswith(f"{tier}_d")),
+                     "ties": sum(r["launches"].get("tilemax_only", 0) for r in tie_records
+                                 if r["tier"] == tier or (tier, r["tier"]) == ("int8_rescored", "sketch_int8"))}
         rows_out.append(dict(
             name=label, route="cuda", source="matternet_rs_tpu_torch/csrc/rescored.cu",
             replaces="matternet_rs_tpu/ops/pallas/tilemax_fused.py:243",
@@ -3774,14 +4275,16 @@ def main() -> int:
                  "items": path_counts["items"]["slab_dots"],
                  "serve": sum(c["slab_dots"] for c in serve_counts.values()),
                  "models": path_counts["models"]["slab_dots"],
-                 "mesh": path_counts["mesh"]["slab_dots"]}
+                 "mesh": path_counts["mesh"]["slab_dots"],
+                 "ties": path_counts["ties"]["slab_dots"]}
     e_launches = sum(e_by_path.values())
+    tie_int8_rows = sum(r["launches"].get("slab_dots", 0) for r in tie_records if r["tier"] == "sketch_int8")
     qnorm = torch.linalg.norm(Q, dim=1)
     floor_ms = cuda_ms(lambda: sfk.empty_launch(dev), reps=20)
     for label, Xr, sel_e, peak, mode_launches, entry in (
         ("slab_dots_f32", Xt, sels["bf16x3_rescored"], PEAK_F32_FLOP_S, e_launches, "slab_dots_kernelILb0E"),
-        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S, path_counts["streaming"]["slab_dots"],
-         "slab_dots_ring_kernel"),
+        ("slab_dots_int8", X8, sels["int8_rescored"], PEAK_BF16_FLOP_S,
+         path_counts["streaming"]["slab_dots"] + tie_int8_rows, "slab_dots_ring_kernel"),
     ):
         de, dp = rsk.slab_dots(Xr, Q, sel_e, ts_r, checked=True), rsk.slab_dots_plain(Xr, Q, sel_e, ts_r)
         rows_e = sel_e[:, :, None] * ts_r + torch.arange(ts_r, device=dev)
@@ -3912,7 +4415,9 @@ def main() -> int:
     rows_out.append(dict(
         name="search_fused_scan", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
         replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
-        launches=st_counts["search_fused"], max_abs_err=err_g,
+        launches=st_counts["search_fused"] + path_counts["ties"]["search_fused"],
+        launches_by_path={"streamed": st_counts["search_fused"], "ties": path_counts["ties"]["search_fused"]},
+        max_abs_err=err_g,
         ms=cuda_ms(lambda: sfk.scan_partials(Xn, lams, Qn, ql1, K, ALPHA, splits)),
         plain_ms=cuda_ms(lambda: sfk.scan_partials_plain(Xn, lams, Qn, ql1, K, ALPHA, splits), reps=1),
         bound_ms=bms, bound_by=by,
@@ -3931,7 +4436,9 @@ def main() -> int:
     rows_out.append(dict(
         name="search_fused_merge", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
         replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
-        launches=st_counts["search_fused_merge"], max_abs_err=float((mv - mv_p).abs().max()),
+        launches=st_counts["search_fused_merge"] + path_counts["ties"]["search_fused_merge"],
+        launches_by_path={"streamed": st_counts["search_fused_merge"], "ties": path_counts["ties"]["search_fused_merge"]},
+        max_abs_err=float((mv - mv_p).abs().max()),
         ms=cuda_ms(lambda: sfk.merge_partials(pv, pi, K), reps=20),
         launch_ms=cuda_ms(lambda: sfk._merge_launch(*ops_g), reps=20),
         plain_ms=cuda_ms(lambda: sfk.merge_partials_plain(pv, pi, K), reps=5),

@@ -69,7 +69,8 @@ def _routed_batched_search(X, norms, lams, Q, q_lams, k: int, alphas, mask_from=
     n = X.shape[0]
     tilemax_n = (
         search_ops.FUSED_TILEMAX_MIN_N
-        if search_ops.fused_fast_path(X, Q.shape[0], min(k, n))
+        if search_ops.fused_fast_path(n, X.shape[1], Q.shape[0], X.dtype, min(k, n),
+                                      device=X.device)
         else TILEMAX_MIN_N
     )
     if n >= tilemax_n:
@@ -919,14 +920,14 @@ class ArrowSpace:
                                 nprobe: int = 8) -> list[tuple[int, float]]:
         """Blended top-k over the ``nprobe`` best buckets, scored exactly;
         the full scan at ``nprobe`` ≥ the bucket count."""
-        from matternet_rs_tpu_torch.index.ivf import ivf_search
+        from matternet_rs_tpu_torch.index.ivf import _index_arrays, ivf_search
 
         if self.ivf is None:
             raise ValueError("build_ivf_index() first")
         if query_lambda == 0.0:
             raise ValueError("Lambda of the item is 0.0, prepare the item before searching")
-        idx, sc = ivf_search(self.ivf, self.data, self.norms, self.lambdas, self._query(query),
-                             query_lambda, k, alpha, nprobe)
+        idx, sc = ivf_search(*_index_arrays(self.ivf), self.data, self.norms, self.lambdas,
+                             self._query(query), query_lambda, k, alpha, nprobe)
         return [(int(i), float(v)) for i, v in zip(idx.cpu(), sc.cpu()) if np.isfinite(float(v))]
 
     def search_batch_ivf(self, queries, gl: GraphLaplacian, k: int, alpha: float = 0.7,
@@ -934,7 +935,7 @@ class ArrowSpace:
         """Batched pruned search, the query λ as :meth:`search_batch` takes
         it in eigen mode. Returns numpy ``(indices [B, k], scores [B, k])``;
         slots past the candidates hold −1 and −inf."""
-        from matternet_rs_tpu_torch.index.ivf import ivf_search_batch
+        from matternet_rs_tpu_torch.index.ivf import _index_arrays, ivf_search_batch
 
         if self.ivf is None:
             raise ValueError("build_ivf_index() first")
@@ -945,6 +946,6 @@ class ArrowSpace:
         Qw = self.projection.project(Q) if self._projects(Q, graph) else Q
         raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode, self.taumode.param)
         q_lams = torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
-        idx, sc = ivf_search_batch(self.ivf, self.data, self.norms, self.lambdas, Q, q_lams, k,
-                                   alpha, nprobe)
+        idx, sc = ivf_search_batch(*_index_arrays(self.ivf), self.data, self.norms, self.lambdas,
+                                   Q, q_lams, k, alpha, nprobe)
         return idx.cpu().numpy(), sc.cpu().numpy()

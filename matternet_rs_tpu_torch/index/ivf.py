@@ -153,20 +153,21 @@ def gather_block_queries(n_cand: int, f: int, gather_elems: int = GATHER_ELEMS) 
     return max(1, gather_elems // max(n_cand * f, 1))
 
 
-def _pruned_scores(ivf: IVFIndex, X, norms, lambdas, Q, q_lams, alphas, nprobe: int,
-                   gather_elems: int):
+def _pruned_scores(ivf_centroids, ivf_centroid_norms, bucket_items, bucket_centroid,
+                   bucket_lambda_lo, bucket_lambda_hi, X, norms, lambdas, Q, q_lams, alphas,
+                   nprobe: int, gather_elems: int):
     """Candidate ids ``[B, nb·bucket_size]`` (−1 padding) and their blended
     scores (−inf on padding) for a batch of queries."""
     qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    cscore = _guarded_cosine(mm(Q, ivf.centroids.T), ivf.centroid_norms[None, :] * qn[:, None])
+    cscore = _guarded_cosine(mm(Q, ivf_centroids.T), ivf_centroid_norms[None, :] * qn[:, None])
     ql = q_lams[:, None]
-    gap = torch.clamp(torch.maximum(ivf.bucket_lambda_lo[None, :] - ql,
-                                    ql - ivf.bucket_lambda_hi[None, :]), min=0.0)
+    gap = torch.clamp(torch.maximum(bucket_lambda_lo[None, :] - ql,
+                                    ql - bucket_lambda_hi[None, :]), min=0.0)
     a = alphas[:, None]
-    bscore = a * cscore[:, ivf.bucket_centroid] + (1.0 - a) * (1.0 - torch.clamp(gap, max=1.0))
-    nb = min(nprobe, ivf.n_buckets)
+    bscore = a * cscore[:, bucket_centroid] + (1.0 - a) * (1.0 - torch.clamp(gap, max=1.0))
+    nb = min(nprobe, int(bucket_items.shape[0]))
     _, bidx = topk_stable(bscore, nb)
-    cand = ivf.bucket_items[bidx].reshape(Q.shape[0], -1)                 # [B, P]
+    cand = bucket_items[bidx].reshape(Q.shape[0], -1)                     # [B, P]
     mask = cand >= 0
     safe = torch.clamp(cand, min=0)
     blk = gather_block_queries(cand.shape[1], X.shape[1], gather_elems)
@@ -180,24 +181,39 @@ def _pruned_scores(ivf: IVFIndex, X, norms, lambdas, Q, q_lams, alphas, nprobe: 
     return cand, torch.where(mask, scores, torch.full_like(scores, -float("inf")))
 
 
-def ivf_search_batch(ivf: IVFIndex, X, norms, lambdas, queries, query_lambdas, k: int,
-                     alpha=0.7, nprobe: int = 8, gather_elems: int | None = None):
+def _index_arrays(ivf: IVFIndex) -> tuple:
+    """The six arrays of ``ivf`` that :func:`ivf_search` and
+    :func:`ivf_search_batch` take first, in their order."""
+    return (ivf.centroids, ivf.centroid_norms, ivf.bucket_items, ivf.bucket_centroid,
+            ivf.bucket_lambda_lo, ivf.bucket_lambda_hi)
+
+
+def ivf_search_batch(ivf_centroids, ivf_centroid_norms, bucket_items, bucket_centroid,
+                     bucket_lambda_lo, bucket_lambda_hi, X, norms, lambdas, queries,
+                     query_lambdas, k: int, alpha=0.7, nprobe: int = 8, *,
+                     gather_elems: int | None = None):
     """Pruned blended top-k for a batch: ``(indices [B, k], scores [B, k])``,
-    global ids; a slot past the candidates holds −1 and −inf. The row
-    gather's cap is ``GATHER_ELEMS`` unless ``gather_elems`` is given."""
+    global ids; a slot past the candidates holds −1 and −inf. ``alpha`` is
+    a scalar or one per query. The row gather's cap is ``GATHER_ELEMS``
+    unless ``gather_elems`` is given."""
     gather_elems = GATHER_ELEMS if gather_elems is None else gather_elems
     Q = queries.to(torch.float32)
     ql = torch.as_tensor(query_lambdas, dtype=torch.float32, device=Q.device).reshape(-1)
     a = torch.as_tensor(alpha, dtype=torch.float32, device=Q.device)
     a = a.expand(Q.shape[0]).contiguous() if a.ndim == 0 else a
-    cand, scores = _pruned_scores(ivf, X, norms, lambdas, Q, ql, a, nprobe, gather_elems)
+    cand, scores = _pruned_scores(ivf_centroids, ivf_centroid_norms, bucket_items,
+                                  bucket_centroid, bucket_lambda_lo, bucket_lambda_hi,
+                                  X, norms, lambdas, Q, ql, a, nprobe, gather_elems)
     top, ti = topk_stable(scores, min(k, cand.shape[1]))
     return torch.gather(cand, 1, ti), top
 
 
-def ivf_search(ivf: IVFIndex, X, norms, lambdas, query, query_lambda, k: int,
-               alpha: float = 0.7, nprobe: int = 8):
+def ivf_search(ivf_centroids, ivf_centroid_norms, bucket_items, bucket_centroid,
+               bucket_lambda_lo, bucket_lambda_hi, X, norms, lambdas, query, query_lambda,
+               k: int, alpha: float = 0.7, nprobe: int = 8):
     """One query: ``(indices [k], scores [k])``."""
-    idx, top = ivf_search_batch(ivf, X, norms, lambdas, query[None, :],
+    idx, top = ivf_search_batch(ivf_centroids, ivf_centroid_norms, bucket_items,
+                                bucket_centroid, bucket_lambda_lo, bucket_lambda_hi,
+                                X, norms, lambdas, query[None, :],
                                 torch.as_tensor([float(query_lambda)]), k, alpha, nprobe)
     return idx[0], top[0]

@@ -33,6 +33,7 @@ a stable descending sort (:func:`topk_stable`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
@@ -79,24 +80,39 @@ def _tilemax_degenerate(n: int, kk: int, t: int, margin: int = SELECT_MARGIN) ->
     return min(nt0, kk + margin) * t + (n - nt0 * t) >= n
 
 
+def _fused_envelope(n: int, f: int, b: int, f32: bool, tile: int, cuda: bool) -> bool:
+    if not f32 or n < tile or f > MAX_FUSED_F:
+        return False
+    if b < MIN_FUSED_B or b > MAX_FUSED_B or tile % tmk.SUBS:
+        return False
+    return not cuda or tile // tmk.SUBS == tmk.KERNEL_TS
+
+
 def fused_supported(X: torch.Tensor, b: int, tile: int) -> bool:
     """Whether the fused producer applies: an f32 corpus of at least one
     tile, the reference's B and F envelope, and — for a CUDA corpus —
     kernel B's fixed sub-tile width."""
     n, f = X.shape
-    if X.dtype != torch.float32 or n < tile or f > MAX_FUSED_F:
-        return False
-    if b < MIN_FUSED_B or b > MAX_FUSED_B or tile % tmk.SUBS:
-        return False
-    return not X.is_cuda or tile // tmk.SUBS == tmk.KERNEL_TS
+    return _fused_envelope(n, f, b, X.dtype == torch.float32, tile, X.is_cuda)
 
 
-def fused_fast_path(X: torch.Tensor, b: int, kk: int, tile: int = DEFAULT_TILE) -> bool:
-    """Predicate for routing exact batched scans through the fused path
-    from ``FUSED_TILEMAX_MIN_N``: producer envelope and non-degenerate
-    selection. (The reference also needed its DMA gather's B % 8 rule;
-    kernel C takes any B.)"""
-    return not _tilemax_degenerate(X.shape[0], kk, tile) and fused_supported(X, b, tile)
+def _is_float32(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.float32
+    return np.dtype(dtype) == np.float32
+
+
+def fused_fast_path(n: int, f: int, b: int, dtype, kk: int, tile: int = DEFAULT_TILE, *,
+                    device=None) -> bool:
+    """Predicate for routing exact batched scans of an ``[n, f]`` corpus of
+    ``dtype`` (torch or numpy) through the fused path from
+    ``FUSED_TILEMAX_MIN_N``: producer envelope and non-degenerate
+    selection; a CUDA ``device`` adds kernel B's sub-tile width. (The
+    reference also needed a TPU and its DMA gather's B % 8 rule; kernel C
+    takes any B.)"""
+    cuda = device is not None and torch.device(device).type == "cuda"
+    return not _tilemax_degenerate(n, kk, tile) and _fused_envelope(
+        n, f, b, _is_float32(dtype), tile, cuda)
 
 
 def _alphas(alphas, b: int, device) -> torch.Tensor:

@@ -227,3 +227,57 @@ def test_drop_data_clears_the_layout(built):
     with pytest.raises(ValueError, match="build_ivf_index"):
         tc.search_lambda_aware_ivf(np.ones(32, np.float32), 0.5, 5)
     assert ta.ivf is not None
+
+
+def _module_form_input():
+    """3,000 × 16 normal rows, uniform λ, 12 clusters, buckets of 64."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 16)).astype(np.float32)
+    lam = rng.uniform(size=3000).astype(np.float32)
+    a = rng.integers(0, 12, 3000)
+    norms = np.linalg.norm(X, axis=1).astype(np.float32)
+    jv = jivf.build_ivf(X, assignments=a, bucket_size=64, lambdas=lam)
+    tv = tivf.build_ivf(X, assignments=a, bucket_size=64, lambdas=lam, device=CPU)
+    return X, lam, norms, jv, tv
+
+
+def _six(v):
+    return (v.centroids, v.centroid_norms, v.bucket_items, v.bucket_centroid,
+            v.bucket_lambda_lo, v.bucket_lambda_hi)
+
+
+def test_module_search_takes_the_reference_arguments():
+    """``ivf_search`` called as the reference is called: fourteen
+    positional arguments, the six layout arrays first."""
+    import jax.numpy as jnp
+    import torch
+
+    X, lam, norms, jv, tv = _module_form_input()
+    ji, js = jivf.ivf_search(*_six(jv), jnp.asarray(X), jnp.asarray(norms), jnp.asarray(lam),
+                             jnp.asarray(X[5]), lam[5], 10, 0.7, 4)
+    t = torch.from_numpy
+    ti, ts = tivf.ivf_search(*_six(tv), t(X), t(norms), t(lam), t(X[5]), lam[5], 10, 0.7, 4)
+    want = [5, 1548, 88, 1561, 82, 887, 483, 2597, 95, 1208]
+    assert np.asarray(ji).tolist() == want
+    assert ti.tolist() == want
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=TOL, rtol=0)
+
+
+def test_module_batch_search_takes_the_reference_arguments():
+    import jax.numpy as jnp
+    import torch
+
+    X, lam, norms, jv, tv = _module_form_input()
+    rows = np.array([5, 17, 640, 1999, 2999])
+    ji, js = jivf.ivf_search_batch(*_six(jv), jnp.asarray(X), jnp.asarray(norms),
+                                   jnp.asarray(lam), jnp.asarray(X[rows]),
+                                   jnp.asarray(lam[rows]), 10, 0.7, 4)
+    t = torch.from_numpy
+    ti, ts = tivf.ivf_search_batch(*_six(tv), t(X), t(norms), t(lam), t(X[rows]),
+                                   t(lam[rows]), 10, 0.7, 4)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert ti[0].tolist() == [5, 1548, 88, 1561, 82, 887, 483, 2597, 95, 1208]
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=TOL, rtol=0)
+    one = [tivf.ivf_search(*_six(tv), t(X), t(norms), t(lam), t(X[r]), lam[r], 10, 0.7, 4)[0]
+           for r in rows]
+    assert ti.tolist() == [o.tolist() for o in one]

@@ -437,3 +437,96 @@ def test_serving_era_modules_follow_the_reference_names(name):
 
     assert public(ref) <= public(port), public(ref) - public(port)
     assert getattr(ref, "__all__", None) == getattr(port, "__all__", None)
+
+
+def _public_signatures(path):
+    """``{name: positional parameter names}`` of the public module-level
+    functions and the public methods (``__init__`` included) of the public
+    classes in ``path``."""
+    out = {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = [a.arg for a in node.args.posonlyargs + node.args.args]
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for m in node.body:
+                if isinstance(m, ast.FunctionDef) and (
+                        not m.name.startswith("_") or m.name == "__init__"):
+                    out[f"{node.name}.{m.name}"] = [a.arg for a in m.args.posonlyargs + m.args.args]
+    return out
+
+
+def test_public_signatures_follow_the_reference():
+    """An AST walk over both packages: every public function and method of
+    the reference has a counterpart whose positional parameters begin with
+    the reference's, in its order (the port may add trailing ones, such as
+    ``device``). The differences kept on purpose are listed: the batched
+    ``search_lambda_aware``'s plural names (pinned above) and
+    ``flat_axis_index``, a ``shard_map`` body's axis index with no
+    single-controller counterpart. The f64 oracles and the Pallas kernels
+    have no module counterpart."""
+    ref_dir = ROOT / "matternet_rs_tpu"
+    kept = {("ops/search.py", "search_lambda_aware"), ("parallel/mesh.py", "flat_axis_index")}
+    no_module = {"oracle.py", "oracle_staged.py"}
+    found = []
+    for rp in sorted(ref_dir.rglob("*.py")):
+        rel = rp.relative_to(ref_dir).as_posix()
+        if rel in no_module or rel.startswith("ops/pallas/"):
+            continue
+        pp = PORT_DIR / rel
+        assert pp.exists(), rel
+        port = _public_signatures(pp)
+        for name, params in _public_signatures(rp).items():
+            if port.get(name, [])[:len(params)] != params or name not in port:
+                found.append((rel, name))
+    assert sorted(found) == sorted(kept)
+
+
+_GRID_N = [1_000, 2_048, 20_000, 32_768, 40_000, 100_000]
+_GRID_F = [16, 128, 2_048, 2_049]
+_GRID_B = [1, 2, 16, 1_024, 1_025]
+_GRID_K = [1, 10, 100, 1_000]
+
+
+def _fused_fast_path_pr15(X, b, kk, tile):
+    """The predicate's earlier form, ``(X, b, kk, tile)``, kept here as the
+    routing the shape form must reproduce."""
+    from matternet_rs_tpu_torch.ops import search as tso
+
+    return not tso._tilemax_degenerate(X.shape[0], kk, tile) and tso.fused_supported(X, b, tile)
+
+
+def _fused_fast_path_grid(device):
+    from matternet_rs_tpu_torch.ops import search as tso
+
+    cases = []
+    for tile in (512, 2_048, 2_050):
+        for dtype, np_dtype in ((torch.float32, np.float32), (torch.bfloat16, None),
+                                (torch.float64, np.float64)):
+            for n in _GRID_N:
+                for f in _GRID_F:
+                    X = torch.zeros((), dtype=dtype, device=device).expand(n, f)
+                    for b in _GRID_B:
+                        for k in _GRID_K:
+                            want = _fused_fast_path_pr15(X, b, k, tile)
+                            got = tso.fused_fast_path(n, f, b, dtype, k, tile, device=device)
+                            assert got == want, (n, f, b, k, tile, dtype)
+                            if np_dtype is not None:
+                                assert tso.fused_fast_path(n, f, b, np_dtype, k, tile,
+                                                           device=device) == want
+                            cases.append(want)
+    assert any(cases) and not all(cases)
+    return cases
+
+
+def test_fused_fast_path_shape_form_routes_as_the_tensor_form():
+    """``fused_fast_path(n, f, b, dtype, kk, tile)`` (the reference's
+    arguments) over a grid of shapes, tiles and dtypes, against the form
+    that took the corpus tensor: the same answer everywhere. A CUDA device
+    is held the same way by ``tests/test_torch_ties_gpu.py``."""
+    from matternet_rs_tpu_torch.ops import search as tso
+
+    _fused_fast_path_grid("cpu")
+    assert tso.fused_fast_path(40_000, 128, 16, np.dtype("float32"), 10)
+    # Kernel B's sub-tile width (256 rows) binds on the card only.
+    assert not tso.fused_fast_path(40_000, 128, 16, torch.float32, 10, 1_024, device="cuda")
+    assert tso.fused_fast_path(40_000, 128, 16, torch.float32, 10, 1_024, device="cpu")

@@ -69,7 +69,7 @@ def test_build_matches_reference(built):
 
 def test_search_batch_matches_reference(built):
     X, Q, ja, jgl, ta, tgl = built
-    assert search_ops.fused_fast_path(ta.data, len(Q), K) == (len(X) >= 32768)
+    assert search_ops.fused_fast_path(*ta.data.shape, len(Q), ta.data.dtype, K) == (len(X) >= 32768)
     ref_idx, ref_sc, ref_raw = ja.search_batch(Q, jgl, K + 1, alpha=0.7, return_raw=True)
     idx, sc, raw = ta.search_batch(Q, tgl, K, alpha=0.7, return_raw=True)
     assert _close(ref_raw, raw)

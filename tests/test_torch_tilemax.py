@@ -102,7 +102,7 @@ def test_search_tilemax_matches_flat_reference(n):
         )
     )(*_jax(arrs[3:]))
     X, norms, lams, Q, ql, al = _torch(arrs)
-    assert tso.fused_fast_path(X, 16, k)
+    assert tso.fused_fast_path(*X.shape, 16, X.dtype, k)
     idx, top = tso.search_lambda_aware_tilemax(X, norms, lams, Q, ql, k, al)
     assert not topk_mismatches(ref_idx, ref_top, idx.numpy(), top.numpy())
 
@@ -136,4 +136,4 @@ def test_fused_predicates_follow_reference_thresholds():
     assert not tso.fused_supported(torch.zeros(1000, 128), 64, 2048)
     assert not tso.fused_supported(torch.zeros(10, tso.MAX_FUSED_F + 1), 2, 8)
     assert tso._tilemax_degenerate(20_000, 10, 2048)
-    assert not tso.fused_fast_path(torch.zeros(20_000, 16), 16, 10)
+    assert not tso.fused_fast_path(20_000, 16, 16, torch.float32, 10)
