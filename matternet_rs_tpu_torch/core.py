@@ -34,6 +34,7 @@ from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
 from matternet_rs_tpu_torch.ops.csr import ell_from_dense_laplacian
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
 from matternet_rs_tpu_torch.reduction import ImplicitProjection
+from matternet_rs_tpu_torch.utils import profiling
 
 log = logging.getLogger(__name__)
 
@@ -163,7 +164,10 @@ def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, 
 def _alpha_vector(alpha, b_pad: int, device) -> torch.Tensor:
     """Scalar-or-[B] alpha → padded ``[b_pad]`` float32 vector."""
     a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+    if not isinstance(alpha, torch.Tensor) or alpha.device.type == "cpu":
+        profiling.count_sync(device)          # host values copied to the device
     if a.ndim == 0:
+        profiling.count_sync(device)          # float(a) reads it back
         return torch.full((b_pad,), float(a), dtype=torch.float32, device=device)
     if a.shape[0] != b_pad:
         a = torch.nn.functional.pad(a, (0, b_pad - a.shape[0]))
@@ -474,13 +478,14 @@ class ArrowSpace:
                 cached = self._signals_ell
                 if cached is None or cached[0] is not self.signals:
                     cached = (self.signals,
-                              ell_from_dense_laplacian(self.signals.to(self.device)))
+                              ell_from_dense_laplacian(profiling.to_device(self.signals,
+                                                                           self.device)))
                     self._signals_ell = cached
                 return cached[1]
-            return self.signals.to(self.device)
+            return profiling.to_device(self.signals, self.device)
         if gl.is_ell_backed or gl.matrix.shape[0] > taumode_ops.SPARSE_F_THRESHOLD:
             return gl.ell()
-        return gl.matrix.to(self.device)
+        return profiling.to_device(gl.matrix, self.device)
 
     def compute_taumode(self, gl: GraphLaplacian) -> None:
         """Raw λ for all items, then min-max normalisation. With a JL
@@ -536,7 +541,7 @@ class ArrowSpace:
         cache = self._tie_group_cache
         if cache is not None and cache[0] is self.lambdas:
             return cache[1]
-        lam = self.lambdas.cpu().numpy()
+        lam = profiling.to_host(self.lambdas).numpy()
         out = int(np.unique(lam, return_counts=True)[1].max()) if lam.size else 0
         self._tie_group_cache = (self.lambdas, out)
         return out
@@ -552,7 +557,8 @@ class ArrowSpace:
         cache = self._sc_lams_cache
         if cache is None or cache[0] is not self.subcentroid_lambdas:
             lam = np.asarray(self.subcentroid_lambdas, np.float32)
-            cache = (self.subcentroid_lambdas, torch.from_numpy(lam).to(self.device))
+            cache = (self.subcentroid_lambdas, profiling.to_device(torch.from_numpy(lam),
+                                                                   self.device))
             self._sc_lams_cache = cache
         return cache[1]
 
@@ -720,85 +726,107 @@ class ArrowSpace:
         ``"int8_auto"`` — int8_rescored below 1024 queries, int8 with
         approx from 1024. Every tier returns exact scores of the ids it
         names. An unknown tier and an ungated low-recall tier raise
-        ``ValueError``."""
-        self._require_lambdas()
-        if isinstance(quantized, str) and quantized not in QUANT_TIERS:
-            raise ValueError(
-                f"unknown quantized tier {quantized!r}: expected a bool or "
-                f"one of {sorted(QUANT_TIERS)}"
-            )
-        if quantized in LOW_RECALL_TIERS and not allow_low_recall:
-            raise ValueError(
-                f"quantized tier {quantized!r} is dominated on clustered "
-                "corpora; pass allow_low_recall=True only for "
-                "spread/normalized corpora"
-            )
-        Q = torch.from_numpy(np.array(queries, np.float32)).to(self.device)
-        if Q.ndim == 1:
-            Q = Q[None, :]
-        if not self._energy:
-            graph = self.graph_for_taumode(gl)
-            projects = self._projects(Q, graph)
-            if not projects and Q.shape[-1] != graph.shape[0]:
-                raise ValueError(
-                    f"Query dimension {Q.shape[-1]} doesn't match index "
-                    f"dimension {graph.shape[0]}"
-                )
-        b = Q.shape[0]
-        b_pad = 1 << max(b - 1, 1).bit_length() if b > 1 else 1
-        alphas = _alpha_vector(alpha, b_pad, self.device)
+        ``ValueError``.
 
-        if quantized == "auto":
-            if recall_target > 0.9875:
-                quantized = "bf16x3_rescored"
-            elif recall_target > 0.875 or b_pad >= 1024:
-                quantized, approx = "int8", True
-            else:
-                quantized = "int8_rescored"
-        if quantized == "int8_auto":
-            if b_pad >= 1024:
-                quantized, approx = "int8", True
-            else:
-                quantized = "int8_rescored"
-        if quantized in RESCORED_TIERS and b_pad < 8:
-            alphas = _alpha_vector(alphas, 8, self.device)
-            b_pad = 8
-        if b_pad != b:
-            Q = torch.nn.functional.pad(Q, (0, 0, 0, b_pad - b))
+        Under a running ``torch.profiler`` the call records the spans
+        (:func:`..utils.profiling.span`) ``search.batch`` (attrs ``mode``,
+        ``tier``, ``b``, ``b_pad``, ``k``) and within it ``search.input``,
+        ``search.query_lambda``, ``search.scan`` and ``search.fetch``; each
+        host–device sync counts against the span it falls in."""
+        with profiling.span("search.batch", mode="energy" if self._energy else "eigen",
+                            k=k) as root:
+            with profiling.span("search.input"):
+                self._require_lambdas()
+                if isinstance(quantized, str) and quantized not in QUANT_TIERS:
+                    raise ValueError(
+                        f"unknown quantized tier {quantized!r}: expected a bool or "
+                        f"one of {sorted(QUANT_TIERS)}"
+                    )
+                if quantized in LOW_RECALL_TIERS and not allow_low_recall:
+                    raise ValueError(
+                        f"quantized tier {quantized!r} is dominated on clustered "
+                        "corpora; pass allow_low_recall=True only for "
+                        "spread/normalized corpora"
+                    )
+                Q = profiling.to_device(torch.from_numpy(np.array(queries, np.float32)),
+                                        self.device)
+                if Q.ndim == 1:
+                    Q = Q[None, :]
+                if not self._energy:
+                    graph = self.graph_for_taumode(gl)
+                    projects = self._projects(Q, graph)
+                    if not projects and Q.shape[-1] != graph.shape[0]:
+                        raise ValueError(
+                            f"Query dimension {Q.shape[-1]} doesn't match index "
+                            f"dimension {graph.shape[0]}"
+                        )
+                b = Q.shape[0]
+                b_pad = 1 << max(b - 1, 1).bit_length() if b > 1 else 1
+                alphas = _alpha_vector(alpha, b_pad, self.device)
 
-        if self._energy:
-            # The nearest sub-centroid's λ, already normalised: the
-            # reference folds it in with mn = 0 and rng = 1, an identity.
-            raw = q_lams = self._nearest_subcentroid_lambdas(self._energy_query(Q))
-        else:
-            # λ of the projected batch when the graph is r × r; the scores
-            # below stay on the F-wide rows.
-            Qw = self.projection.project(Q) if projects else Q
-            raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode,
-                                                   self.taumode.param)
-            mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
-            rng = torch.tensor(self.range_lambdas, dtype=torch.float32, device=self.device)
-            q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)
-        X, norms, lams = self.data, self.norms, self.lambdas
-        kk = min(k, self.nitems)
-        if quantized == "int8":
-            X8, mult = self._ensure_int8()
-            idx, sc = _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, kk,
-                                         self._int8_cand(k, candidates), alphas)
-        elif quantized in RESCORED_TIERS:
-            if quantized == "int8_rescored":
-                Xscan, rn = self._ensure_int8()
-            else:
-                Xscan, rn = X if quantized == "bf16x3_rescored" else self._scan_corpus(True), None
-            idx, sc = _rescored_tier(Xscan, X, norms, lams, Q, q_lams, kk,
-                                     self._int8_cand(k, candidates), alphas, scan_rn=rn)
-        else:
-            idx, sc = _routed_batched_search(self._scan_corpus(quantized), norms, lams, Q,
-                                             q_lams, k, alphas)
-        idx, sc = idx[:b].cpu().numpy(), sc[:b].cpu().numpy()
-        if return_raw:
-            return idx, sc, raw[:b].cpu().numpy()
-        return idx, sc
+                if quantized == "auto":
+                    if recall_target > 0.9875:
+                        quantized = "bf16x3_rescored"
+                    elif recall_target > 0.875 or b_pad >= 1024:
+                        quantized, approx = "int8", True
+                    else:
+                        quantized = "int8_rescored"
+                if quantized == "int8_auto":
+                    if b_pad >= 1024:
+                        quantized, approx = "int8", True
+                    else:
+                        quantized = "int8_rescored"
+                if quantized in RESCORED_TIERS and b_pad < 8:
+                    alphas = _alpha_vector(alphas, 8, self.device)
+                    b_pad = 8
+                if b_pad != b:
+                    Q = torch.nn.functional.pad(Q, (0, 0, 0, b_pad - b))
+            root.set(tier=quantized if isinstance(quantized, str) else
+                     ("bf16" if quantized else "exact"), b=b, b_pad=b_pad)
+
+            with profiling.span("search.query_lambda"):
+                if self._energy:
+                    # The nearest sub-centroid's λ, already normalised: the
+                    # reference folds it in with mn = 0 and rng = 1, an identity.
+                    raw = q_lams = self._nearest_subcentroid_lambdas(self._energy_query(Q))
+                else:
+                    # λ of the projected batch when the graph is r × r; the
+                    # scores below stay on the F-wide rows.
+                    Qw = self.projection.project(Q) if projects else Q
+                    raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode,
+                                                           self.taumode.param)
+                    # Each made from a host float by a blocking copy.
+                    mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
+                    profiling.count_sync(self.device)
+                    rng = torch.tensor(self.range_lambdas, dtype=torch.float32,
+                                       device=self.device)
+                    profiling.count_sync(self.device)
+                    q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)
+
+            with profiling.span("search.scan"):
+                X, norms, lams = self.data, self.norms, self.lambdas
+                kk = min(k, self.nitems)
+                if quantized == "int8":
+                    X8, mult = self._ensure_int8()
+                    idx, sc = _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, kk,
+                                                 self._int8_cand(k, candidates), alphas)
+                elif quantized in RESCORED_TIERS:
+                    if quantized == "int8_rescored":
+                        Xscan, rn = self._ensure_int8()
+                    else:
+                        Xscan, rn = (X if quantized == "bf16x3_rescored"
+                                     else self._scan_corpus(True)), None
+                    idx, sc = _rescored_tier(Xscan, X, norms, lams, Q, q_lams, kk,
+                                             self._int8_cand(k, candidates), alphas, scan_rn=rn)
+                else:
+                    idx, sc = _routed_batched_search(self._scan_corpus(quantized), norms, lams,
+                                                     Q, q_lams, k, alphas)
+
+            with profiling.span("search.fetch"):
+                out = (profiling.to_host(idx[:b]).numpy(), profiling.to_host(sc[:b]).numpy())
+                if return_raw:
+                    out += (profiling.to_host(raw[:b]).numpy(),)
+        return out
 
     # -- append ---------------------------------------------------------
     def add_items(self, new_rows, gl: GraphLaplacian) -> None:

@@ -44,7 +44,7 @@ from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.knn import knn
 from matternet_rs_tpu_torch.ops.search import topk_stable
 from matternet_rs_tpu_torch.reduction import ImplicitProjection
-from matternet_rs_tpu_torch.utils.profiling import StageTimer
+from matternet_rs_tpu_torch.utils import profiling
 
 # Items assigned to sub-centroids per chunk: bounds the [chunk, S] buffers.
 ASSIGN_CHUNK = 65_536
@@ -328,7 +328,7 @@ def build_energy(builder, rows, energy_params: Optional[EnergyParams] = None):
 
     builder.nitems = rows.shape[0]
     p = energy_params or EnergyParams.from_builder(builder)
-    timer = StageTimer(builder.device)
+    timer = profiling.StageTimer(builder.device)
 
     with timer.stage("clustering", items=rows.shape[0]):
         aspace, centroids = builder.start_clustering(rows)
@@ -392,7 +392,7 @@ def _energy_scores(X, norms, lambdas, Q, q_lams):
 
 
 def _query_tensor(aspace: ArrowSpace, queries) -> torch.Tensor:
-    Q = torch.from_numpy(np.array(queries, np.float32)).to(aspace.device)
+    Q = profiling.to_device(torch.from_numpy(np.array(queries, np.float32)), aspace.device)
     return Q[None, :] if Q.ndim == 1 else Q
 
 
@@ -455,31 +455,45 @@ def search_energy_batch(aspace: ArrowSpace, queries, gl_energy: GraphLaplacian, 
     windows of the power-of-two padded batch read at most a tenth of the
     corpus — the reference's routing, so both packages route alike; the
     launch takes the real batch). ``approx`` selects exactly. Returns
-    numpy ``(indices [B, k], distances [B, k])`` ascending."""
-    if aspace.sub_centroids is None or aspace.subcentroid_lambdas is None:
-        raise ValueError("not an energy-mode index (no sub-centroids)")
-    Q = _query_tensor(aspace, queries)
-    b = Q.shape[0]
-    b_pad = 1 << max(b - 1, 1).bit_length() if b > 1 else 1
-    Qe = aspace._energy_query(Q)
-    sc_lams = aspace._subcentroid_lambdas_dev()
-    kk = min(k, aspace.nitems)
-    q_lams = _batch_query_lambdas(aspace.sub_centroids, sc_lams, Qe)
-    if candidates is not None:
-        if candidates == "auto":
-            cand = aspace.max_lambda_tie_group() + kk
-            if 2 * cand * b_pad > aspace.nitems // 10:
-                cand = aspace.nitems              # the full scan
-        else:
-            cand = max(int(candidates), kk)
-        if 2 * cand <= aspace.nitems:
-            s_lam, s_idx = _sorted_lambda_arrays(aspace)
-            idx, dist = _banded_search(aspace.data, aspace.item_norms, s_lam, s_idx, Q, q_lams,
-                                       kk, cand)
-            return idx.cpu().numpy(), dist.cpu().numpy()
-    scores = _energy_scores(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams)
-    neg, idx = topk_stable(-scores, kk)
-    return idx.cpu().numpy(), (-neg).cpu().numpy()
+    numpy ``(indices [B, k], distances [B, k])`` ascending. Under a running
+    ``torch.profiler`` the call records the spans of
+    :meth:`ArrowSpace.search_batch`."""
+    with profiling.span("search.batch", mode="energy", k=k) as root:
+        with profiling.span("search.input"):
+            if aspace.sub_centroids is None or aspace.subcentroid_lambdas is None:
+                raise ValueError("not an energy-mode index (no sub-centroids)")
+            Q = _query_tensor(aspace, queries)
+            b = Q.shape[0]
+            b_pad = 1 << max(b - 1, 1).bit_length() if b > 1 else 1
+            kk = min(k, aspace.nitems)
+
+        with profiling.span("search.query_lambda"):
+            Qe = aspace._energy_query(Q)
+            sc_lams = aspace._subcentroid_lambdas_dev()
+            q_lams = _batch_query_lambdas(aspace.sub_centroids, sc_lams, Qe)
+
+        with profiling.span("search.scan"):
+            cand = None
+            if candidates is not None:
+                if candidates == "auto":
+                    cand = aspace.max_lambda_tie_group() + kk
+                    if 2 * cand * b_pad > aspace.nitems // 10:
+                        cand = aspace.nitems              # the full scan
+                else:
+                    cand = max(int(candidates), kk)
+            banded = cand is not None and 2 * cand <= aspace.nitems
+            root.set(tier="banded" if banded else "scan", b=b, b_pad=b_pad)
+            if banded:
+                s_lam, s_idx = _sorted_lambda_arrays(aspace)
+                idx, dist = _banded_search(aspace.data, aspace.item_norms, s_lam, s_idx, Q,
+                                           q_lams, kk, cand)
+            else:
+                scores = _energy_scores(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams)
+                neg, idx = topk_stable(-scores, kk)
+                dist = -neg
+
+        with profiling.span("search.fetch"):
+            return profiling.to_host(idx).numpy(), profiling.to_host(dist).numpy()
 
 
 def _sorted_lambda_arrays(aspace: ArrowSpace):
@@ -494,8 +508,9 @@ def _sorted_lambda_arrays(aspace: ArrowSpace):
     cache = aspace._banded_sorted_cache
     if cache is not None and cache[0] is sl:
         return cache[1], cache[2]
-    s_lam = torch.from_numpy(sl.sorted_lambdas.astype(np.float32)).to(aspace.device)
-    s_idx = torch.from_numpy(sl.sorted_indices).to(aspace.device)
+    s_lam = profiling.to_device(torch.from_numpy(sl.sorted_lambdas.astype(np.float32)),
+                                aspace.device)
+    s_idx = profiling.to_device(torch.from_numpy(sl.sorted_indices), aspace.device)
     aspace._banded_sorted_cache = (sl, s_lam, s_idx)
     return s_lam, s_idx
 

@@ -2,19 +2,160 @@
 reference's ``utils/profiling.py``): on a CUDA device each stage ends with
 ``torch.cuda.synchronize`` so the time covers the device work, not only
 its enqueue. ``device_trace`` writes a ``torch.profiler`` trace where the
-reference writes a ``jax.profiler`` one."""
+reference writes a ``jax.profiler`` one.
+
+Spans inside a call (:func:`span`): on exactly while a ``torch.profiler``
+session records, in any thread. Each span is kept in a bounded ring on
+the ``time.perf_counter_ns`` clock (:func:`spans`) and entered as a
+profiler event of the same name, so it also shows on the trace's timeline
+beside the kernels it launched. Each place where the host waits
+for the card goes through :func:`to_device`, :func:`to_host` or
+:func:`count_sync`, which count one sync against the innermost open span."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import itertools
 import logging
+import threading
 import time
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 log = logging.getLogger("matternet_rs_tpu_torch")
+
+SPAN_RING = 65_536
+# The profiler event of a span: ``torch.profiler.record_function``'s C++
+# core. ``record_function`` itself calls two dispatcher operators, which
+# the profiler records as events of their own: ≈ 10× the cost, and tens of
+# µs between its timestamps and the span's.
+_record_function = torch._C._profiler._RecordFunctionFast
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: ``start_ns``/``end_ns`` on ``time.perf_counter_ns``,
+    its ``parent`` span's id (None for a root), the ``root`` id shared by
+    every span of one tree, the ``thread`` (``threading.get_ident``), the
+    host–device ``syncs`` counted while it was the innermost span, and its
+    ``attrs``."""
+
+    name: str
+    id: int
+    parent: int | None
+    root: int
+    thread: int
+    start_ns: int
+    end_ns: int
+    syncs: int
+    attrs: dict
+
+
+_spans: collections.deque = collections.deque(maxlen=SPAN_RING)
+_open = threading.local()              # .stack: this thread's open spans, innermost last
+_ids = itertools.count(1)
+
+
+class _NoSpan:
+    """What :func:`span` returns while no profiler records: nothing to do."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "root", "syncs", "start_ns", "_rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs, self.syncs = name, attrs, 0
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span has started."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        try:
+            stack = _open.stack
+        except AttributeError:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[-1].root if stack else self.id
+        self._rf = _record_function(self.name)
+        self._rf.__enter__()
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        # Both stamps follow the event's own: its start is taken as it is
+        # entered, its end late in its exit.
+        _open.stack.pop()
+        self._rf.__exit__(*exc)
+        end_ns = time.perf_counter_ns()
+        _spans.append(SpanRecord(self.name, self.id, self.parent, self.root,
+                                 threading.get_ident(), self.start_ns, end_ns, self.syncs,
+                                 self.attrs))
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager that records the block as a span while a
+    ``torch.profiler`` session records (a profiler event and the ring),
+    else a shared no-op. Spans opened inside it, in the same thread, are its
+    children. ``.set(**attrs)`` adds attributes later."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def spans() -> list[SpanRecord]:
+    """The finished spans in the ring (the newest ``SPAN_RING``), oldest
+    first; a copy."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()
+
+
+def count_sync(device) -> None:
+    """Count one host–device sync against this thread's innermost open
+    span when ``device`` is not the host: a call beside a site that waits
+    for the card (``float()``, ``.item()`` or ``.tolist()`` of a device
+    tensor, a tensor made on the device from host values, a synchronise)."""
+    if _autograd_profiler._is_profiler_enabled and torch.device(device).type != "cpu":
+        stack = getattr(_open, "stack", None)
+        if stack:
+            stack[-1].syncs += 1
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t.to(device)``, counted as one sync when it copies host memory to
+    a device (a blocking copy)."""
+    if t.device.type == "cpu":
+        count_sync(device)
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``, counted as one sync when ``t`` is on a device."""
+    count_sync(t.device)
+    return t.cpu()
 
 
 @dataclasses.dataclass

@@ -1,0 +1,100 @@
+"""The benchmark's readers of the search entry's spans
+(``portbench/metrics/entry.*.py``): each gives the median it names from a
+hand-built span list, reads only the window's spans, gives nothing without
+a ``search.batch`` root (an untraced run, or a program that records no
+spans), and is listed for the three accepted cells, each of which reports
+``search_qps``, the metric they move."""
+
+import types
+
+import pytest
+
+from matternet_rs_tpu_torch.utils import profiling
+from portbench.harness.manifest import ROOT, Manifest
+
+CELLS = ["eigen-blobs1m.exact-b256", "energy-blobs1m.scan-b256", "eigen-blobs1m.bf16x3-b1024"]
+METRICS = ["entry.host_ms", "entry.fetch_ms", "entry.syncs"]
+MS = 1_000_000
+OPENED_S = 10.0                         # the window opens at 10 s on perf_counter
+
+
+def _call(next_id, t0_ms, root_ms, fetch_ms, syncs, thread=1):
+    """One call's five spans, as the program records them: ``root_ms`` long
+    from ``t0_ms``, the fetch ``fetch_ms`` at its end, ``syncs`` spread
+    over the input and the fetch."""
+    rid = next_id
+    t0 = int(OPENED_S * 1e9) + t0_ms * MS
+    t1 = t0 + int(root_ms * MS)
+    part = (t1 - int(fetch_ms * MS) - t0) // 3
+    kids = [("search.input", t0, t0 + part, syncs - syncs // 2),
+            ("search.query_lambda", t0 + part, t0 + 2 * part, 0),
+            ("search.scan", t0 + 2 * part, t1 - int(fetch_ms * MS), 0),
+            ("search.fetch", t1 - int(fetch_ms * MS), t1, syncs // 2)]
+    recs = [profiling.SpanRecord(n, rid + 1 + i, rid, rid, thread, s, e, c, {})
+            for i, (n, s, e, c) in enumerate(kids)]
+    return recs + [profiling.SpanRecord("search.batch", rid, None, rid, thread, t0, t1, 0,
+                                        {"mode": "eigen", "tier": "exact", "b": 256,
+                                         "b_pad": 256, "k": 10})]
+
+
+def _read(name, recs, monkeypatch, opened=OPENED_S):
+    monkeypatch.setattr(profiling, "spans", lambda: list(recs))
+    ctx = {"window": types.SimpleNamespace(setup_end=opened)}
+    return Manifest(ROOT).reader(name)(ctx)
+
+
+# Three calls: (root ms, fetch ms, syncs) — medians 3.0 host, 2.5 fetch, 7 syncs.
+CALLS = [(5.0, 2.0, 7), (6.0, 3.0, 9), (5.5, 2.5, 7)]
+EXPECTED = {"entry.host_ms": 3.0, "entry.fetch_ms": 2.5, "entry.syncs": 7}
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_reader_gives_the_median_it_names(monkeypatch, name):
+    recs = []
+    for i, (root_ms, fetch_ms, syncs) in enumerate(CALLS):
+        recs += _call(1 + 10 * i, 10 * i, root_ms, fetch_ms, syncs)
+    assert _read(name, recs, monkeypatch) == pytest.approx(EXPECTED[name], abs=1e-6)
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_reader_reads_only_the_windows_spans(monkeypatch, name):
+    before = _call(1, -5000, 50.0, 40.0, 30)          # a call 5 s before the window opened
+    recs = list(before)
+    for i, (root_ms, fetch_ms, syncs) in enumerate(CALLS):
+        recs += _call(11 + 10 * i, 10 * i, root_ms, fetch_ms, syncs)
+    assert _read(name, recs, monkeypatch) == pytest.approx(EXPECTED[name], abs=1e-6)
+
+
+def test_sync_count_is_a_whole_number_per_call(monkeypatch):
+    recs = _call(1, 0, 5.0, 2.0, 6) + _call(11, 10, 5.0, 2.0, 9)
+    got = _read("entry.syncs", recs, monkeypatch)
+    assert got == 6 and isinstance(got, int)
+
+
+@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("case", ["empty", "children_only", "other_spans"])
+def test_reader_gives_nothing_without_a_root(monkeypatch, name, case):
+    recs = {"empty": [],
+            "children_only": [s for s in _call(1, 0, 5.0, 2.0, 7) if s.name != "search.batch"],
+            "other_spans": [profiling.SpanRecord("x", 1, None, 1, 1, int(11e9), int(12e9), 3,
+                                                 {})]}[case]
+    assert _read(name, recs, monkeypatch) is None
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_reader_gives_nothing_from_a_program_without_spans(monkeypatch, name):
+    monkeypatch.delattr(profiling, "spans")
+    ctx = {"window": types.SimpleNamespace(setup_end=OPENED_S)}
+    assert Manifest(ROOT).reader(name)(ctx) is None
+
+
+@pytest.mark.parametrize("name", METRICS)
+def test_metric_is_listed_for_the_three_accepted_cells(name):
+    man = Manifest(ROOT)
+    (m,) = [m for m in man.data["per_layer"] if m["name"] == name]
+    assert m["workloads"] == CELLS
+    assert m["layer"] == "entry" and m["moves"] == "search_qps" and m["better"] == "lower"
+    for cell in CELLS:
+        man.workload(cell)
+        assert "search_qps" in {x["name"] for x in man.metrics_of(cell, "end_to_end")}
+        assert name in {x["name"] for x in man.metrics_of(cell, "per_layer")}
