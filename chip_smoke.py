@@ -151,7 +151,9 @@ Phases, one output line each (JSON):
    largest group plus k (its route printed), the full scan and ``auto`` at
    B = 8, 16 serial ``search_energy`` calls; every route against the full
    scan under the same-k rule at 1e-14 (``ENERGY_TIE_TOL``: the tie-break
-   term 1e-9·(1 − cos) at a cosine tolerance of 1e-5). The same on the
+   term 1e-9·(1 − cos) at a cosine tolerance of 1e-5); each full-scan
+   batch launches ``energy_scan`` and ``search_fused_merge`` once, a
+   banded one neither (counted around each route). The same on the
    reference's banded benchmark index (``bench_energy_banded_1m``: 1M
    normal rows, 2,048 sorted sub-centroid λ at random), where ``auto``
    must take the full scan at B = 256 and band at B = 8 and the forced
@@ -692,9 +694,12 @@ def make_builder(n):
 
 def energy_phase(dev, card):
     """Phase 12, ``energy`` (module docstring). Returns the launches of
-    energy-mode ``search_batch`` by tier, each counted from 0 just before
-    its batches and read just after, and those of phase 16's energy step
-    (:func:`serve_energy_step`, run here on this index)."""
+    energy-mode ``search_batch`` by tier and of ``search_energy_batch``'s
+    routes (key ``"scans"``), each counted just before its batches and
+    read just after; those of phase 16's energy step
+    (:func:`serve_energy_step`, run here on this index); and, for phase
+    ``kernels``'s energy scan row, this index's rows, norms and λ with one
+    batch's queries and query λ."""
     import importlib.util
     import tempfile
     from pathlib import Path
@@ -749,10 +754,23 @@ def energy_phase(dev, card):
         banded_calls[0] += 1
         return banded(*a, **kw)
 
+    scan_counts = {k: 0 for k in kernels.LAUNCHES}
+    scan_bad_counts = []
+
     def routed(fn, items):
-        before = banded_calls[0]
+        """Times ``fn`` over ``items``; its route; one ``energy_scan`` and
+        one merge a full-scan batch, none a banded one."""
+        before, launched = banded_calls[0], kernels.launch_counts()
         ms, outs = over(fn, items)
-        return ms, outs, ("banded" if banded_calls[0] > before else "full scan")
+        route = "banded" if banded_calls[0] > before else "full scan"
+        now = kernels.launch_counts()
+        d = {k: now[k] - launched[k] for k in now}
+        want = len(items) if route == "full scan" else 0
+        if d["energy_scan"] != want or d["search_fused_merge"] != want:
+            scan_bad_counts.append((route, len(items), d["energy_scan"], d["search_fused_merge"]))
+        for k in scan_counts:
+            scan_counts[k] += d[k]
+        return ms, outs, route
 
     em._banded_search = counting_banded
     try:
@@ -803,6 +821,10 @@ def energy_phase(dev, card):
             auto_b8=mismatches(f8_out, a8_out, ENERGY_TIE_TOL), serial=serial_bad)
         check(full_route == "full scan" and auto_route == "full scan",
               f"energy: B={BATCH} routes {full_route} / auto {auto_route}, not the full scan")
+        Q1 = torch.from_numpy(X[batches[1]]).to(dev)
+        ql1 = em._batch_query_lambdas(aspace.sub_centroids, aspace._subcentroid_lambdas_dev(),
+                                      aspace._energy_query(Q1))
+        scan_inputs = (aspace.data, aspace.item_norms, aspace.lambdas, Q1, ql1)
         check(not any(scan_bad.values()), f"energy: routes disagree: { {k: v[:2] for k, v in scan_bad.items()} }")
 
         # The reference's banded benchmark index (bench.py bench_energy_banded_1m):
@@ -833,6 +855,9 @@ def energy_phase(dev, card):
               f"auto B=8 {s_a8_route}")
         check(not any(spread_bad.values()),
               f"energy: banded vs full scan on the spread index: { {k: v[:2] for k, v in spread_bad.items()} }")
+        check(not scan_bad_counts and scan_counts["energy_scan"] > 0,
+              f"energy: (route, batches, energy_scan, search_fused_merge) launched otherwise "
+              f"than once a full-scan batch: {scan_bad_counts}")
 
         # -- energy-mode search_batch through the kernels -------------------
         alphas = torch.full((BATCH,), ALPHA, dtype=torch.float32, device=dev)
@@ -1007,11 +1032,12 @@ def energy_phase(dev, card):
                                               route=s_forced_route),
                            full_scan_b8=timing(s_f8_ms),
                            auto_b8=dict(**timing(s_a8_ms), route=s_a8_route)),
-         search_batch=tier_info, scan_profile=scan_profile, checkpoint=ckpt, store=store)
+         scan_launches=scan_counts, search_batch=tier_info, scan_profile=scan_profile,
+         checkpoint=ckpt, store=store)
     serve_counts = serve_energy_step(dev, card, aspace, gl, X)
     del aspace, gl, X
     torch.cuda.empty_cache()
-    return tier_counts, serve_counts
+    return {**tier_counts, "scans": scan_counts}, serve_counts, scan_inputs
 
 
 def _timed_call(fn):
@@ -1807,6 +1833,11 @@ def serve_energy_step(dev, card, aspace, gl, X):
             answers, wall = http_burst(base, docs, SERVE_ENERGY_CLIENTS, path="/search_energy")
             counts[f"search_energy_{cand}"] = kernels.launch_counts()
             check(all(code == 200 for code, _ in answers), f"serve energy ({cand}): non-200 answers")
+            c = counts[f"search_energy_{cand}"]
+            check(c["energy_scan"] == c["search_fused_merge"]
+                  and (cand is not None or c["energy_scan"] == svc.n_batches),
+                  f"serve energy ({cand}): {c['energy_scan']} energy scans, "
+                  f"{c['search_fused_merge']} merges, {svc.n_batches} batches")
             idx, dist = em.search_energy_batch(aspace, X[rows], gl, K, candidates=cand)
             bad = []
             for j, (_, body) in enumerate(answers):
@@ -3034,13 +3065,14 @@ def main() -> int:
     from matternet_rs_tpu_torch.ops import search as so
     from matternet_rs_tpu_torch.ops import taumode as tmo
     from matternet_rs_tpu_torch.ops.kernels import _cuda
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
     from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
     from matternet_rs_tpu_torch.ops.kernels import search_fused as sfk
     from matternet_rs_tpu_torch.ops.kernels import spmv_ell as fk
     from matternet_rs_tpu_torch.ops.kernels import taumode as tk
     from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
     from matternet_rs_tpu_torch.utils.fixtures import make_energy_test_dataset
-    from matternet_rs_tpu_torch.utils.parity import same_k_mismatches, topk_mismatches
+    from matternet_rs_tpu_torch.utils.parity import ENERGY_TIE_TOL, same_k_mismatches, topk_mismatches
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -3996,7 +4028,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 12. energy: the energy pipeline at the reference benchmark's size --
-    energy_counts, serve_energy_counts = energy_phase(dev, card)
+    energy_counts, serve_energy_counts, energy_scan_inputs = energy_phase(dev, card)
     path_counts["energy"] = {k: sum(c[k] for c in energy_counts.values()) for k in kernels.LAUNCHES}
 
     # -- 13–15. items, lambda_search, pipeline ---------------------------
@@ -4431,13 +4463,16 @@ def main() -> int:
     mi, mv = sfk.merge_partials(pv, pi, K)
     mi_p, mv_p = sfk.merge_partials_plain(pv, pi, K)
     ops_g = sfk._merge_operands(pv, pi, K)     # the wrapper's checks and outputs, made once
+    # The merge also follows each energy scan (energy, serve and cli paths).
+    merge_by_path = {"streamed": st_counts["search_fused_merge"],
+                     **{p: c["search_fused_merge"] for p, c in path_counts.items()
+                        if c["search_fused_merge"]}}
     flat_v = pv.view(BATCH, -1)
     bms, by = bound(8 * pv.numel() + 8 * BATCH * K, 0)
     rows_out.append(dict(
         name="search_fused_merge", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
         replaces="matternet_rs_tpu/ops/pallas/search_fused.py:108",
-        launches=st_counts["search_fused_merge"] + path_counts["ties"]["search_fused_merge"],
-        launches_by_path={"streamed": st_counts["search_fused_merge"], "ties": path_counts["ties"]["search_fused_merge"]},
+        launches=sum(merge_by_path.values()), launches_by_path=merge_by_path,
         max_abs_err=float((mv - mv_p).abs().max()),
         ms=cuda_ms(lambda: sfk.merge_partials(pv, pi, K), reps=20),
         launch_ms=cuda_ms(lambda: sfk._merge_launch(*ops_g), reps=20),
@@ -4455,6 +4490,47 @@ def main() -> int:
     resources["search_fused_merge"] = dict(ptxas=ptxas_resources(log, "search_fused_merge_kernel"))
     check(log is None or resources["search_fused_merge"]["ptxas"] is not None,
           "search_fused_merge: no ptxas report in the build log")
+    # The energy scan (kernel G's scan with the energy epilogue) on phase
+    # energy's index and one of its batches, against the path it replaced:
+    # the [B, N] scores and a stable sort.
+    eX, en, el, eQ, eql = energy_scan_inputs
+    e_splits = sfk.default_splits(eX.shape[0], BATCH, dev)
+    record_resources("energy_scan", "search_fused", "energy_scan_kernel",
+                     sfk.scan_plan(eX, eQ, e_splits), sfk.scan_plan_chosen(eX, eQ, K, e_splits))
+    ei, ed = esk.energy_topk(eX, en, el, eQ, eql, K)
+    pi_e, pd_e = esk.energy_topk_plain(eX, en, el, eQ, eql, K)
+    e_bad = same_k_mismatches(pi_e.cpu().numpy(), pd_e.cpu().numpy(), ei.cpu().numpy(),
+                              ed.cpu().numpy(), ENERGY_TIE_TOL)
+    eqn = esk.query_norms(eQ)
+    # The result reads the dot of a pair only inside the tie band. Bytes:
+    # λ and the norms once, the band's rows, the queries, the lists;
+    # operations: the band's dots and three for each pair's |Δλ| and test.
+    band = torch.abs(eql[:, None] - el[None, :]) < esk.TIE_EPS
+    band_pairs, band_rows = int(band.sum()), int(band.any(dim=0).sum())
+    del band
+    bms, by = bound(8 * eX.shape[0] + 4 * (band_rows * eX.shape[1] + eQ.numel() + 2 * BATCH)
+                    + 8 * BATCH * e_splits * sfk.K_PAD,
+                    2 * band_pairs * eX.shape[1] + 3 * BATCH * eX.shape[0])
+    e_by_path = {p: c["energy_scan"] for p, c in path_counts.items() if c["energy_scan"]}
+    rows_out.append(dict(
+        name="energy_scan", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
+        replaces="matternet_rs_tpu/energymaps.py search_energy_batch's full scan (no TPU kernel: "
+                 "the [B, N] scores and lax.top_k)",
+        launches=sum(e_by_path.values()), launches_by_path=e_by_path,
+        tie_band_pairs=band_pairs, tie_band_rows=band_rows,
+        mismatches_vs_plain=e_bad[:3],
+        ms=cuda_ms(lambda: esk.energy_topk(eX, en, el, eQ, eql, K)),
+        launch_ms=cuda_ms(lambda: esk.scan_partials(eX, en, el, eQ, eqn, eql, K, e_splits)),
+        plain_ms=cuda_ms(lambda: esk.energy_topk_plain(eX, en, el, eQ, eql, K), reps=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.matmul(eQ, eX.T)),
+        shape=f"B={BATCH} N={eX.shape[0]} F={eX.shape[1]} k={K} splits={e_splits}",
+        library="torch.matmul(Q, X.T): the product alone",
+        plain="energymaps' full scan before the kernel: the [B, N] scores, then topk_stable",
+    ))
+    check(not e_bad, f"energy_scan: kernel vs plain: {e_bad[:3]}")
+    check(sum(e_by_path.values()) > 0, "energy_scan: never launched on a search path")
+    del eX, en, el, eQ, eql, energy_scan_inputs
     # Kernels B and D at edge shapes, each against its plain version.
     def edge_arrays(f, b, seed):
         rng = np.random.default_rng(seed)

@@ -38,6 +38,20 @@
 //   nor on the order in which candidates arrive. The blend uses rounded
 //   multiplies and adds (no contraction), as the plain version rounds.
 //
+//   The energy scan (energy_scan_kernel) is the same scan with another
+//   epilogue, instantiated apart so that the blended code stays as it is.
+//   For raw rows X, their norms ‖X_j‖ and λ_j, raw queries Q, ‖Q_b‖ and
+//   qλ_b, in the plain version's order (energymaps' full scan), each step
+//   rounded and nothing contracted:
+//
+//     d = |qλ_b − λ_j|;   s = d + (1 − cos)·1e-9 where d < 1e-9, else s = d,
+//     cos = (Q_b·X_j) / (‖Q_b‖·‖X_j‖ + 1e-9)
+//
+//   (the division runs only inside the tie band). The lists keep −s, so
+//   the order above (largest first, lowest id on ties) is ascending s,
+//   lowest id first: the plain version's stable ascending top-k. The
+//   merge below takes the lists unchanged.
+//
 //   The merge (search_fused_merge_kernel) takes the partials — or any
 //   [B, cand] lists, sorted or not — to each query's best k. What bounds it:
 //   bytes, 8·B·cand read (4.3 MB at B = 256, cand = 2,112: 1.3 µs), below
@@ -71,7 +85,11 @@ constexpr int SMEM_BYTES = f32tile::Tile<BM, 1>::SMEM_BYTES;
 constexpr int KP = 16;        // list width (the reference's K_PAD)
 constexpr float MASKED = -3.0e38f;
 constexpr float PAD_LAMBDA_CUT = 1.5f;
+constexpr float TIE_EPS = 1e-9f;     // energy: the cosine breaks ties below this |Δλ|
 constexpr int EMPTY_ID = 0x7fffffff;
+
+// The scan's epilogue: the list value of a (query, row) pair.
+enum class Score { Blended, Energy };
 
 // Does (s, id) rank before (v, vid) under (score descending, id ascending)?
 __device__ __forceinline__ bool before(float s, int id, float v, int vid) {
@@ -89,12 +107,15 @@ __device__ __forceinline__ void insert(float& lv, int& li, float s, int id, int 
   else if (lane > pos) { lv = uv; li = ui; }
 }
 
-__global__ void __launch_bounds__(THREADS)
-search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ lams,
-                         const float* __restrict__ Q, const float* __restrict__ ql,
-                         float alpha, float beta, int64_t n, int f, int b, int k,
-                         int splits, int64_t tiles_per_split, int vec,
-                         float* __restrict__ pvals, int* __restrict__ pids) {
+// Blended: norms and qn are unused. Energy: alpha and beta are unused.
+template <Score S>
+__device__ __forceinline__ void scan(const float* __restrict__ X, const float* __restrict__ lams,
+                                     const float* __restrict__ norms,
+                                     const float* __restrict__ Q, const float* __restrict__ ql,
+                                     const float* __restrict__ qn, float alpha, float beta,
+                                     int64_t n, int f, int b, int k, int splits,
+                                     int64_t tiles_per_split, int vec,
+                                     float* __restrict__ pvals, int* __restrict__ pids) {
   extern __shared__ __align__(16) float ring[];
 
   const int split = blockIdx.x % splits;
@@ -109,12 +130,14 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
   float lv[8];                      // entry `lane` of the list of query i
   int li[8];
   float qlb[8];
+  float qnb[8];                     // energy: ‖Q_b‖
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     lv[i] = -INFINITY;
     li[i] = EMPTY_ID;
     const int bq = q0 + tr * 8 + i;
     qlb[i] = bq < b ? ql[bq] : 0.f;
+    if constexpr (S == Score::Energy) qnb[i] = bq < b ? qn[bq] : 0.f;
   }
 
   if (t_begin < t_end)
@@ -127,10 +150,12 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
       f32tile::tile_prefetch<BM, 1>(Q, X, q0, b, c0 + BN, n, f, vec != 0, ring);
 
     float lm[8];                              // λ of this lane's 8 columns
+    float nm[8];                              // energy: their norms
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int64_t col = c0 + (j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4));
       lm[j] = col < n ? lams[col] : 0.f;
+      if constexpr (S == Score::Energy) nm[j] = col < n ? norms[col] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {             // query q0 + tr*8 + i, warp-uniform
@@ -139,9 +164,20 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int64_t col = c0 + (j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4));
-        const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[j], qlb[i])), 1.f));
-        float s = __fadd_rn(__fmul_rn(alpha, acc[i][j]), __fmul_rn(beta, lsim));
-        if (lm[j] > PAD_LAMBDA_CUT) s = MASKED;
+        float s;
+        if constexpr (S == Score::Blended) {
+          const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[j], qlb[i])), 1.f));
+          s = __fadd_rn(__fmul_rn(alpha, acc[i][j]), __fmul_rn(beta, lsim));
+          if (lm[j] > PAD_LAMBDA_CUT) s = MASKED;
+        } else {
+          const float d = fabsf(__fsub_rn(qlb[i], lm[j]));
+          float e = d;
+          if (d < TIE_EPS) {
+            const float cosv = __fdiv_rn(acc[i][j], __fadd_rn(__fmul_rn(qnb[i], nm[j]), TIE_EPS));
+            e = __fadd_rn(d, __fmul_rn(__fsub_rn(1.f, cosv), TIE_EPS));
+          }
+          s = -e;
+        }
         const int id = (int)col;
         unsigned pass = __ballot_sync(0xffffffffu, col < n && before(s, id, th, thid));
         while (pass) {
@@ -170,6 +206,26 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ lams,
+                         const float* __restrict__ Q, const float* __restrict__ ql,
+                         float alpha, float beta, int64_t n, int f, int b, int k,
+                         int splits, int64_t tiles_per_split, int vec,
+                         float* __restrict__ pvals, int* __restrict__ pids) {
+  scan<Score::Blended>(X, lams, nullptr, Q, ql, nullptr, alpha, beta, n, f, b, k, splits,
+                       tiles_per_split, vec, pvals, pids);
+}
+
+__global__ void __launch_bounds__(THREADS)
+energy_scan_kernel(const float* __restrict__ X, const float* __restrict__ norms,
+                   const float* __restrict__ lams, const float* __restrict__ Q,
+                   const float* __restrict__ qn, const float* __restrict__ ql, int64_t n, int f,
+                   int b, int k, int splits, int64_t tiles_per_split, int vec,
+                   float* __restrict__ pvals, int* __restrict__ pids) {
+  scan<Score::Energy>(X, lams, norms, Q, ql, qn, 0.f, 0.f, n, f, b, k, splits, tiles_per_split,
+                      vec, pvals, pids);
 }
 
 // The merge. One block per query; its 8 warps share the query's candidates,
@@ -236,27 +292,60 @@ extern "C" {
 
 const char* mrs_cuda_strerror(int rc) { return cudaGetErrorString((cudaError_t)rc); }
 
+// The plan of either scan (blended or energy): 16-byte copies when f is a
+// multiple of 4 and X and Q are 16-byte aligned (the element-wise loader
+// otherwise), tiles per range, blocks. Returns cudaErrorInvalidValue for
+// what the scans refuse.
+int mrs_search_fused_scan_plan(const float* X, const float* Q, int64_t n, int f, int b, int k,
+                               int splits, int* vec, int64_t* tiles_per_split,
+                               int64_t* blocks) {
+  if (n <= 0 || n > 0x7fffffffLL || f <= 0 || b <= 0 || k < 1 || k > KP || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  *vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  *tiles_per_split = ((n + BN - 1) / BN + splits - 1) / splits;
+  *blocks = (int64_t)((b + BM - 1) / BM) * splits;
+  return 0;
+}
+
 // X [n, f], lams [n], Q [b, f], ql [b] float32 contiguous; 1 ≤ k ≤ 16;
-// n < 2^31. 16-byte copies when f is a multiple of 4 and X and Q are
-// 16-byte aligned, the element-wise loader otherwise. Writes each block's
-// lists to pvals/pids [b, splits, 16]
+// n < 2^31. Launched as mrs_search_fused_scan_plan says. Writes each
+// block's lists to pvals/pids [b, splits, 16]
 // (unfilled entries: −inf, id 2^31−1). Returns cudaGetLastError().
 int mrs_search_fused_scan(const float* X, const float* lams, const float* Q,
                           const float* ql, float alpha, float beta, int64_t n, int f,
                           int b, int k, int splits, float* pvals, int* pids,
                           void* stream) {
-  if (n <= 0 || n > 0x7fffffffLL || f <= 0 || b <= 0 || k < 1 || k > KP || splits < 1)
-    return (int)cudaErrorInvalidValue;
-  const int64_t ntiles = (n + BN - 1) / BN;
-  const int64_t tiles_per_split = (ntiles + splits - 1) / splits;
-  const int64_t blocks = (int64_t)((b + BM - 1) / BM) * splits;
-  const int vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  int vec;
+  int64_t tiles_per_split, blocks;
+  const int bad =
+      mrs_search_fused_scan_plan(X, Q, n, f, b, k, splits, &vec, &tiles_per_split, &blocks);
+  if (bad) return bad;
   cudaError_t rc = cudaFuncSetAttribute(search_fused_scan_kernel,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
   search_fused_scan_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       X, lams, Q, ql, alpha, beta, n, f, b, k, splits, tiles_per_split, vec, pvals, pids);
+  return (int)cudaGetLastError();
+}
+
+// X [n, f], norms [n], lams [n], Q [b, f], qn [b], ql [b] float32
+// contiguous; 1 ≤ k ≤ 16; n < 2^31. Writes each block's lists of −s to
+// pvals/pids [b, splits, 16] (unfilled entries: −inf, id 2^31−1), planned
+// and laid out as mrs_search_fused_scan's. Returns cudaGetLastError().
+int mrs_energy_scan(const float* X, const float* norms, const float* lams, const float* Q,
+                    const float* qn, const float* ql, int64_t n, int f, int b, int k, int splits,
+                    float* pvals, int* pids, void* stream) {
+  int vec;
+  int64_t tiles_per_split, blocks;
+  const int bad =
+      mrs_search_fused_scan_plan(X, Q, n, f, b, k, splits, &vec, &tiles_per_split, &blocks);
+  if (bad) return bad;
+  cudaError_t rc = cudaFuncSetAttribute(energy_scan_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (rc != cudaSuccess) return (int)rc;
+  energy_scan_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      X, norms, lams, Q, qn, ql, n, f, b, k, splits, tiles_per_split, vec, pvals, pids);
   return (int)cudaGetLastError();
 }
 

@@ -19,9 +19,12 @@
    ``|Δλ| < 1e-9``; batched, with the reference's banded window over the
    sorted λ.
 
-The energy score is not the blend, so the scan is a full-f32
-``torch.matmul`` followed by the stable top-k (``lax.top_k``'s order:
-ties lowest index first); none of the kernels computes it. Energy-mode
+The energy score is not the blend. On the card the batched full scan
+for k ≤ 16 is one streamed kernel and G's merge
+(:mod:`.ops.kernels.energy_scan`): no ``[B, N]`` plane and no sort.
+Elsewhere (the CPU, k > 16, the banded window, the single-query scans) it
+is a full-f32 ``torch.matmul`` followed by the stable top-k
+(``lax.top_k``'s order: ties lowest index first). Energy-mode
 ``ArrowSpace.search_batch`` takes the sub-centroid λ into the blended
 tiers and so their kernels (:mod:`.core`). Entry points run on the
 devices of the objects they are given; the builder's device for a build.
@@ -41,6 +44,7 @@ from matternet_rs_tpu_torch.index.sorted import DeviceSortedLambdas
 from matternet_rs_tpu_torch.ops import laplacian as lap_ops
 from matternet_rs_tpu_torch.ops import taumode as tm_ops
 from matternet_rs_tpu_torch.ops._mm import mm
+from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
 from matternet_rs_tpu_torch.ops.knn import knn
 from matternet_rs_tpu_torch.ops.search import topk_stable
 from matternet_rs_tpu_torch.reduction import ImplicitProjection
@@ -49,7 +53,7 @@ from matternet_rs_tpu_torch.utils import profiling
 # Items assigned to sub-centroids per chunk: bounds the [chunk, S] buffers.
 ASSIGN_CHUNK = 65_536
 # The cosine tie-break applies where the λ distance is below this.
-TIE_EPS = 1e-9
+TIE_EPS = esk.TIE_EPS
 # Gathered f32 elements per query block of the banded program (1 GiB).
 BANDED_GATHER_ELEMS = 1 << 28
 
@@ -381,16 +385,6 @@ def build_energy(builder, rows, energy_params: Optional[EnergyParams] = None):
 # -- scoring ------------------------------------------------------------------------
 
 
-def _energy_scores(X, norms, lambdas, Q, q_lams):
-    """``[B, N]`` energy scores: ``|Δλ|``, plus ``(1 − cos)·1e-9`` where
-    ``|Δλ| < 1e-9``; the dots at full f32."""
-    lam_dist = torch.abs(q_lams[:, None] - lambdas[None, :])
-    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    cosine = mm(Q, X.T) / (qn[:, None] * norms[None, :] + 1e-9)
-    return lam_dist + torch.where(lam_dist < TIE_EPS, (1.0 - cosine) * 1e-9,
-                                  torch.zeros_like(cosine))
-
-
 def _query_tensor(aspace: ArrowSpace, queries) -> torch.Tensor:
     Q = profiling.to_device(torch.from_numpy(np.array(queries, np.float32)), aspace.device)
     return Q[None, :] if Q.ndim == 1 else Q
@@ -404,7 +398,7 @@ def search_energy(aspace: ArrowSpace, query, gl_energy: GraphLaplacian, k: int,
     q_lambda = aspace.prepare_query_item(query, gl_energy)
     Q = _query_tensor(aspace, query)
     ql = torch.tensor([q_lambda], dtype=torch.float32, device=aspace.device)
-    scores = _energy_scores(aspace.data, aspace.item_norms, aspace.lambdas, Q, ql)[0]
+    scores = esk.energy_scores_plain(aspace.data, aspace.item_norms, aspace.lambdas, Q, ql)[0]
     neg, idx = topk_stable(-scores, min(k, aspace.nitems))
     return [(int(i), float(-s)) for i, s in zip(idx.cpu(), neg.cpu())]
 
@@ -472,7 +466,7 @@ def search_energy_batch(aspace: ArrowSpace, queries, gl_energy: GraphLaplacian, 
             sc_lams = aspace._subcentroid_lambdas_dev()
             q_lams = _batch_query_lambdas(aspace.sub_centroids, sc_lams, Qe)
 
-        with profiling.span("search.scan"):
+        with profiling.span("search.scan") as scan:
             cand = None
             if candidates is not None:
                 if candidates == "auto":
@@ -484,13 +478,15 @@ def search_energy_batch(aspace: ArrowSpace, queries, gl_energy: GraphLaplacian, 
             banded = cand is not None and 2 * cand <= aspace.nitems
             root.set(tier="banded" if banded else "scan", b=b, b_pad=b_pad)
             if banded:
+                scan.set(route="plain")
                 s_lam, s_idx = _sorted_lambda_arrays(aspace)
                 idx, dist = _banded_search(aspace.data, aspace.item_norms, s_lam, s_idx, Q,
                                            q_lams, kk, cand)
             else:
-                scores = _energy_scores(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams)
-                neg, idx = topk_stable(-scores, kk)
-                dist = -neg
+                route = esk.route(Q.device, kk)
+                scan.set(route=route)
+                topk = esk.energy_topk if route == "kernel" else esk.energy_topk_plain
+                idx, dist = topk(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams, kk)
 
         with profiling.span("search.fetch"):
             return profiling.to_host(idx).numpy(), profiling.to_host(dist).numpy()

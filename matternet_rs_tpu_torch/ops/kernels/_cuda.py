@@ -71,8 +71,13 @@ SIGNATURES = {
         "mrs_spmv_ell_plan": [_I64, _I, _I, _P, _P, _P, _P, _P],
     },
     "search_fused": {
+        # X, Q, n, f, b, k, splits, vec (out), tiles per split (out, int64),
+        # blocks (out, int64): the plan of both scans
+        "mrs_search_fused_scan_plan": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
         # X, lams, Q, ql, alpha, beta, n, f, b, k, splits, pvals, pids, stream
         "mrs_search_fused_scan": [_P, _P, _P, _P, _F, _F, _I64, _I, _I, _I, _I, _P, _P, _P],
+        # X, norms, lams, Q, qn, ql, n, f, b, k, splits, pvals, pids, stream
+        "mrs_energy_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
         # pvals, pids, b, cand, k, vals, ids, stream
         "mrs_search_fused_merge": [_P, _P, _I, _I, _I, _P, _P, _P],
         # stream: an empty kernel (what one launch costs)

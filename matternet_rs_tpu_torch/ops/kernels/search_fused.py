@@ -17,6 +17,8 @@ for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -87,6 +89,51 @@ def scan_partials_plain(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits
     return vals.contiguous(), ids.to(torch.int32).contiguous()
 
 
+def scan_plan(X, Q, splits: int) -> dict:
+    """The launch plan of either scan (blended or energy), as
+    ``mrs_search_fused_scan_plan`` makes it: 16-byte copies (``vec``: F a
+    multiple of 4, X and Q 16-byte aligned), ``tiles_per_split`` and
+    ``blocks`` (64 queries × one N-range each)."""
+    n, f = X.shape
+    b = Q.shape[0]
+    tiles = -(-n // TILE_ROWS)
+    vec = f % 4 == 0 and X.data_ptr() % 16 == 0 and Q.data_ptr() % 16 == 0
+    return dict(vec=int(vec), tiles_per_split=-(-tiles // splits),
+                blocks=-(-b // _QUERY_BLOCK) * splits)
+
+
+def scan_plan_chosen(X, Q, k: int, splits: int) -> dict:
+    """``mrs_search_fused_scan_plan`` itself (needs a card), to hold
+    :func:`scan_plan` against."""
+    lib = _cuda.library("search_fused")
+    vec, tps, blocks = ctypes.c_int(), ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.mrs_search_fused_scan_plan(X.data_ptr(), Q.data_ptr(), X.shape[0], X.shape[1],
+                                        Q.shape[0], k, splits, ctypes.byref(vec),
+                                        ctypes.byref(tps), ctypes.byref(blocks))
+    _cuda.check(lib, rc, "search_fused scan plan")
+    return dict(vec=vec.value, tiles_per_split=tps.value, blocks=blocks.value)
+
+
+def check_scan_range(what: str, n: int, k: int, splits: int) -> None:
+    """Raise ``ValueError`` for a ``k``, ``splits`` or ``N`` no scan takes."""
+    if not 1 <= k <= K_PAD or splits < 1 or n >= EMPTY_ID:
+        raise ValueError(f"{what}: k={k}, splits={splits}, N={n} out of range")
+
+
+def scan_operands(what: str, b: int, splits: int, **tensors) -> tuple:
+    """A scan's launch on the CUDA ``tensors``, checked (float32 on one
+    card, else it raises): ``(library, device, vals, ids)``, the
+    ``[B, splits, 16]`` lists allocated."""
+    lib = _cuda.library("search_fused")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{what} kernel: {name} must be float32, got {t.dtype}")
+    dev = _cuda.require_cuda(f"{what} kernel", **tensors)
+    vals = torch.empty((b, splits, K_PAD), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, splits, K_PAD), dtype=torch.int32, device=dev)
+    return lib, dev, vals, ids
+
+
 def scan_partials(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits: int):
     """Per query and N-range the sorted best-16 list: ``(vals, ids)
     [B, splits, 16]`` float32 / int32, unfilled entries ``(−inf,
@@ -99,18 +146,11 @@ def scan_partials(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits: int)
     b = Qn.shape[0]
     if Qn.shape != (b, f) or lambdas.shape != (n,) or q_lambdas.shape != (b,):
         raise ValueError("search_fused: inconsistent shapes")
-    if not 1 <= k <= K_PAD or splits < 1 or n >= EMPTY_ID:
-        raise ValueError(f"search_fused: k={k}, splits={splits}, N={n} out of range")
+    check_scan_range("search_fused", n, k, splits)
     if Xn.device.type == "cpu":
         return scan_partials_plain(Xn, lambdas, Qn, q_lambdas, k, alpha, splits)
-    lib = _cuda.library("search_fused")
-    tensors = dict(Xn=Xn, lambdas=lambdas, Qn=Qn, q_lambdas=q_lambdas)
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"search_fused kernel: {name} must be float32, got {t.dtype}")
-    dev = _cuda.require_cuda("search_fused kernel", **tensors)
-    vals = torch.empty((b, splits, K_PAD), dtype=torch.float32, device=dev)
-    ids = torch.empty((b, splits, K_PAD), dtype=torch.int32, device=dev)
+    lib, dev, vals, ids = scan_operands("search_fused", b, splits, Xn=Xn, lambdas=lambdas,
+                                        Qn=Qn, q_lambdas=q_lambdas)
     if b == 0:
         return vals, ids
     rc = lib.mrs_search_fused_scan(

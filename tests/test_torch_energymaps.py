@@ -331,6 +331,28 @@ def test_search_energy_batch_matches_and_routes_alike(built, monkeypatch, b, can
     _same(ri, rd, gi, gd)
 
 
+@pytest.mark.parametrize("k", [10, 17])
+def test_search_energy_batch_scans_plainly_on_the_cpu(built, monkeypatch, k):
+    """On the CPU the full scan takes the plain version (never the kernel
+    route), says so on its ``search.scan`` span, and still answers as the
+    reference does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
+    from matternet_rs_tpu_torch.utils import profiling
+
+    data, (ja, jg), _, (ca, cg) = built
+    Q = _queries(data, 8, 21)
+    kernel_calls = _spy(monkeypatch, esk, "energy_topk")
+    plain_calls = _spy(monkeypatch, esk, "energy_topk_plain")
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        gi, gd = tem.search_energy_batch(ca, Q, cg, k)
+    assert kernel_calls == [] and plain_calls == ["energy_topk_plain"]
+    assert [s.attrs for s in profiling.spans() if s.name == "search.scan"] == [{"route": "plain"}]
+    _same(*jem.search_energy_batch(ja, Q, jg, k), gi, gd)
+
+
 def test_search_energy_batch_refuses_an_eigen_index():
     data = make_energy_test_dataset(200, 16, seed=1).astype(np.float32)
     a, g = TBuilder(device=CPU).with_lambda_graph(1.0, 5).with_sparsity_check(False) \
