@@ -12,7 +12,9 @@ card, a corpus on disk.
 * resident sketch: an int8 row-quantised copy of the corpus on the card,
   scanned per batch (the carry scan, or from ``MAXFIRST_MIN_ROWS`` flat
   rows the maxima-first scan through kernels D and E), then an exact
-  rescore of the per-query candidates fetched from disk.
+  rescore of the per-query candidates fetched from disk. Under a running
+  ``torch.profiler`` :meth:`StreamingIndex.search_batch_sketch` records
+  one span tree a call (:func:`..utils.profiling.span`).
 
 Selection is exact everywhere: the reference's ``lax.approx_max_k`` in the
 carry scan returns ``lax.top_k``'s values and ids off the TPU, ties lowest
@@ -42,6 +44,7 @@ from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
 from matternet_rs_tpu_torch.ops.search import topk_stable
 from matternet_rs_tpu_torch.storage import shards as shard_store
+from matternet_rs_tpu_torch.utils import profiling
 
 INDEX_FILE = "index.json"
 LAMBDA_FILE = "lambdas.bin"
@@ -297,6 +300,10 @@ class StreamingIndex:
     projection: Optional[object] = None
     # Seconds per build stage (build_from_store; not persisted).
     build_timings: Optional[dict] = None
+    # The stage-1 scan's assignment of each sampled row (-1: dropped), as
+    # build_from_store left it (not persisted).
+    cluster_assignments: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False, compare=False)
     # Where the graph, the streamed blocks and the sketch live (None: the
     # CUDA card, resolved at use).
     device: Optional[torch.device] = dataclasses.field(default=None, compare=False)
@@ -305,20 +312,24 @@ class StreamingIndex:
     _sketch: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
     # Flat views + normalised λ for the maxima-first scan (lazy).
     _sketch_flat: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
-    # Guards the lazy flat views: two serving workers may race the first
-    # maxima-first batch; the normalised λ column is made once.
+    # Guards the lazy flat views and the refine's maps: two serving workers
+    # may race the first batch; the normalised λ column is made once.
     _sketch_flat_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False
     )
     _sketch_suffix_pad: bool = dataclasses.field(default=False, repr=False, compare=False)
+    # The refine's read-only maps of the store's rows and λ, opened at first
+    # use and kept, so a batch faults in only pages no batch read before.
+    _refine_maps: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
     # Maxima-first sketch scan: None = from MAXFIRST_MIN_ROWS flat rows
     # (the reference's measured crossover); True/False force it.
     sketch_maxfirst: Optional[bool] = dataclasses.field(default=None, repr=False, compare=False)
 
-    # The lock is per-process state: left out of pickles and copies.
+    # The lock and the maps are per-process state: left out of pickles and copies.
     def __getstate__(self):
         state = self.__dict__.copy()
         state.pop("_sketch_flat_lock", None)
+        state["_refine_maps"] = None
         return state
 
     def __setstate__(self, state):
@@ -401,7 +412,8 @@ class StreamingIndex:
             )
             idx = cls(directory=directory, gl=gl, taumode=taumode,
                       min_lambdas=float("nan"), range_lambdas=float("nan"),
-                      n_items=n, n_features=f, block_rows=block_rows, device=dev)
+                      n_items=n, n_features=f, block_rows=block_rows, device=dev,
+                      cluster_assignments=out.assignments)
             # The stale λ file (and sketch) go BEFORE the new checkpoint
             # exists: a new meta must never point at old λ rows.
             lam_path.unlink(missing_ok=True)
@@ -850,16 +862,19 @@ class StreamingIndex:
                 self.n_items, self.block_rows)
         return kk, max(C, kk)
 
+    def _sketch_maxfirst_route(self, b: int, kk: int, C: int) -> bool:
+        """Whether a batch of ``b`` queries takes the maxima-first scan:
+        :meth:`_sketch_fused_ok` at the reference's padded batch."""
+        return self._sketch_fused_ok(max(8, 1 << max(b - 1, 1).bit_length()), kk, C)
+
     def _sketch_candidates(self, Q: torch.Tensor, q_lams: torch.Tensor, kk: int, C: int, alpha=0.7):
         """The sketch scan on the card: ``(scores [B, C], ids [B, C])``,
-        both on the device; maxima-first where :meth:`_sketch_fused_ok`
-        holds at the reference's padded batch, else the carry scan. No
-        device → host read."""
+        both on the device; maxima-first where :meth:`_sketch_maxfirst_route`
+        holds, else the carry scan. No device → host read."""
         if self._sketch is None:
             self.build_sketch()
         b = Q.shape[0]
-        b_pad = max(8, 1 << max(b - 1, 1).bit_length())
-        if self._sketch_fused_ok(b_pad, kk, C):
+        if self._sketch_maxfirst_route(b, kk, C):
             if np.ndim(alpha) or isinstance(alpha, torch.Tensor):
                 a_vec = torch.as_tensor(alpha, dtype=torch.float32, device=Q.device).reshape(-1).expand(b)
             else:
@@ -879,27 +894,72 @@ class StreamingIndex:
         ``(ids [B, kk], scores [B, kk])`` like :meth:`search_batch`.
         ``refine=False`` serves the scan's first ``k`` columns (scores at
         sketch precision) and downloads only ``[B, k]``; otherwise only the
-        ``[B, C]`` ids come back before the fetch."""
+        ``[B, C]`` ids come back before the fetch.
+
+        Under a running ``torch.profiler`` the call records the spans
+        ``search.batch`` (attrs ``mode="sketch"``, ``route`` ``maxfirst``
+        or ``carry``, ``b``, ``k``, ``cand``) and within it
+        ``search.input``, ``search.query_lambda``, ``search.scan``,
+        ``search.fetch`` (the ids to the host: the wait for the scan) and,
+        refined, ``search.refine`` (attrs ``rows``, the union's size, and
+        ``bytes`` read from the store) with its children ``refine.read``
+        (the union's rows and λ from disk, on the host) and
+        ``refine.rescore`` (the upload, the exact rescore and its top-k,
+        the result to the host); each host–device sync counts against the
+        span it falls in. A first call's lazy :meth:`build_sketch` stays
+        outside the tree."""
         if self._sketch is None:
             self.build_sketch()
-        Q = self._queries(queries)
-        q_lams = self._query_lambdas(Q)
-        kk, C = self._candidate_width(k, candidates)
-        best_s, best_i = self._sketch_candidates(Q, q_lams, kk, C, alpha)
-        if not refine:
-            return best_i[:, :kk].cpu().numpy().astype(np.int64), best_s[:, :kk].cpu().numpy()
-        return self.refine_candidates(best_i.cpu().numpy(), Q, q_lams,
-                                      _alpha_param(alpha, Q.shape[0], Q.device),
-                                      float(self.min_lambdas), float(self.range_lambdas), kk)
+        dev = self._dev()
+        with profiling.span("search.batch", mode="sketch", k=k) as root:
+            with profiling.span("search.input"):
+                if not isinstance(queries, torch.Tensor) or queries.device.type == "cpu":
+                    profiling.count_sync(dev)         # host rows copied to the device
+                Q = self._queries(queries)
+                kk, C = self._candidate_width(k, candidates)
+            maxfirst = self._sketch_maxfirst_route(Q.shape[0], kk, C)
+            root.set(route="maxfirst" if maxfirst else "carry", b=Q.shape[0], cand=C)
+            with profiling.span("search.query_lambda"):
+                q_lams = self._query_lambdas(Q)
+            with profiling.span("search.scan"):
+                best_s, best_i = self._sketch_candidates(Q, q_lams, kk, C, alpha)
+            if not refine:
+                with profiling.span("search.fetch"):
+                    return (profiling.to_host(best_i[:, :kk]).numpy().astype(np.int64),
+                            profiling.to_host(best_s[:, :kk]).numpy())
+            with profiling.span("search.fetch"):
+                ids = profiling.to_host(best_i).numpy()
+            with profiling.span("search.refine") as sp:
+                with profiling.span("refine.read"):
+                    union = self._fetch_union(ids, kk)
+                u = union[3]
+                sp.set(rows=u, bytes=u * self.n_features * 4)
+                with profiling.span("refine.rescore"):
+                    return self._rescore_union(ids, union, kk, self._exact_rescore(
+                        Q, q_lams, _alpha_param(alpha, Q.shape[0], Q.device),
+                        float(self.min_lambdas), float(self.range_lambdas), kk), -np.inf)
+
+    def _store_maps(self):
+        """``(RowReader, λ map)`` of the store for the refine, made once."""
+        maps = self._refine_maps
+        if maps is None:
+            with self._sketch_flat_lock:
+                if self._refine_maps is None:
+                    self._refine_maps = (
+                        shard_store.RowReader(self.directory),
+                        np.memmap(self.directory / LAMBDA_FILE, np.float32, "r",
+                                  shape=(self.n_items,)))
+                maps = self._refine_maps
+        return maps
 
     def _fetch_union(self, ids: np.ndarray, kk: int):
-        """The candidate union for the refine stage: unique ids → disk rows
-        (seek arithmetic) and λ, padded to at least ``kk`` rows (the
-        reference padded to a power of two for its compiler; the padding
-        is masked either way)."""
+        """The candidate union for the refine stage: unique ids → the rows
+        and λ through the kept maps (:meth:`_store_maps`), padded to at
+        least ``kk`` rows (the reference padded to a power of two for its
+        compiler; the padding is masked either way)."""
         uids = np.unique(ids[ids >= 0])
-        XU = shard_store.read_rows(self.directory, uids)
-        lam_mm = np.memmap(self.directory / LAMBDA_FILE, np.float32, "r", shape=(self.n_items,))
+        rows, lam_mm = self._store_maps()
+        XU = rows.rows(uids)
         lamU = np.asarray(lam_mm[uids], np.float32)
         u = len(uids)
         if u < kk:
@@ -907,25 +967,35 @@ class StreamingIndex:
             lamU = np.concatenate([lamU, np.zeros(kk - u, np.float32)])
         return uids, XU, lamU, u
 
-    def _refine(self, ids, kk: int, rescore, miss: float):
-        """Fetch the union of ``ids [B, C]``, ``rescore(XU, lamU, u)`` on
-        the device, and map union positions back to global ids."""
-        ids = np.asarray(ids)
-        uids, XU, lamU, u = self._fetch_union(ids, kk)
+    def _rescore_union(self, ids: np.ndarray, union, kk: int, rescore, miss: float):
+        """``rescore(XU, lamU, u)`` of a fetched union on the device, union
+        positions mapped back to global ids."""
+        uids, XU, lamU, u = union
         if u == 0:                         # every id -1: all-miss rows
             return (np.full((ids.shape[0], kk), -1, np.int64),
                     np.full((ids.shape[0], kk), miss, np.float32))
         dev = self._dev()
-        sc, sel = rescore(torch.from_numpy(XU).to(dev), torch.from_numpy(lamU).to(dev), u)
-        sel, sc = sel.cpu().numpy(), sc.cpu().numpy()
+        sc, sel = rescore(profiling.to_device(torch.from_numpy(XU), dev),
+                          profiling.to_device(torch.from_numpy(lamU), dev), u)
+        sel, sc = profiling.to_host(sel).numpy(), profiling.to_host(sc).numpy()
         hit = sc < np.inf if miss > 0 else sc > -np.inf
         return np.where(hit, uids[np.minimum(sel, u - 1)], -1).astype(np.int64), sc
+
+    def _refine(self, ids, kk: int, rescore, miss: float):
+        """Fetch the union of ``ids [B, C]``, ``rescore(XU, lamU, u)`` on
+        the device, and map union positions back to global ids."""
+        ids = np.asarray(ids)
+        return self._rescore_union(ids, self._fetch_union(ids, kk), kk, rescore, miss)
+
+    @staticmethod
+    def _exact_rescore(Q, q_lams, al, mn: float, rng: float, kk: int):
+        return lambda XU, lamU, u: _refine_exact_topk(XU, lamU, Q, q_lams, al, mn, rng, u, kk)
 
     def refine_candidates(self, ids, Q, q_lams, al, mn: float, rng: float, kk: int):
         """Exact rescore of a ``[B, C]`` candidate-id matrix (shared with
         the mesh-sharded sketch): ``(ids [B, kk] int64, scores)``."""
-        return self._refine(ids, kk, lambda XU, lamU, u: _refine_exact_topk(
-            XU, lamU, Q, q_lams, al, float(mn), float(rng), u, kk), -np.inf)
+        return self._refine(ids, kk, self._exact_rescore(Q, q_lams, al, float(mn), float(rng), kk),
+                            -np.inf)
 
     def search_sketch(self, query, k: int, alpha: float = 0.7, candidates: int | None = None,
                       refine: bool = True) -> list[tuple[int, float]]:

@@ -95,30 +95,53 @@ def stream_blocks(directory, block_rows: int, start_row: int = 0):
     return ShardReader(paths, block_rows, m["n_features"], start_row=start_row)
 
 
+class RowReader:
+    """Rows by global id from a store, through read-only maps of its shard
+    files opened once: a reader kept across calls faults each page in on
+    its first read only (the store must not be rewritten under it)."""
+
+    def __init__(self, directory):
+        directory = Path(directory)
+        m = read_manifest(directory)
+        self.n_rows, self.n_features = m["n_rows"], m["n_features"]
+        self.starts = np.cumsum([0] + [s["rows"] for s in m["shards"]])
+        self.maps = [np.memmap(directory / s["file"], np.float32, "r").reshape(-1, self.n_features)
+                     for s in m["shards"]]
+
+    def rows(self, row_ids) -> np.ndarray:
+        """``[len(ids), F]`` float32 rows in the order given: the ids
+        grouped by shard (already so when sorted), one ``np.take`` of whole
+        rows per shard that holds one. ``IndexError`` for an id outside
+        ``[0, n_rows)``."""
+        ids = np.asarray(row_ids, np.int64)
+        if ids.ndim != 1:
+            raise ValueError("row_ids must be 1-D")
+        if len(ids) == 0:
+            return np.zeros((0, self.n_features), np.float32)
+        if ids.min() < 0 or ids.max() >= self.n_rows:
+            raise IndexError(
+                f"row id out of range [0, {self.n_rows}): [{ids.min()}, {ids.max()}]"
+            )
+        shard_of = np.searchsorted(self.starts, ids, side="right") - 1
+        order = np.argsort(shard_of, kind="stable")
+        local = ids[order] - self.starts[shard_of[order]]
+        cuts = np.searchsorted(shard_of[order], np.arange(len(self.maps) + 1))
+        out = np.empty((len(ids), self.n_features), np.float32)
+        for si, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            if hi > lo:
+                np.take(self.maps[si], local[lo:hi], axis=0, out=out[lo:hi])
+        if np.any(order[1:] < order[:-1]):                # back to the order given
+            back = np.empty_like(order)
+            back[order] = np.arange(len(order))
+            out = out[back]
+        return out
+
+
 def read_rows(directory, row_ids) -> np.ndarray:
-    """Rows by global id, ``[len(ids), F]`` float32 in the order given: one
-    memmap and one gather per shard that holds a requested row.
+    """Rows by global id, ``[len(ids), F]`` float32 in the order given
+    (:meth:`RowReader.rows` through maps opened for this call).
     ``IndexError`` for an id outside ``[0, n_rows)``."""
-    directory = Path(directory)
-    m = read_manifest(directory)
-    f = m["n_features"]
-    ids = np.asarray(row_ids, np.int64)
-    if ids.ndim != 1:
-        raise ValueError("row_ids must be 1-D")
-    if len(ids) == 0:
-        return np.zeros((0, f), np.float32)
-    if ids.min() < 0 or ids.max() >= m["n_rows"]:
-        raise IndexError(
-            f"row id out of range [0, {m['n_rows']}): [{ids.min()}, {ids.max()}]"
-        )
-    starts = np.cumsum([0] + [s["rows"] for s in m["shards"]])
-    out = np.empty((len(ids), f), np.float32)
-    shard_of = np.searchsorted(starts, ids, side="right") - 1
-    for si in np.unique(shard_of):
-        sel = shard_of == si
-        mm = np.memmap(directory / m["shards"][si]["file"], np.float32, "r").reshape(-1, f)
-        out[sel] = mm[ids[sel] - starts[si]]
-    return out
+    return RowReader(directory).rows(row_ids)
 
 
 def shard_items_from_store(mesh, directory):

@@ -2,8 +2,9 @@
 (``portbench/metrics/entry.*.py``): each gives the median it names from a
 hand-built span list, reads only the window's spans, gives nothing without
 a ``search.batch`` root (an untraced run, or a program that records no
-spans), and is listed for the three accepted cells, each of which reports
-``search_qps``, the metric they move."""
+spans), and is listed for the three accepted cells and the streaming
+sketch's cell after them, each of which reports ``search_qps``, the metric
+they move."""
 
 import types
 
@@ -12,7 +13,8 @@ import pytest
 from matternet_rs_tpu_torch.utils import profiling
 from portbench.harness.manifest import ROOT, Manifest
 
-CELLS = ["eigen-blobs1m.exact-b256", "energy-blobs1m.scan-b256", "eigen-blobs1m.bf16x3-b1024"]
+CELLS = ["eigen-blobs1m.exact-b256", "energy-blobs1m.scan-b256", "eigen-blobs1m.bf16x3-b1024",
+         "stream-centres10m.sketch-b1024"]
 METRICS = ["entry.host_ms", "entry.fetch_ms", "entry.syncs"]
 MS = 1_000_000
 OPENED_S = 10.0                         # the window opens at 10 s on perf_counter
