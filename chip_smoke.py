@@ -18,7 +18,7 @@ Phases, one output line each (JSON):
    near-tie rule (``utils/parity.py``, tolerance 1e-5). At k = 10 the
    exact tier's candidate stage (sub-tile selection, gather and top-k) is
    one launch of ``subtile_topk`` a batch (4 in all) and kernel C is not
-   launched. The three timed batches then run again through that stage and
+   launched; the query λ is one launch of the query kernel a batch. The three timed batches then run again through that stage and
    through the selection chain it replaced (kernel C's gather and the
    stable sorts), in turns (chain, stage, stage, chain), each route also
    once under ``torch.profiler``: ms per batch, device-busy ms and idle
@@ -437,7 +437,11 @@ Phases, one output line each (JSON):
    in {1, 3, 96, 100, 128, 768, 2048} with ts in {128, 256}, c in {1, 14},
    B in {1, 7, 256}, f32 and int8 rows (the ring where it applies), X
    aligned and 4 bytes off, each query's last slab the corpus's last whole
-   one; ids out of range give exactly their NaN slices.
+   one; ids out of range give exactly their NaN slices. The query kernel
+   (``query_lambda_rows``: τ, the closed form and the fold in one launch)
+   has a row at each (B, F) in {256, 1024} × {128, 96}, median τ: its
+   wrapper, its C entry alone, 200 launches back to back, the plain chain
+   it replaced, its launch plan and ptxas report.
 
 Every phase line carries ``at_seconds``, the time since the script
 started; a ``total`` line gives the whole run's seconds. Then the
@@ -2732,6 +2736,79 @@ def wide_stage_radix_rows(smain, submax, tail, k, margin, cap, threads):
     return int((radix(max_keys, c, None) | radix(keys, k, hint)).sum())
 
 
+QUERY_SHAPES = ((256, 128), (1024, 128), (256, 96), (1024, 96))   # (B, F) of the entry's cells
+
+
+def query_lambda_rows(dev, cuda_ms, launches, by_path) -> list[dict]:
+    """Phase kernels' rows of the query kernel (``mrs_taumode_query``) at
+    ``QUERY_SHAPES``, τ = median, on a λ-graph Laplacian of F features:
+    ``ms`` its wrapper, ``launch_ms`` its C entry alone on outputs made
+    once (both over cold-L2 launches, ``cuda_ms``), ``warm_launch_ms`` the
+    mean of 200 launches back to back, ``plain_ms`` the plain chain
+    (``taumode_query_lambdas_plain``: ``select_tau``'s sort, the seven
+    products, the tail and the fold), ``bound_ms`` 7·B·F² FMAs at the f32
+    peak; raw λ within 1e-5·max(|λ|, 1) of the plain version and the fold
+    bit for bit torch's on the kernel's raw."""
+    import numpy as np
+    import torch
+
+    from matternet_rs_tpu_torch import buildcache
+    from matternet_rs_tpu_torch.graph import GraphParams
+    from matternet_rs_tpu_torch.ops import laplacian as tlap
+    from matternet_rs_tpu_torch.ops import taumode as tmo
+    from matternet_rs_tpu_torch.ops.kernels import _cuda
+    from matternet_rs_tpu_torch.ops.kernels import taumode as tk
+
+    lib, stream = _cuda.library("taumode"), _cuda.stream_ptr(dev)
+    mn, rng = 0.0123456789, 0.876543219
+    rows = []
+    for b, f in QUERY_SHAPES:
+        nodes = np.random.default_rng(f).normal(size=(f, 30)).astype(np.float32)
+        L = tlap.build_laplacian_matrix(torch.from_numpy(nodes).to(dev),
+                                        GraphParams(eps=0.9, k=5, topk=5, sparsity_check=False))
+        L = L.matrix.float().contiguous()
+        X = torch.from_numpy(np.random.default_rng(b + f).normal(size=(b, f)).astype(np.float32)).to(dev)
+        args = (X, L, tmo.TAU_MEDIAN, 0.0, mn, rng)
+        raw, q = tk.taumode_query_lambdas(*args)
+        raw_p, _ = tk.taumode_query_lambdas_plain(*args)
+        rel = float(((raw - raw_p).abs() / torch.clamp(raw_p.abs(), min=1.0)).max())
+        fold = torch.clamp((raw - torch.tensor(mn, device=dev)) / torch.tensor(rng, device=dev), 0.0, 1.0)
+        check(rel <= TOL_LAMBDA, f"taumode_query B={b} F={f}: kernel vs plain λ {rel}")
+        check(bool(torch.equal(q, fold)), f"taumode_query B={b} F={f}: the fold is not torch's")
+        out_raw, out_q = torch.empty_like(raw), torch.empty_like(q)
+        k0, k1 = tk.tau_ranks(f, tmo.TAU_MEDIAN)
+
+        def launch():
+            rc = lib.mrs_taumode_query(X.data_ptr(), L.data_ptr(), b, f, tmo.TAU_MEDIAN, tk.TAU_FLOOR,
+                                       k0, k1, mn, rng, out_raw.data_ptr(), out_q.data_ptr(), stream)
+            _cuda.check(lib, rc, "taumode query kernel")
+
+        launch()
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(200):
+            launch()
+        e.record()
+        e.synchronize()
+        bms, by = bound(4 * (b * f + f * f + 2 * b), 7 * 2 * b * f * f)
+        rows.append(dict(
+            name=f"taumode_query_b{b}_f{f}", route="cuda", source="matternet_rs_tpu_torch/csrc/taumode.cu",
+            replaces="none: the reference's query λ below 32,768 rows is XLA's closed form "
+                     "(matternet_rs_tpu/ops/taumode.py taumode_lambdas_auto) and a fold in the search",
+            launches=launches, launches_by_path=by_path, max_rel_err=rel,
+            ms=cuda_ms(lambda: tk.taumode_query_lambdas(*args), reps=21),
+            launch_ms=cuda_ms(launch, reps=21), warm_launch_ms=s.elapsed_time(e) / 200,
+            plain_ms=cuda_ms(lambda: tk.taumode_query_lambdas_plain(*args), reps=5),
+            bound_ms=bms, bound_by=by, library_ms=None, plan=tk.taumode_query_plan_chosen(b, f),
+            ptxas=ptxas_resources(buildcache.BUILD_LOG.get("taumode"),
+                                  f"taumode_query_kernelILi{tk.taumode_query_plan_chosen(b, f)['rows']}E"),
+            launch_note="ms and launch_ms include writing back the L2 lines the flush left dirty",
+            shape=f"B={b} F={f} median τ", arithmetic="f32 FFMA (bound: 7·B·F² FMAs at 67 TFLOP/s)",
+        ))
+    return rows
+
+
 def tie_checks(dev, n_main=TIE_N, levels=TIE_LEVELS, n_wide=TIE_N_WIDE, f_wide=TIE_F_WIDE,
                mesh_n=TIE_MESH_N, b=TIE_B, seed=SEED_TIES):
     """Phase ties' checks on ``dev`` (module docstring): ``(records,
@@ -3155,6 +3232,8 @@ def main() -> int:
         check(main_counts[kname] > 0, f"kernel {kname} not launched on the main path")
     check(main_counts["subtile_topk"] == len(batches) and main_counts["gather_subtiles"] == 0,
           f"k={K}: the candidate stage must launch once a batch and kernel C never: {main_counts}")
+    check(main_counts["taumode_query"] == len(batches),
+          f"the query λ must be one launch of the query kernel a batch: {main_counts}")
 
     def traced(search, items=None):
         """:func:`profiled` over the timed batches, or ``items``."""
@@ -4135,6 +4214,8 @@ def main() -> int:
     lam_row("taumode_lambda_wide_f", "matternet_rs_tpu/ops/pallas/taumode_fused.py:231",
             waspace.data, wgl.matrix.contiguous(), sum(wide_by_path.values()))
     rows_out[-1]["launches_by_path"] = wide_by_path
+    rows_out += query_lambda_rows(dev, cuda_ms,
+                                  *launches_by_path("taumode_query", main_counts["taumode_query"]))
 
     r1, raw1 = results[1][0], results[1][3]
     Q = Xt[torch.from_numpy(r1).to(dev)].contiguous()

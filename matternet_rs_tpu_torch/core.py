@@ -162,7 +162,10 @@ def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, 
 
 
 def _alpha_vector(alpha, b_pad: int, device) -> torch.Tensor:
-    """Scalar-or-[B] alpha → padded ``[b_pad]`` float32 vector."""
+    """Scalar-or-[B] alpha → padded ``[b_pad]`` float32 vector. A host
+    scalar is filled on the device (no copy, no read-back)."""
+    if not isinstance(alpha, torch.Tensor) and np.ndim(alpha) == 0:
+        return torch.full((b_pad,), float(alpha), dtype=torch.float32, device=device)
     a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
     if not isinstance(alpha, torch.Tensor) or alpha.device.type == "cpu":
         profiling.count_sync(device)          # host values copied to the device
@@ -731,8 +734,10 @@ class ArrowSpace:
         Under a running ``torch.profiler`` the call records the spans
         (:func:`..utils.profiling.span`) ``search.batch`` (attrs ``mode``,
         ``tier``, ``b``, ``b_pad``, ``k``) and within it ``search.input``,
-        ``search.query_lambda``, ``search.scan`` and ``search.fetch``; each
-        host–device sync counts against the span it falls in."""
+        ``search.query_lambda`` (eigen mode: attr ``route``, the query λ's
+        route as :func:`..ops.taumode.query_lambdas` took it), ``search.scan`` and
+        ``search.fetch``; each host–device sync counts against the span it
+        falls in."""
         with profiling.span("search.batch", mode="energy" if self._energy else "eigen",
                             k=k) as root:
             with profiling.span("search.input"):
@@ -784,7 +789,7 @@ class ArrowSpace:
             root.set(tier=quantized if isinstance(quantized, str) else
                      ("bf16" if quantized else "exact"), b=b, b_pad=b_pad)
 
-            with profiling.span("search.query_lambda"):
+            with profiling.span("search.query_lambda") as qspan:
                 if self._energy:
                     # The nearest sub-centroid's λ, already normalised: the
                     # reference folds it in with mn = 0 and rng = 1, an identity.
@@ -793,15 +798,10 @@ class ArrowSpace:
                     # λ of the projected batch when the graph is r × r; the
                     # scores below stay on the F-wide rows.
                     Qw = self.projection.project(Q) if projects else Q
-                    raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode,
-                                                           self.taumode.param)
-                    # Each made from a host float by a blocking copy.
-                    mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=self.device)
-                    profiling.count_sync(self.device)
-                    rng = torch.tensor(self.range_lambdas, dtype=torch.float32,
-                                       device=self.device)
-                    profiling.count_sync(self.device)
-                    q_lams = torch.clamp((raw - mn) / rng, 0.0, 1.0)
+                    raw, q_lams, route = taumode_ops.query_lambdas(
+                        Qw, graph, self.taumode.mode, self.taumode.param,
+                        self.min_lambdas, self.range_lambdas)
+                    qspan.set(route=route)
 
             with profiling.span("search.scan"):
                 X, norms, lams = self.data, self.norms, self.lambdas
@@ -972,8 +972,8 @@ class ArrowSpace:
             Q = Q[None, :]
         graph = self.graph_for_taumode(gl)
         Qw = self.projection.project(Q) if self._projects(Q, graph) else Q
-        raw = taumode_ops.taumode_lambdas_auto(Qw, graph, self.taumode.mode, self.taumode.param)
-        q_lams = torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
+        q_lams = taumode_ops.query_lambdas(Qw, graph, self.taumode.mode, self.taumode.param,
+                                           self.min_lambdas, self.range_lambdas)[1]
         idx, sc = ivf_search_batch(*_index_arrays(self.ivf), self.data, self.norms, self.lambdas,
                                    Q, q_lams, k, alpha, nprobe)
         return idx.cpu().numpy(), sc.cpu().numpy()

@@ -527,6 +527,301 @@ int sm_count(int* sms) {
   return (int)rc;
 }
 
+// ---------------------------------------------------------------------------
+// The query form (mrs_taumode_query): normalised λ of a batch of queries in
+// one launch.
+//
+// Replaces no TPU kernel: the reference computes the query λ below 32,768
+// rows as XLA's closed form (matternet_rs_tpu/ops/taumode.py,
+// taumode_lambdas_auto) and folds it with min and range in the search.
+// As eager torch calls the same closed form is about 75 launches and two
+// blocking copies of host floats, and the card waits on the host before
+// every scan. This kernel does all of it for F <= 256: τ from the row's own
+// values (fixed, mean, or an order statistic: median, percentile), the seven
+// products, the λ tail as the kernel above and the plain version write it,
+// and clamp((raw - mn) / rng, 0, 1) with mn and rng as launch arguments.
+//
+// Arithmetic: full f32, no TF32. Each product sums over features in
+// ascending order with one FMA a feature; the fold is IEEE (div.rn), so for
+// the same raw it is torch's bit for bit. No sum depends on how many rows a
+// block holds.
+//
+// What bounds it on the H100: operations, 7·B·F² FMAs (3.5 µs at B = 1024,
+// F = 128 at the f32 CUDA-core peak); the bytes (X once, L once a block)
+// are far below. The work is small, so latency weighs: L's copy is in
+// flight while τ is taken.
+//
+// Design. One thread per output column j (T threads: F rounded up to 32),
+// R rows a block with their 7·R sums in registers. The block's rows of X
+// sit in shared memory; L is staged in chunks of whole rows (all of it at
+// F = 128) by async copies, 16 bytes each where F % 4 == 0, beside the
+// chunk's powers x, x², x³, x⁴ as one float4 a row and feature, which all
+// threads read at once (a broadcast). A = max(-L, 0) off the diagonal and
+// A² are formed from the staged L in registers. deg and deg2 (row sums of
+// A and A²) are never formed: Σ_i x_i² deg_i = Σ_j (x²A)_j and
+// Σ_i x_i⁴ deg2_i = Σ_j (x⁴A²)_j, sums of products the kernel has, so
+//   total = Σ_j 2 (x²A)_j - 2 x_j (xA)_j
+//   num4  = Σ_j 2 (x⁴A²)_j - 4 x_j³ (xA²)_j + 6 x_j² (x²A²)_j - 4 x_j (x³A²)_j,
+// the same sums of the same terms, and no pass over L's rows.
+// τ: fixed is a launch argument; the mean by warp sums; an order statistic
+// by rank counting: the sorted row's value at rank k is the largest value
+// with at most k smaller ones (NaN, which torch.sort puts last, counts as
+// larger than every number), so each thread counts the smaller values of a
+// few elements of one row, one comparison each, and the qualifying
+// elements meet in an atomic max of order-preserving keys. Ties give the
+// value torch.sort leaves there (−0 and +0 may trade places, which the τ
+// floor makes equal). Per-row sums reduce by warp shuffles, then across
+// warps in a fixed order.
+constexpr int Q_MAX_F = 256;
+constexpr int Q_SMEM_BUDGET = 110 * 1024;      // two blocks an SM
+constexpr int Q_SUMS = 5;                      // nume, den, total, num4, max|x|
+constexpr int TAU_FIXED = 0, TAU_MEAN = 2;     // ops/taumode.py's modes; 1 and 3 are order statistics
+constexpr float Q_TAU_FLOOR = 1e-10f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float a_of(float l, bool diag) { return diag ? 0.f : fmaxf(-l, 0.f); }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// Order-preserving keys of floats (NaN above +inf) and back.
+__device__ __forceinline__ uint32_t key_of(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return v != v ? 0xFFFFFFFFu : (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float of_key(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// Shared memory: the float4 powers [R][chunk], the L chunk [chunk][f], then
+// in 4-byte words the rows [R][f], the warps' partial sums [Q_SUMS][R][T/32],
+// τ [R], the keys of the selected order statistics [2][R].
+inline int query_smem(int rows, int f, int threads, int chunk) {
+  return 16 * rows * chunk + 4 * (chunk * f + rows * f + Q_SUMS * rows * (threads / 32) + 3 * rows);
+}
+
+// L's rows [i0, i0 + c) into lt, one run of c·f floats, by async copies.
+__device__ __forceinline__ void stage_l(float* lt, const float* __restrict__ L, int f, int i0, int c, bool vec,
+                                        int T, int tid) {
+  const float* src = L + (int64_t)i0 * f;
+  if (vec) {
+    for (int e = tid; e < c * f / 4; e += T) cp_async16(lt + 4 * e, src + 4 * e);
+  } else {
+    for (int e = tid; e < c * f; e += T) cp_async4(lt + e, src + e);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(Q_MAX_F)
+    taumode_query_kernel(const float* __restrict__ X, const float* __restrict__ L, int64_t b, int f, int chunk,
+                         int vec, int mode, float tau_fixed, int k0, int k1, float mn, float rng,
+                         float* __restrict__ raw, float* __restrict__ qlam) {
+  extern __shared__ float4 qsm[];
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  float4* xp = qsm;
+  float* lt = reinterpret_cast<float*>(xp + R * chunk);
+  float* xs = lt + chunk * f;
+  float* red = xs + R * f;
+  float* tau_s = red + Q_SUMS * R * nw;
+  uint32_t* sel = reinterpret_cast<uint32_t*>(tau_s + R);
+  const int64_t r0 = (int64_t)blockIdx.x * R;
+
+  // The first chunk of L is in flight while the rows arrive and τ is taken.
+  stage_l(lt, L, f, 0, min(chunk, f), vec, T, tid);
+  for (int e = tid; e < R * f; e += T) {
+    const int r = e / f;
+    xs[e] = r0 + r < b ? X[(r0 + r) * f + (e - r * f)] : 0.f;
+  }
+  if (tid < 2 * R) sel[tid] = 0u;               // below every key
+  __syncthreads();
+
+  // τ of each row, floored as select_tau floors it (a NaN stays NaN).
+  if (mode == TAU_MEAN) {
+    for (int r = warp; r < R; r += nw) {
+      float s = 0.f;
+      for (int i = lane; i < f; i += 32) s += xs[r * f + i];
+      s = warp_sum(s);
+      if (lane == 0) {
+        const float m = s / (float)f;
+        tau_s[r] = m < Q_TAU_FLOOR ? Q_TAU_FLOOR : m;
+      }
+    }
+  } else if (mode != TAU_FIXED) {
+    // Thread t counts for elements c0, c0 + tpr, ... (at most R) of row r.
+    const int tpr = T / R, r = tid / tpr, c0 = tid - r * tpr;
+    const float* row = xs + r * f;
+    float v[R];
+    int less[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      v[m] = c0 + m * tpr < f ? row[c0 + m * tpr] : 0.f;
+      less[m] = 0;
+    }
+    if ((f & 3) == 0) {                         // the row's start is 16-byte aligned
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+#pragma unroll 2
+      for (int i = 0; i < f / 4; ++i) {
+        const float4 u = row4[i];
+#pragma unroll
+        for (int m = 0; m < R; ++m) less[m] += (u.x < v[m]) + (u.y < v[m]) + (u.z < v[m]) + (u.w < v[m]);
+      }
+    } else {
+      for (int i = 0; i < f; ++i) {
+        const float u = row[i];
+#pragma unroll
+        for (int m = 0; m < R; ++m) less[m] += u < v[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      if (c0 + m * tpr >= f) continue;
+      if (v[m] != v[m]) {                       // NaN: after every number
+        less[m] = 0;
+        for (int i = 0; i < f; ++i) less[m] += row[i] == row[i];
+      }
+      if (less[m] <= k0) atomicMax(sel + r, key_of(v[m]));
+      if (less[m] <= k1) atomicMax(sel + R + r, key_of(v[m]));
+    }
+    __syncthreads();
+    if (tid < R) {
+      const float s0 = of_key(sel[tid]), s1 = of_key(sel[R + tid]);
+      const float m = k0 == k1 ? s0 : (s0 + s1) * 0.5f;
+      tau_s[tid] = m < Q_TAU_FLOOR ? Q_TAU_FLOOR : m;
+    }
+  } else if (tid < R) {
+    tau_s[tid] = tau_fixed;
+  }
+
+  const int j = tid;
+  const bool on = j < f;
+  // xL, xA, x²A, xA², x²A², x³A², x⁴A² at column j.
+  float acc[PRODUCTS][R];
+#pragma unroll
+  for (int p = 0; p < PRODUCTS; ++p)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[p][r] = 0.f;
+
+  for (int i0 = 0; i0 < f; i0 += chunk) {
+    const int c = min(chunk, f - i0);
+    if (i0 > 0) stage_l(lt, L, f, i0, c, vec, T, tid);
+    for (int e = tid; e < R * c; e += T) {
+      const int r = e / c, ii = e - r * c;
+      const float x = xs[r * f + i0 + ii], x2 = x * x;
+      xp[r * chunk + ii] = make_float4(x, x2, x2 * x, x2 * x2);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll 4
+    for (int ii = 0; ii < c; ++ii) {
+      const float l = on ? lt[ii * f + j] : 0.f;
+      const float a = a_of(l, i0 + ii == j), a2 = a * a;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 p = xp[r * chunk + ii];
+        acc[0][r] = fmaf(p.x, l, acc[0][r]);
+        acc[1][r] = fmaf(p.x, a, acc[1][r]);
+        acc[2][r] = fmaf(p.y, a, acc[2][r]);
+        acc[3][r] = fmaf(p.x, a2, acc[3][r]);
+        acc[4][r] = fmaf(p.y, a2, acc[4][r]);
+        acc[5][r] = fmaf(p.z, a2, acc[5][r]);
+        acc[6][r] = fmaf(p.w, a2, acc[6][r]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Column j's terms of the four sums and max|x|, then the rows' sums.
+  float sums[Q_SUMS][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float x = on ? xs[r * f + j] : 0.f, x2 = x * x, x3 = x2 * x;
+    sums[0][r] = x * acc[0][r];
+    sums[1][r] = x * x;
+    sums[2][r] = fmaf(-2.f * x, acc[1][r], 2.f * acc[2][r]);
+    sums[3][r] = fmaf(-4.f * x3, acc[3][r], fmaf(6.f * x2, acc[4][r], fmaf(-4.f * x, acc[5][r], 2.f * acc[6][r])));
+    sums[4][r] = fabsf(x);
+  }
+#pragma unroll
+  for (int q = 0; q < Q_SUMS; ++q)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float v = q == 4 ? warp_max(sums[q][r]) : warp_sum(sums[q][r]);
+      if (lane == 0) red[(q * R + r) * nw + warp] = v;
+    }
+  __syncthreads();
+  if (tid < R && r0 + tid < b) {
+    float s[Q_SUMS];
+#pragma unroll
+    for (int q = 0; q < Q_SUMS; ++q) {
+      s[q] = red[(q * R + tid) * nw];
+      for (int w = 1; w < nw; ++w) {
+        const float v = red[(q * R + tid) * nw + w];
+        s[q] = q == 4 ? fmaxf(s[q], v) : s[q] + v;
+      }
+    }
+    const float nume = s[0], den = s[1], total = s[2], num4 = s[3], tv = tau_s[tid];
+    float e_raw = den > 1e-12f ? nume / fmaxf(den, 1e-12f) : 0.f;
+    e_raw = fmaxf(e_raw, 0.f);
+    float gq = total > 1e-12f ? num4 / fmaxf(total * total, 1e-24f) : 0.f;
+    gq = fminf(fmaxf(gq, 0.f), 1.f);
+    const float eb = (e_raw + tv > 0.f) ? e_raw / fmaxf(e_raw + tv, 1e-10f) : 0.f;
+    const float v = s[4] <= 1e-10f ? 0.f : tv * eb + (1.f - tv) * gq;
+    const float d = __fdiv_rn(__fsub_rn(v, mn), rng);   // torch's (raw - mn) / rng on the card
+    raw[r0 + tid] = v;
+    qlam[r0 + tid] = isnan(d) ? d : fminf(fmaxf(d, 0.f), 1.f);   // and its clamp(·, 0, 1)
+  }
+}
+
+// What mrs_taumode_query chooses: R rows a block (the smallest of 1, 2, 4
+// whose blocks fit two an SM in one wave, else 8), T threads, the chunk of
+// L's rows staged at once, the shared memory, and whether L goes by 16-byte
+// copies (F % 4 == 0, L on a 16-byte address).
+struct QueryPlan {
+  int rows, threads, chunk, smem, vec;
+};
+
+inline QueryPlan query_plan_of(const void* L, int64_t b, int f, int sms) {
+  QueryPlan p;
+  p.threads = (f + 31) / 32 * 32;
+  p.rows = 1;
+  while (p.rows < 8 && (b + p.rows - 1) / p.rows > 2 * (int64_t)sms) p.rows *= 2;
+  const int fixed = query_smem(p.rows, f, p.threads, 0);
+  const int per_row = query_smem(p.rows, f, p.threads, 1) - fixed;
+  const int fit = (Q_SMEM_BUDGET - fixed) / per_row;
+  p.chunk = fit < f ? fit : f;
+  p.smem = query_smem(p.rows, f, p.threads, p.chunk);
+  p.vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(L) % 16 == 0;
+  return p;
+}
+
+template <int R>
+int launch_query(const float* X, const float* L, int64_t b, int f, int mode, float tau_fixed, int k0, int k1,
+                 float mn, float rng, float* raw, float* qlam, const QueryPlan& p, cudaStream_t st) {
+  const cudaError_t rc =
+      cudaFuncSetAttribute(taumode_query_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int64_t grid = (b + R - 1) / R;
+  taumode_query_kernel<R><<<(unsigned)grid, p.threads, p.smem, st>>>(X, L, b, f, p.chunk, p.vec, mode, tau_fixed,
+                                                                     k0, k1, mn, rng, raw, qlam);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -569,6 +864,44 @@ int mrs_taumode_lambda(const float* X, const float* Wp, const float* deg, const 
   cudaStream_t st = (cudaStream_t)stream;
   return p.vec ? launch<true>(X, Wp, deg, deg2, tau, lam, partial, tickets, n, f, p, st)
                : launch<false>(X, Wp, deg, deg2, tau, lam, partial, tickets, n, f, p, st);
+}
+
+// What mrs_taumode_query chooses for b rows of f features: *rows rows a
+// block, *threads, *chunk rows of L staged at once, *smem bytes.
+// cudaErrorInvalidValue for f outside [1, 256] or b < 1.
+int mrs_taumode_query_plan(int64_t b, int f, int* rows, int* threads, int* chunk, int* smem) {
+  if (f < 1 || f > Q_MAX_F || b < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const QueryPlan p = query_plan_of(nullptr, b, f, sms);
+  *rows = p.rows;
+  *threads = p.threads;
+  *chunk = p.chunk;
+  *smem = p.smem;
+  return 0;
+}
+
+// X [b, f], L [f, f] float32 contiguous → raw [b] (λ) and qlam [b]
+// (clamp((raw - mn) / rng, 0, 1)). mode: 0 τ = tau_fixed; 2 the row's mean;
+// 1 or 3 the sorted row's value at rank k0, or the mean of those at k0 and
+// k1 when they differ; τ floored at 1e-10 except when fixed. Launches on
+// `stream`, does not synchronise; returns cudaGetLastError().
+int mrs_taumode_query(const float* X, const float* L, int64_t b, int f, int mode, float tau_fixed, int k0,
+                      int k1, float mn, float rng, float* raw, float* qlam, void* stream) {
+  if (f < 1 || f > Q_MAX_F || b < 1 || mode < 0 || mode > 3 || k0 < 0 || k1 < k0 || k1 >= f)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const QueryPlan p = query_plan_of(L, b, f, sms);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (p.rows) {
+    case 1: return launch_query<1>(X, L, b, f, mode, tau_fixed, k0, k1, mn, rng, raw, qlam, p, st);
+    case 2: return launch_query<2>(X, L, b, f, mode, tau_fixed, k0, k1, mn, rng, raw, qlam, p, st);
+    case 4: return launch_query<4>(X, L, b, f, mode, tau_fixed, k0, k1, mn, rng, raw, qlam, p, st);
+    default: return launch_query<8>(X, L, b, f, mode, tau_fixed, k0, k1, mn, rng, raw, qlam, p, st);
+  }
 }
 
 }  // extern "C"

@@ -657,9 +657,9 @@ class StreamingIndex:
             lam = np.asarray(self.subcentroid_lambdas, np.float32)[dd.argmin(1)]
             return torch.from_numpy(lam).to(Q.device)
         Qr = self._reduced_query(Q)
-        raw = taumode_ops.taumode_lambdas_auto(Qr, self._taumode_graph(Qr.shape[-1]),
-                                               self.taumode.mode, self.taumode.param)
-        return torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
+        return taumode_ops.query_lambdas(Qr, self._taumode_graph(Qr.shape[-1]),
+                                         self.taumode.mode, self.taumode.param,
+                                         self.min_lambdas, self.range_lambdas)[1]
 
     def _stream_topk(self, kernel, b: int, k: int, ascending: bool, quantized: bool = False):
         """The streamed top-k: each block (padded to ``block_rows``) through

@@ -33,6 +33,10 @@ SIGNATURES = {
         "mrs_taumode_lambda": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
         # X, n, f, vec (out), splits (out), grid (out), smem (out)
         "mrs_taumode_plan": [_P, _I64, _I, _P, _P, _P, _P],
+        # X, L, b, f, mode, tau_fixed, k0, k1, mn, rng, raw, qlam, stream
+        "mrs_taumode_query": [_P, _P, _I64, _I, _I, _F, _I, _I, _F, _F, _P, _P, _P],
+        # b, f, rows (out), threads (out), chunk (out), smem (out)
+        "mrs_taumode_query_plan": [_I64, _I, _P, _P, _P, _P],
     },
     "tilemax": {
         # X, norms, lams, Q, qn, ql, alpha, mask_from, n0, f, b,

@@ -8,12 +8,18 @@ split into a TF32 high part and a TF32 low part and each product is
 reference's closed form at full f32 with τ given; it is the standard the
 kernel is held to (1e-5·max(|λ|, 1)). :func:`taumode_lambdas_3xtf32_plain`
 repeats the kernel's arithmetic for the tests.
+
+The query form, :func:`taumode_query_lambdas` (``mrs_taumode_query`` in
+the same source): a batch of queries below 32,768 rows in full f32 on the
+CUDA cores, τ and the fold by the index's min and range in the same
+launch; :func:`taumode_query_lambdas_plain` is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -23,6 +29,11 @@ from matternet_rs_tpu_torch.ops.kernels import _cuda
 
 TAU_FLOOR = 1e-10
 ZERO_VEC_EPS = 1e-10
+
+TAU_FIXED = 0
+TAU_MEDIAN = 1
+TAU_MEAN = 2
+TAU_PERCENTILE = 3
 # Kernel limit: the prepared operand is 3 × 2 × Fp² floats, Fp = F rounded
 # up to 32 (100 MB at 2048).
 MAX_KERNEL_F = 2048
@@ -36,6 +47,24 @@ _ROWS, _KCH, _STAGES, _SMEM_ALIGN = 128, 32, 5, 1024
 _SMEM_BYTES = _SMEM_ALIGN + _STAGES * (6 * 4096 + _ROWS * _KCH * 4) + _STAGES * 8 + 16
 MAX_SPLITS = 8                        # column splits of a row tile at most
 _SUMS = 5                             # partial sums a row and split: nume, den, total, num4, max|x|
+
+
+def fixed_tau(param: float) -> float:
+    """Fixed τ: ``param`` where it is positive and finite, else ``TAU_FLOOR``."""
+    return param if (param > 0.0 and math.isfinite(param)) else TAU_FLOOR
+
+
+def tau_ranks(f: int, mode: int, param: float = 0.0) -> tuple[int, int]:
+    """The ranks of the sorted row that an order-statistic τ reads: Median
+    the middle one for odd F, the two middle ones (averaged) for even F;
+    Percentile the one at ``floor((F-1)·clamp(p,0,1) + 0.5)``."""
+    if mode == TAU_MEDIAN:
+        mid = f // 2
+        return (mid, mid) if f % 2 else (mid - 1, mid)
+    if mode == TAU_PERCENTILE:
+        idx = int(math.floor((f - 1) * min(max(param, 0.0), 1.0) + 0.5))
+        return idx, idx
+    raise ValueError(f"tau mode {mode} reads no rank")
 
 
 def operator_weights(L: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -284,3 +313,75 @@ def taumode_lambdas_fused(X: torch.Tensor, L: torch.Tensor, tau: torch.Tensor) -
     if X.device.type == "cpu":
         return taumode_lambdas_plain(X, L, tau)
     return _launch(*_operands(X, L, tau))
+
+
+# The query form (``mrs_taumode_query``): normalised λ of a batch in one
+# launch, for F up to this (one thread a column).
+MAX_QUERY_F = 256
+
+
+def fold_lambdas(raw: torch.Tensor, mn: float, rng: float) -> torch.Tensor:
+    """``clamp((raw − mn) / rng, 0, 1)`` with ``mn`` and ``rng`` as float32
+    scalars filled on ``raw``'s device (no copy from the host, so no sync);
+    torch divides by a device scalar exactly, as the kernel does."""
+    mn_t = torch.full((), float(mn), dtype=torch.float32, device=raw.device)
+    rng_t = torch.full((), float(rng), dtype=torch.float32, device=raw.device)
+    return torch.clamp((raw - mn_t) / rng_t, 0.0, 1.0)
+
+
+def taumode_query_lambdas_plain(X: torch.Tensor, L: torch.Tensor, tau_mode: int,
+                                tau_param: float, mn: float,
+                                rng: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw λ ``[B]`` (the closed form at full f32 with ``ops.taumode.select_tau``)
+    and their fold :func:`fold_lambdas`: what the query kernel computes."""
+    from matternet_rs_tpu_torch.ops.taumode import select_tau
+
+    X = X.to(torch.float32)
+    raw = taumode_lambdas_plain(X, L, select_tau(X, tau_mode, float(tau_param)))
+    return raw, fold_lambdas(raw, mn, rng)
+
+
+def taumode_query_plan_chosen(b: int, f: int) -> dict:
+    """What the built library chooses for ``b`` rows of ``f`` features on
+    the current card: ``rows`` a block (1, 2, 4 or 8), ``threads``, the
+    ``chunk`` of L's rows staged at once, ``smem_bytes``."""
+    lib = _cuda.library("taumode")
+    r, t, c, smem = (ctypes.c_int() for _ in range(4))
+    rc = lib.mrs_taumode_query_plan(b, f, ctypes.byref(r), ctypes.byref(t), ctypes.byref(c),
+                                    ctypes.byref(smem))
+    _cuda.check(lib, rc, "taumode query plan")
+    return dict(rows=r.value, threads=t.value, chunk=c.value, smem_bytes=smem.value)
+
+
+def taumode_query_lambdas(X: torch.Tensor, L: torch.Tensor, tau_mode: int, tau_param: float,
+                          mn: float, rng: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw λ ``[B]`` of ``X [B, F]`` against ``L [F, F]`` with τ by
+    ``tau_mode``, and ``clamp((raw − mn) / rng, 0, 1)``. CPU tensors take
+    :func:`taumode_query_lambdas_plain`; CUDA tensors launch the query
+    kernel."""
+    if X.device.type == "cpu":
+        return taumode_query_lambdas_plain(X, L, tau_mode, tau_param, mn, rng)
+    b, f = X.shape
+    if L.shape != (f, f) or not 1 <= f <= MAX_QUERY_F:
+        raise ValueError(f"taumode query kernel: X {tuple(X.shape)}, L {tuple(L.shape)}, "
+                         f"F at most {MAX_QUERY_F}")
+    for name, t in (("X", X), ("L", L)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"taumode query kernel: {name} must be float32, got {t.dtype}")
+    dev = _cuda.require_cuda("taumode query kernel", X=X, L=L)
+    lib = _cuda.library("taumode")
+    raw = torch.empty(b, dtype=torch.float32, device=dev)
+    q_lams = torch.empty(b, dtype=torch.float32, device=dev)
+    if b == 0:
+        return raw, q_lams
+    k0 = k1 = 0
+    if tau_mode in (TAU_MEDIAN, TAU_PERCENTILE):
+        k0, k1 = tau_ranks(f, tau_mode, float(tau_param))
+    elif tau_mode not in (TAU_FIXED, TAU_MEAN):
+        raise ValueError(f"unknown tau mode {tau_mode}")
+    rc = lib.mrs_taumode_query(X.data_ptr(), L.data_ptr(), b, f, tau_mode,
+                               fixed_tau(float(tau_param)), k0, k1, float(mn), float(rng),
+                               raw.data_ptr(), q_lams.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(lib, rc, "taumode query kernel")
+    kernels.count("taumode_query")
+    return raw, q_lams

@@ -14,24 +14,25 @@ row-independent, so one launch covers all N. Beyond
 :class:`~matternet_rs_tpu_torch.ops.csr.EllLaplacian`, λ takes the sparse
 edge-wise route (:func:`taumode_lambdas_ell`): O(N·F·k) traffic and no
 F×F operand. That route is plain PyTorch, as the reference runs it in XLA.
+
+Queries (:func:`query_lambdas`) route apart from the build: a batch on a
+card below ``KERNEL_MIN_N`` rows of at most ``MAX_QUERY_F`` features takes
+the query kernel, which also folds λ with the index's min and range in the
+same launch; the sparse route and kernel A stay as above, and the CPU and
+wider F take the closed form. The build, ``add_items`` and the streaming λ
+pass keep :func:`taumode_lambdas_auto`.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.csr import EllLaplacian, ell_from_dense_laplacian
 from matternet_rs_tpu_torch.ops.kernels import taumode as tk
-
-TAU_FLOOR = tk.TAU_FLOOR
-
-TAU_FIXED = 0
-TAU_MEDIAN = 1
-TAU_MEAN = 2
-TAU_PERCENTILE = 3
+from matternet_rs_tpu_torch.ops.kernels.taumode import (  # noqa: F401  (re-exported)
+    TAU_FIXED, TAU_FLOOR, TAU_MEAN, TAU_MEDIAN, TAU_PERCENTILE,
+)
 
 SPARSE_F_THRESHOLD = 2048
 KERNEL_MIN_N = 32768
@@ -44,21 +45,16 @@ def select_tau(values: torch.Tensor, mode: int, param: float = 0.0) -> torch.Ten
     would return the lower one); Percentile takes the sorted value at
     ``floor((F-1)·clamp(p,0,1) + 0.5)``. Floored at ``TAU_FLOOR``."""
     if mode == TAU_FIXED:
-        t = param if (param > 0.0 and math.isfinite(param)) else TAU_FLOOR
-        return torch.full(values.shape[:-1], t, dtype=values.dtype, device=values.device)
+        return torch.full(values.shape[:-1], tk.fixed_tau(param), dtype=values.dtype,
+                          device=values.device)
     if mode == TAU_MEAN:
         return torch.clamp(torch.mean(values, dim=-1), min=TAU_FLOOR)
-    f = values.shape[-1]
+    if mode not in (TAU_MEDIAN, TAU_PERCENTILE):
+        raise ValueError(f"unknown tau mode {mode}")
+    k0, k1 = tk.tau_ranks(values.shape[-1], mode, param)
     s = torch.sort(values, dim=-1).values
-    if mode == TAU_MEDIAN:
-        mid = f // 2
-        med = s[..., mid] if f % 2 else (s[..., mid - 1] + s[..., mid]) * 0.5
-        return torch.clamp(med, min=TAU_FLOOR)
-    if mode == TAU_PERCENTILE:
-        pp = min(max(param, 0.0), 1.0)
-        idx = int(math.floor((f - 1) * pp + 0.5))
-        return torch.clamp(s[..., idx], min=TAU_FLOOR)
-    raise ValueError(f"unknown tau mode {mode}")
+    t = s[..., k0] if k0 == k1 else (s[..., k0] + s[..., k1]) * 0.5
+    return torch.clamp(t, min=TAU_FLOOR)
 
 
 def taumode_lambdas(X: torch.Tensor, L: torch.Tensor, tau_mode: int = TAU_MEDIAN,
@@ -162,6 +158,38 @@ def taumode_lambdas_auto(X: torch.Tensor, L, tau_mode: int = TAU_MEDIAN,
             X.contiguous(), L.to(torch.float32).contiguous(), tau.contiguous()
         )
     return taumode_lambdas(X, L, tau_mode, tau_param)
+
+
+def query_route(X: torch.Tensor, L) -> str:
+    """Which route :func:`query_lambdas` takes for ``X [B, F]``: ``"ell"``
+    (an :class:`EllLaplacian`, or ``F > SPARSE_F_THRESHOLD``),
+    ``"kernel_a"`` (B at least ``KERNEL_MIN_N``), ``"kernel"`` (a CUDA
+    tensor with ``F <= MAX_QUERY_F``), else ``"closed"``."""
+    n, f = X.shape
+    if isinstance(L, EllLaplacian) or f > SPARSE_F_THRESHOLD:
+        return "ell"
+    if n >= KERNEL_MIN_N and f <= tk.MAX_KERNEL_F:
+        return "kernel_a"
+    if X.device.type == "cuda" and f <= tk.MAX_QUERY_F:
+        return "kernel"
+    return "closed"
+
+
+def query_lambdas(X: torch.Tensor, L, tau_mode: int, tau_param: float, mn: float,
+                  rng: float) -> tuple[torch.Tensor, torch.Tensor, str]:
+    """Query λ: raw ``[B]``, normalised ``clamp((raw − mn) / rng, 0, 1)``
+    with the index's ``mn`` and ``rng`` as host floats, and the
+    :func:`query_route` taken. On ``"kernel"`` both λ come from one launch;
+    the other routes compute raw as :func:`taumode_lambdas_auto` does and
+    fold it with :func:`~matternet_rs_tpu_torch.ops.kernels.taumode.fold_lambdas`."""
+    X = X.to(torch.float32)
+    route = query_route(X, L)
+    if route == "kernel":
+        raw, q_lams = tk.taumode_query_lambdas(X.contiguous(), L.to(torch.float32).contiguous(),
+                                               tau_mode, float(tau_param), mn, rng)
+        return raw, q_lams, route
+    raw = taumode_lambdas_auto(X, L, tau_mode, tau_param)
+    return raw, tk.fold_lambdas(raw, mn, rng), route
 
 
 def rayleigh_quotient(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

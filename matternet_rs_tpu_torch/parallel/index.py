@@ -266,10 +266,8 @@ class ShardedArrowSpace:
             raise ValueError(
                 f"Query dimension {Q.shape[-1]} doesn't match index dimension {graph.shape[0]}"
             )
-        raw = tmo.taumode_lambdas_auto(Q, graph, self.taumode.mode, self.taumode.param)
-        mn = torch.tensor(self.min_lambdas, dtype=torch.float32, device=Q.device)
-        rng = torch.tensor(self.range_lambdas, dtype=torch.float32, device=Q.device)
-        return torch.clamp((raw - mn) / rng, 0.0, 1.0)
+        return tmo.query_lambdas(Q, graph, self.taumode.mode, self.taumode.param,
+                                 self.min_lambdas, self.range_lambdas)[1]
 
     def _cached(self, key, make):
         fn = self._search_cache.get(key)

@@ -7,8 +7,9 @@ This file imports no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_serve_gpu.py
 
 Checks: one dispatch of 256 mixed-alpha requests launches its tier's
-kernels once each (the exact tier: kernel B and the candidate stage; the
-maxima-first tiers: kernels D and E) and answers bit for bit as the direct
+kernels once each (every tier: the query kernel; the exact tier: kernel B
+and the candidate stage; the maxima-first tiers: kernels D and E) and
+answers bit for bit as the direct
 ``search_batch``; two dispatch threads inside ``_run_batch`` at once (a
 barrier holds each until the other arrives) answer as the serial calls,
 and the launch counts are exact.
@@ -30,9 +31,9 @@ pytestmark = pytest.mark.gpu
 
 N, F, B, K = 65_536, 128, 256, 10
 ALPHAS = (0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
-TIER_KERNELS = {False: ("scores_tilemax", "subtile_topk"),
-                "bf16x3_rescored": ("tilemax_only", "slab_dots"),
-                "int8_rescored": ("tilemax_only", "slab_dots")}
+TIER_KERNELS = {False: ("taumode_query", "scores_tilemax", "subtile_topk"),
+                "bf16x3_rescored": ("taumode_query", "tilemax_only", "slab_dots"),
+                "int8_rescored": ("taumode_query", "tilemax_only", "slab_dots")}
 TIMEOUT = 120
 
 
