@@ -2823,6 +2823,7 @@ def tie_checks(dev, n_main=TIE_N, levels=TIE_LEVELS, n_wide=TIE_N_WIDE, f_wide=T
     from matternet_rs_tpu_torch.index import streaming as sti
     from matternet_rs_tpu_torch.ops import kernels
     from matternet_rs_tpu_torch.ops import laplacian as lap
+    from matternet_rs_tpu_torch.ops import scores as score_ops
     from matternet_rs_tpu_torch.ops import search as so
     from matternet_rs_tpu_torch.ops._mm import mm
     from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
@@ -3003,7 +3004,7 @@ def tie_checks(dev, n_main=TIE_N, levels=TIE_LEVELS, n_wide=TIE_N_WIDE, f_wide=T
         def sketch_scores(rows):
             cos = torch.clamp(mm(Q, X8f[:rows].to(torch.float32).T) * mult_f[:rows] / qn[:, None],
                               -1.0, 1.0)
-            return sti._blend(cos, lam_f[None, :rows], ql[:, None], a[:, None])
+            return score_ops.blend(cos, lam_f[None, :rows], ql[:, None], a[:, None])
 
         def sketch():
             return sti._sketch_maxfirst_topk(X8f, mult_f, lam_f, Q, ql, a, rows_out=rows_out,

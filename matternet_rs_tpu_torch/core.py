@@ -28,11 +28,12 @@ import torch
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.graph import GraphLaplacian
 from matternet_rs_tpu_torch.index.sorted import SortedLambdas
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import search as search_ops
 from matternet_rs_tpu_torch.ops import taumode as taumode_ops
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
 from matternet_rs_tpu_torch.ops.csr import ell_from_dense_laplacian
-from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
+from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
 from matternet_rs_tpu_torch.reduction import ImplicitProjection
 from matternet_rs_tpu_torch.utils import profiling
 
@@ -95,50 +96,37 @@ def quantize_rows(X: torch.Tensor):
     inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=X.device)
     scale = torch.where(maxabs > 0, maxabs * inv127, torch.ones_like(maxabs))
     q8 = torch.round(X / scale[:, None]).to(torch.int8)
-    mult = torch.where(norms > 1e-12, scale / torch.clamp(norms, min=1e-12),
-                       torch.zeros_like(norms))
+    mult = score_ops.guarded_cosine(scale, norms)
     return q8, mult
 
 
-def _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k: int, cand: int,
-                         mask_from=None):
-    """Shared tail of the pool-cut tiers: the top-``cand`` candidates of
-    the scan ``scores [B, N]`` (tile-max pruned from ``TILEMAX_MIN_N``),
-    their f32 rows rescored at full f32, the top-``k`` of those. Rows ≥
+def _poolcut_scan(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, scan_rn=None,
+                  mask_from=None):
+    """The pool-cut tiers: one pass over ``Xscan`` — the int8 sketch (a
+    plain ``[B, N]`` bf16 product on the f32 widening, the dequantised
+    cosine with ``scan_rn`` its multiplier), the bf16 copy or the f32 rows
+    (the guarded cosine with the exact f32 norms) —, the blend, the
+    top-``cand`` candidates (tile-max pruned from ``TILEMAX_MIN_N``), their
+    f32 rows rescored at full f32, the top-``k`` of those. Rows ≥
     ``mask_from`` score -inf in the scan and again after the rescore (an
     exact rescore of a padded zero row is 0 + λ-sim)."""
+    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
+    if Xscan.dtype == torch.int8:
+        cos = score_ops.dequant_cosine(mm_bf16(Q, Xscan.T), scan_rn[None, :],
+                                       score_ops.norm_floor(qn[:, None]))
+        scores = score_ops.blend(cos, lams[None, :], q_lams[:, None], alphas[:, None])
+    else:
+        scores = tmk.blended_scores(search_ops._scan_dots_batch(Xscan, Q), norms, lams, qn,
+                                    q_lams, alphas)
     scores = search_ops.mask_rows(scores, mask_from)
     if X.shape[0] >= TILEMAX_MIN_N:
         _, idx = search_ops.tilemax_topk(scores, cand)
     else:
         _, idx = search_ops.topk_stable(scores, cand)
     d2 = mm(X[idx], Q[:, :, None])[..., 0]                     # [B, cand]
-    s2 = blend(d2, norms[idx] * qn[:, None], lams[idx], q_lams[:, None], alphas[:, None])
+    s2 = tmk.blend(d2, norms[idx] * qn[:, None], lams[idx], q_lams[:, None], alphas[:, None])
     top, sel = search_ops.topk_stable(search_ops.mask_rows(s2, mask_from, idx), k)
     return torch.gather(idx, 1, sel), top
-
-
-def _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, k: int, cand: int, alphas,
-                       mask_from=None):
-    """Pool-cut int8 scan: one bf16 pass over the int8 sketch (a plain
-    ``[B, N]`` product on the f32 widening), per-row dequant to cosine,
-    top-``cand`` cut, exact rescore."""
-    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    dots = mm_bf16(Q, X8.T)
-    cos = torch.clamp(dots * mult[None, :] / torch.clamp(qn[:, None], min=1e-12), -1.0, 1.0)
-    lam_sim = 1.0 - torch.clamp(torch.abs(lams[None, :] - q_lams[:, None]), max=1.0)
-    a = alphas[:, None]
-    scores = a * cos + (1.0 - a) * lam_sim
-    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand, mask_from)
-
-
-def _poolcut_scan(dots, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, mask_from=None):
-    """Pool-cut tail over scan ``dots [B, N]``: guarded cosine with the
-    exact f32 norms, blend, top-``cand`` cut, exact rescore."""
-    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    scores = blend(dots, norms[None, :] * qn[:, None], lams[None, :], q_lams[:, None],
-                   alphas[:, None])
-    return _cand_select_rescore(scores, X, norms, lams, Q, q_lams, qn, alphas, k, cand, mask_from)
 
 
 def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, scan_rn=None,
@@ -154,27 +142,15 @@ def _rescored_tier(Xscan, X, norms, lams, Q, q_lams, k: int, cand: int, alphas, 
     if search_ops.fused_rescored_path(n, f, Q.shape[0], min(k, n), cand):
         return search_ops.fused_scan_rescored(Xscan, X, norms, lams, Q, q_lams, k, cand,
                                               alphas, scan_rn=scan_rn, mask_from=mask_from)
-    if Xscan.dtype == torch.int8:
-        return _int8_poolcut_scan(Xscan, scan_rn, X, norms, lams, Q, q_lams, k, cand, alphas,
-                                  mask_from)
-    return _poolcut_scan(search_ops._scan_dots_batch(Xscan, Q), X, norms, lams, Q, q_lams,
-                         k, cand, alphas, mask_from)
+    return _poolcut_scan(Xscan, X, norms, lams, Q, q_lams, k, cand, alphas, scan_rn, mask_from)
 
 
 def _alpha_vector(alpha, b_pad: int, device) -> torch.Tensor:
-    """Scalar-or-[B] alpha → padded ``[b_pad]`` float32 vector. A host
-    scalar is filled on the device (no copy, no read-back)."""
-    if not isinstance(alpha, torch.Tensor) and np.ndim(alpha) == 0:
-        return torch.full((b_pad,), float(alpha), dtype=torch.float32, device=device)
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
-    if not isinstance(alpha, torch.Tensor) or alpha.device.type == "cpu":
+    """Scalar-or-[B] alpha → padded ``[b_pad]`` float32 vector
+    (:func:`..ops.scores.alpha_vector`); a copy from the host counts as a sync."""
+    if (alpha.device.type == "cpu" if isinstance(alpha, torch.Tensor) else np.ndim(alpha)):
         profiling.count_sync(device)          # host values copied to the device
-    if a.ndim == 0:
-        profiling.count_sync(device)          # float(a) reads it back
-        return torch.full((b_pad,), float(a), dtype=torch.float32, device=device)
-    if a.shape[0] != b_pad:
-        a = torch.nn.functional.pad(a, (0, b_pad - a.shape[0]))
-    return a
+    return score_ops.alpha_vector(alpha, b_pad, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -808,8 +784,8 @@ class ArrowSpace:
                 kk = min(k, self.nitems)
                 if quantized == "int8":
                     X8, mult = self._ensure_int8()
-                    idx, sc = _int8_poolcut_scan(X8, mult, X, norms, lams, Q, q_lams, kk,
-                                                 self._int8_cand(k, candidates), alphas)
+                    idx, sc = _poolcut_scan(X8, X, norms, lams, Q, q_lams, kk,
+                                            self._int8_cand(k, candidates), alphas, scan_rn=mult)
                 elif quantized in RESCORED_TIERS:
                     if quantized == "int8_rescored":
                         Xscan, rn = self._ensure_int8()
@@ -861,7 +837,7 @@ class ArrowSpace:
             graph = self.graph_for_taumode(gl)
             X = self.projection.project(new) if self._projects(new, graph) else new
             raw = taumode_ops.taumode_lambdas_auto(X, graph, self.taumode.mode, self.taumode.param)
-            lam_new = torch.clamp((raw - self.min_lambdas) / self.range_lambdas, 0.0, 1.0)
+            lam_new = score_ops.normalised(raw, self.min_lambdas, self.range_lambdas)
         self.data = torch.cat([self.data, new], dim=0)
         self.lambdas = torch.cat([self.lambdas, lam_new])
         self.nitems = int(self.data.shape[0])

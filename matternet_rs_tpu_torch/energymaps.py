@@ -42,6 +42,7 @@ from matternet_rs_tpu_torch.core import ArrowSpace
 from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
 from matternet_rs_tpu_torch.index.sorted import DeviceSortedLambdas
 from matternet_rs_tpu_torch.ops import laplacian as lap_ops
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import taumode as tm_ops
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
@@ -53,7 +54,7 @@ from matternet_rs_tpu_torch.utils import profiling
 # Items assigned to sub-centroids per chunk: bounds the [chunk, S] buffers.
 ASSIGN_CHUNK = 65_536
 # The cosine tie-break applies where the λ distance is below this.
-TIE_EPS = esk.TIE_EPS
+TIE_EPS = score_ops.TIE_EPS
 # Gathered f32 elements per query block of the banded program (1 GiB).
 BANDED_GATHER_ELEMS = 1 << 28
 
@@ -430,11 +431,10 @@ def _banded_search(X, norms, s_lam, s_idx, Q, q_lams, k: int, cand: int):
         pos = torch.searchsorted(s_lam, qlb)                  # side='left'
         win = torch.clamp(pos - cand, 0, n - 2 * cand)[:, None] + arange
         ids = s_idx[win]                                      # [b, 2C]
-        lam_d = torch.abs(qlb[:, None] - s_lam[win])
         qn = torch.sqrt(torch.sum(Qb * Qb, dim=-1))
         dots = torch.bmm(X[ids], Qb[:, :, None])[..., 0]
-        cosine = dots / (qn[:, None] * norms[ids] + 1e-9)
-        scores = lam_d + torch.where(lam_d < TIE_EPS, (1.0 - cosine) * 1e-9, torch.zeros_like(cosine))
+        cosine = score_ops.energy_cosine(dots, qn[:, None] * norms[ids])
+        scores = score_ops.energy_score(torch.abs(qlb[:, None] - s_lam[win]), cosine)
         neg, sel = topk_stable(-scores, k)
         out_i.append(torch.gather(ids, 1, sel))
         out_d.append(-neg)

@@ -26,7 +26,8 @@ import torch
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
-from matternet_rs_tpu_torch.ops.search import _guarded_cosine, topk_stable
+from matternet_rs_tpu_torch.ops.scores import alpha_vector, guarded_cosine
+from matternet_rs_tpu_torch.ops.search import topk_stable
 
 DEFAULT_BUCKET_SIZE = 1024
 # Elements of one query block's candidate-row gather (1 GiB of float32).
@@ -159,7 +160,7 @@ def _pruned_scores(ivf_centroids, ivf_centroid_norms, bucket_items, bucket_centr
     """Candidate ids ``[B, nb·bucket_size]`` (−1 padding) and their blended
     scores (−inf on padding) for a batch of queries."""
     qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    cscore = _guarded_cosine(mm(Q, ivf_centroids.T), ivf_centroid_norms[None, :] * qn[:, None])
+    cscore = guarded_cosine(mm(Q, ivf_centroids.T), ivf_centroid_norms[None, :] * qn[:, None])
     ql = q_lams[:, None]
     gap = torch.clamp(torch.maximum(bucket_lambda_lo[None, :] - ql,
                                     ql - bucket_lambda_hi[None, :]), min=0.0)
@@ -199,8 +200,7 @@ def ivf_search_batch(ivf_centroids, ivf_centroid_norms, bucket_items, bucket_cen
     gather_elems = GATHER_ELEMS if gather_elems is None else gather_elems
     Q = queries.to(torch.float32)
     ql = torch.as_tensor(query_lambdas, dtype=torch.float32, device=Q.device).reshape(-1)
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=Q.device)
-    a = a.expand(Q.shape[0]).contiguous() if a.ndim == 0 else a
+    a = alpha_vector(alpha, Q.shape[0], Q.device)
     cand, scores = _pruned_scores(ivf_centroids, ivf_centroid_norms, bucket_items,
                                   bucket_centroid, bucket_lambda_lo, bucket_lambda_hi,
                                   X, norms, lambdas, Q, ql, a, nprobe, gather_elems)

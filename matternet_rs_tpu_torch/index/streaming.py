@@ -37,9 +37,11 @@ import torch
 from matternet_rs_tpu_torch.backend import resolve_device
 from matternet_rs_tpu_torch.core import TAUDEFAULT, TauMode
 from matternet_rs_tpu_torch.graph import GraphLaplacian, GraphParams
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import search as search_ops
 from matternet_rs_tpu_torch.ops import taumode as taumode_ops
-from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
+from matternet_rs_tpu_torch.ops._mm import mm_bf16
+from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
 from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
 from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
 from matternet_rs_tpu_torch.ops.search import topk_stable
@@ -69,25 +71,6 @@ def _host_bf16(block: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(block, np.float32)).to(torch.bfloat16)
 
 
-def _alpha_param(alpha, b: int, device):
-    """Scalar or ``[B]`` blend weights: a float, or ``[B, 1]`` against the
-    ``[B, n]`` scores."""
-    if np.ndim(alpha) == 0 and not isinstance(alpha, torch.Tensor):
-        return float(alpha)
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
-    if a.ndim == 0:
-        return a
-    if a.shape[0] != b:
-        raise ValueError(f"alpha vector length {a.shape[0]} != batch {b}")
-    return a[:, None]
-
-
-def _blend(cos, lambdas, query_lambda, alpha):
-    """``α·cos + (1-α)·(1-min(|Δλ|,1))`` on a cosine already formed."""
-    lam_sim = 1.0 - torch.clamp(torch.abs(lambdas - query_lambda), max=1.0)
-    return alpha * cos + (1.0 - alpha) * lam_sim
-
-
 def _masked(scores, valid: int, fill: float):
     """Columns ≥ ``valid`` set to ``fill``."""
     if valid < scores.shape[1]:
@@ -102,22 +85,18 @@ def _score_block_batch(X, lams, Q, q_lams, alpha, mn: float, rng: float, valid: 
     with; bf16 blocks one bf16 pass summed in f32."""
     Xf = X.float()
     norms = torch.sqrt(torch.sum(Xf * Xf, dim=-1))
-    dots = mm_bf16(Q, X.T) if X.dtype == torch.bfloat16 else mm(Q, X.T)
     qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    lam_n = torch.clamp((lams - mn) / rng, 0.0, 1.0)
-    scores = blend(dots, norms[None, :] * qn[:, None], lam_n[None, :], q_lams[:, None], alpha)
+    lam_n = score_ops.normalised(lams, mn, rng)
+    scores = blend(search_ops._scan_dots_batch(X, Q), norms[None, :] * qn[:, None],
+                   lam_n[None, :], q_lams[:, None], alpha)
     return topk_stable(_masked(scores, valid, -float("inf")), k)
 
 
 def _energy_block_batch(X, lams, Q, q_lams, mn: float, rng: float, valid: int, k: int):
-    """Energy-mode block scores: ascending |Δλ| with the cosine tie-break
-    at |Δλ| < 1e-9 (the reference's energymaps semantics, streamed)."""
+    """Energy-mode block scores, ascending: the reference's energymaps
+    semantics streamed (:func:`..ops.kernels.energy_scan.energy_scores_plain`)."""
     norms = torch.sqrt(torch.sum(X * X, dim=-1))
-    qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    cos = mm(Q, X.T) / (qn[:, None] * norms[None, :] + 1e-9)
-    lam_n = torch.clamp((lams - mn) / rng, 0.0, 1.0)
-    lam_dist = torch.abs(lam_n[None, :] - q_lams[:, None])
-    scores = lam_dist + torch.where(lam_dist < 1e-9, (1.0 - cos) * 1e-9, torch.zeros_like(cos))
+    scores = esk.energy_scores_plain(X, norms, score_ops.normalised(lams, mn, rng), Q, q_lams)
     neg, idx = topk_stable(-_masked(scores, valid, float("inf")), k)
     return -neg, idx
 
@@ -145,7 +124,7 @@ def scan_sketch_blocks(X8s, mults, lams, valids, Q, q_lams, alpha, mn: float, rn
     ``valids`` lives on the card: nothing is read back."""
     b = Q.shape[0]
     blk = X8s.shape[1]
-    qn = torch.clamp(torch.sqrt(torch.sum(Q * Q, dim=-1)), min=1e-12)
+    qn = score_ops.norm_floor(torch.sqrt(torch.sum(Q * Q, dim=-1)))[:, None]
     col = torch.arange(blk, device=Q.device)[None, :]
     kb = min(kk, blk)
     best_s = torch.full((b, kk), -float("inf"), dtype=torch.float32, device=Q.device)
@@ -153,14 +132,12 @@ def scan_sketch_blocks(X8s, mults, lams, valids, Q, q_lams, alpha, mn: float, rn
     offset = torch.full((), offset0, dtype=torch.int64, device=Q.device)
     for i in range(X8s.shape[0]):
         dots = mm_bf16(Q, X8s[i].T)                                  # [B, blk]
-        cos = torch.clamp(dots * mults[i][None, :] / qn[:, None], -1.0, 1.0)
-        lam_n = torch.clamp((lams[i] - mn) / rng, 0.0, 1.0)
+        cos = score_ops.dequant_cosine(dots, mults[i][None, :], qn)
+        lam_n = score_ops.normalised(lams[i], mn, rng)[None, :]
         if energy:
-            lam_dist = torch.abs(lam_n[None, :] - q_lams[:, None])
-            scores = -(lam_dist + torch.where(lam_dist < 1e-9, (1.0 - cos) * 1e-9,
-                                              torch.zeros_like(cos)))
+            scores = -score_ops.energy_score(torch.abs(lam_n - q_lams[:, None]), cos)
         else:
-            scores = _blend(cos, lam_n[None, :], q_lams[:, None], alpha)
+            scores = score_ops.blend(cos, lam_n, q_lams[:, None], alpha)
         valid = valids[i].to(torch.int64)
         scores = torch.where(col < valid, scores, -float("inf"))
         sc, idx = topk_stable(scores, kb)
@@ -198,41 +175,27 @@ def _sketch_flatten(X8s, mults, lams, mn: float, rng: float):
     128 and kept a second resident buffer for Mosaic's DMA tiling; kernels
     D and E take any F), and the λ column normalised once."""
     nb, blk, f = X8s.shape
-    lam_n = torch.clamp((lams.reshape(nb * blk) - mn) / rng, 0.0, 1.0)
+    lam_n = score_ops.normalised(lams.reshape(nb * blk), mn, rng)
     return X8s.view(nb * blk, f), mults.view(nb * blk), lam_n
 
 
 def _sketch_maxfirst_topk(X8f, mult_f, lam_f, Q, q_lams, alphas, rows_out: int,
                           kfinal: int, n_items: int):
-    """The maxima-first sketch scan: kernel D over the flat int8 rows (the
-    dequant multiplier as ``rn``, rows ≥ ``n_items`` masked) keeps only the
-    128-row slab maxima; the c = min(ns, max(kfinal + 4, ⌈rows_out/128⌉))
-    best slabs, in id order, go to kernel E on the int8 rows (told the ids
-    are in range: nothing is read back); the blend at sketch precision, the
+    """The maxima-first sketch scan: :func:`..ops.search.maxfirst_slabs`
+    over the flat int8 rows (their multiplier as ``rn``, rows ≥ ``n_items``
+    masked), the dequantised cosine and the blend at sketch precision, the
     top-``rows_out``. Returns ``(scores [B, R], ids [B, R])`` on the card,
     ids -1 where the score is -inf. The caller checks
     :meth:`StreamingIndex._sketch_fused_ok`."""
-    b = Q.shape[0]
-    n = X8f.shape[0]
-    t = search_ops.DEFAULT_TILE
-    ts = t // search_ops.RESCORE_SUBS
-    ns = (n // t) * search_ops.RESCORE_SUBS
-    submax = rsk.tilemax_only(X8f, mult_f, lam_f, Q, q_lams, alphas, tile=t,
-                              subs=search_ops.RESCORE_SUBS, rn=mult_f, mask_from=n_items)
-    c = min(ns, max(kfinal + search_ops.SELECT_MARGIN, -(-rows_out // ts)))
-    _, sel = topk_stable(submax, c)
-    sel = torch.sort(sel, dim=1).values
-    d = search_ops._slab_dots_checked(X8f, Q, sel, ts)               # [B, c, ts]
+    d, mult_s, lam_s, gidx = search_ops.maxfirst_slabs(
+        X8f, X8f, mult_f, lam_f, Q, q_lams, alphas, kfinal, rows_out, search_ops.DEFAULT_TILE,
+        mult_f, n_items, rsk.tilemax_only, search_ops._slab_dots_checked)
     qn = torch.sqrt(torch.sum(Q * Q, dim=-1))
-    mult_s = mult_f.view(ns, ts)[sel]
-    lam_s = lam_f.view(ns, ts)[sel]
-    cos = torch.clamp(d * mult_s / torch.clamp(qn, min=1e-12)[:, None, None], -1.0, 1.0)
-    s = _blend(cos, lam_s, q_lams[:, None, None], alphas[:, None, None]).reshape(b, c * ts)
-    gidx = (sel[:, :, None] * ts + torch.arange(ts, device=sel.device)).reshape(b, c * ts)
+    cos = score_ops.dequant_cosine(d, mult_s, score_ops.norm_floor(qn)[:, None, None])
+    s = score_ops.blend(cos, lam_s, q_lams[:, None, None], alphas[:, None, None]).flatten(1)
     s = torch.where(gidx < n_items, s, -float("inf"))
-    top, pos = topk_stable(s, min(rows_out, c * ts))
-    gidx = torch.gather(gidx, 1, pos)
-    return top, torch.where(top > -float("inf"), gidx, -1)
+    top, pos = topk_stable(s, min(rows_out, gidx.shape[1]))
+    return top, torch.where(top > -float("inf"), torch.gather(gidx, 1, pos), -1)
 
 
 def _refine_exact_topk(XU, lamU, Q, q_lams, alpha, mn: float, rng: float, valid_u: int, kk: int):
@@ -723,7 +686,7 @@ class StreamingIndex:
         """Batched streamed top-k. Returns ``(indices [B, k], scores [B, k])``."""
         Q = self._queries(queries)
         q_lams = self._query_lambdas(Q)
-        al = _alpha_param(alpha, Q.shape[0], Q.device)
+        al = score_ops.alpha_param(alpha, Q.shape[0], Q.device)
         kb = min(min(k, self.n_items), self.block_rows)
         mn, rng = float(self.min_lambdas), float(self.range_lambdas)
 
@@ -874,17 +837,14 @@ class StreamingIndex:
         if self._sketch is None:
             self.build_sketch()
         b = Q.shape[0]
+        al = score_ops.alpha_param(alpha, b, Q.device)      # a vector's length checked
         if self._sketch_maxfirst_route(b, kk, C):
-            if np.ndim(alpha) or isinstance(alpha, torch.Tensor):
-                a_vec = torch.as_tensor(alpha, dtype=torch.float32, device=Q.device).reshape(-1).expand(b)
-            else:
-                a_vec = torch.full((b,), float(alpha), dtype=torch.float32, device=Q.device)
             X8f, mult_f, lam_f = self._sketch_flat_views()
-            return _sketch_maxfirst_topk(X8f, mult_f, lam_f, Q, q_lams, a_vec.contiguous(),
+            return _sketch_maxfirst_topk(X8f, mult_f, lam_f, Q, q_lams,
+                                         score_ops.alpha_vector(al, b, Q.device),
                                          rows_out=C, kfinal=kk, n_items=self.n_items)
         X8s, mults, lams, valids = self._sketch
-        return _sketch_scan_topk(X8s, mults, lams, valids, Q, q_lams,
-                                 _alpha_param(alpha, b, Q.device), float(self.min_lambdas),
+        return _sketch_scan_topk(X8s, mults, lams, valids, Q, q_lams, al, float(self.min_lambdas),
                                  float(self.range_lambdas), kk=C)
 
     def search_batch_sketch(self, queries, k: int, alpha: float = 0.7,
@@ -936,7 +896,7 @@ class StreamingIndex:
                 sp.set(rows=u, bytes=u * self.n_features * 4)
                 with profiling.span("refine.rescore"):
                     return self._rescore_union(ids, union, kk, self._exact_rescore(
-                        Q, q_lams, _alpha_param(alpha, Q.shape[0], Q.device),
+                        Q, q_lams, score_ops.alpha_param(alpha, Q.shape[0], Q.device),
                         float(self.min_lambdas), float(self.range_lambdas), kk), -np.inf)
 
     def _store_maps(self):

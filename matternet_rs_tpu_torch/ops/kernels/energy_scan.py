@@ -4,8 +4,8 @@ epilogue, then G's merge (``csrc/search_fused.cu``).
 For raw rows ``X [N, F]`` with their norms and λ, and raw queries
 ``Q [B, F]`` with their λ, the energy score of a (query, row) pair is
 
-    d = |qλ − λ|,   s = d + (1 − cos)·1e-9 where d < 1e-9, else s = d,
-    cos = Q·X / (‖Q‖·‖X‖ + 1e-9),
+    d = |qλ − λ|,   s = d + (1 − cos)·TIE_EPS where d < TIE_EPS, else s = d,
+    cos = Q·X / (‖Q‖·‖X‖ + 1e-9),   TIE_EPS = 1e-9 (``ops/scores.py``),
 
 and each query keeps its ``k`` least scores, lowest index first among
 equal ones (the stable ascending top-k). :func:`energy_topk_plain` is the
@@ -25,12 +25,13 @@ from __future__ import annotations
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 from matternet_rs_tpu_torch.ops.kernels import search_fused as sfk
 from matternet_rs_tpu_torch.ops.search import topk_stable
 
-TIE_EPS = 1e-9                # the cosine breaks ties where |Δλ| is below this
+TIE_EPS = score_ops.TIE_EPS
 K_MAX = sfk.K_PAD             # the widest k the kernel keeps
 
 
@@ -39,12 +40,9 @@ def query_norms(Q: torch.Tensor) -> torch.Tensor:
 
 
 def energy_scores_plain(X, norms, lambdas, Q, q_lams):
-    """``[B, N]`` energy scores: ``|Δλ|``, plus ``(1 − cos)·1e-9`` where
-    ``|Δλ| < 1e-9``; the dots at full f32."""
-    lam_dist = torch.abs(q_lams[:, None] - lambdas[None, :])
-    cosine = mm(Q, X.T) / (query_norms(Q)[:, None] * norms[None, :] + 1e-9)
-    return lam_dist + torch.where(lam_dist < TIE_EPS, (1.0 - cosine) * 1e-9,
-                                  torch.zeros_like(cosine))
+    """``[B, N]`` energy scores (:func:`..scores.energy_score`), dots at full f32."""
+    cosine = score_ops.energy_cosine(mm(Q, X.T), query_norms(Q)[:, None] * norms[None, :])
+    return score_ops.energy_score(torch.abs(q_lams[:, None] - lambdas[None, :]), cosine)
 
 
 def energy_topk_plain(X, norms, lambdas, Q, q_lams, k: int):

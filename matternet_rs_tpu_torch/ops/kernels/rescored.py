@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 from matternet_rs_tpu_torch.ops.kernels.tilemax import SUBS
@@ -85,13 +86,13 @@ def _epilogue_terms(norms, queries, alphas, rn):
     ``aqrn = α/max(qn, 1e-12)``, ``β = 1 − α``."""
     b = queries.shape[0]
     qn = torch.sqrt(torch.sum(queries * queries, dim=-1))
-    a = torch.as_tensor(alphas, dtype=torch.float32, device=queries.device).expand(b)
+    a = score_ops.alpha_vector(alphas, b, queries.device)
     if rn is None:
         rn = torch.where(norms > 1e-12, 1.0 / torch.clamp(norms, min=1e-12),
                          torch.zeros_like(norms))
     else:
         rn = rn.to(torch.float32)
-    return rn, a / torch.clamp(qn, min=1e-12), 1.0 - a
+    return rn, a / score_ops.norm_floor(qn), 1.0 - a
 
 
 def scan_dots_plain(queries, X):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 
@@ -46,8 +47,7 @@ def k_keep(k: int, n: int) -> int:
 
 
 def _scores_plain(Xn, lambdas, Qn, q_lambdas, alpha: float):
-    lam_sim = 1.0 - torch.clamp(torch.abs(lambdas[None, :] - q_lambdas[:, None]), max=1.0)
-    scores = alpha * mm(Qn, Xn.T) + (1.0 - alpha) * lam_sim
+    scores = score_ops.blend(mm(Qn, Xn.T), lambdas[None, :], q_lambdas[:, None], alpha)
     return torch.where(lambdas[None, :] > _PAD_LAMBDA_CUT,
                        torch.full_like(scores, _NEG), scores)
 

@@ -24,6 +24,7 @@ import math
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 
@@ -326,7 +327,7 @@ def fold_lambdas(raw: torch.Tensor, mn: float, rng: float) -> torch.Tensor:
     torch divides by a device scalar exactly, as the kernel does."""
     mn_t = torch.full((), float(mn), dtype=torch.float32, device=raw.device)
     rng_t = torch.full((), float(rng), dtype=torch.float32, device=raw.device)
-    return torch.clamp((raw - mn_t) / rng_t, 0.0, 1.0)
+    return score_ops.normalised(raw, mn_t, rng_t)
 
 
 def taumode_query_lambdas_plain(X: torch.Tensor, L: torch.Tensor, tau_mode: int,

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from matternet_rs_tpu_torch.ops import kernels
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm
 from matternet_rs_tpu_torch.ops.kernels import _cuda
 
@@ -75,15 +76,9 @@ def scores_tilemax_plan_chosen(X, queries) -> dict:
 
 
 def blend(dots, denom, lambdas, query_lambdas, alphas):
-    """THE scoring epilogue (the reference's ``_guarded_cosine`` and
-    ``_blend``) on operands that already broadcast against ``dots``:
-    ``α·cos + (1-α)·(1 - min(|λ - λq|, 1))`` with ``cos = dots/denom``, 0
-    where ``denom ≤ 1e-12``."""
-    cos = torch.where(
-        denom > 1e-12, dots / torch.clamp(denom, min=1e-12), torch.zeros_like(dots)
-    )
-    lam_sim = 1.0 - torch.clamp(torch.abs(lambdas - query_lambdas), max=1.0)
-    return alphas * cos + (1.0 - alphas) * lam_sim
+    """Kernel B's epilogue in plain PyTorch, on operands broadcast against
+    ``dots``: :func:`..scores.blend` of :func:`..scores.guarded_cosine`."""
+    return score_ops.blend(score_ops.guarded_cosine(dots, denom), lambdas, query_lambdas, alphas)
 
 
 def blended_scores(dots, norms, lambdas, qn, query_lambdas, alphas):

@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops._mm import mm, mm_bf16
 from matternet_rs_tpu_torch.ops.kernels import rescored as rsk
 from matternet_rs_tpu_torch.ops.kernels import tilemax as tmk
@@ -115,11 +116,6 @@ def fused_fast_path(n: int, f: int, b: int, dtype, kk: int, tile: int = DEFAULT_
         n, f, b, _is_float32(dtype), tile, cuda)
 
 
-def _alphas(alphas, b: int, device) -> torch.Tensor:
-    a = torch.as_tensor(alphas, dtype=torch.float32, device=device)
-    return a.expand(b).contiguous() if a.ndim == 0 else a
-
-
 def _scan_dots_batch(X, queries) -> torch.Tensor:
     """Corpus dots ``[B, N]``: one bf16 pass for a bf16 corpus (the
     ``quantized=True`` copy), full f32 otherwise."""
@@ -131,7 +127,7 @@ def _scan_dots_batch(X, queries) -> torch.Tensor:
 def _batched_scores(X, norms, lambdas, queries, query_lambdas, alphas) -> torch.Tensor:
     """Blended score matrix ``[B, N]``; ``alphas`` scalar or ``[B]``."""
     qn = torch.sqrt(torch.sum(queries * queries, dim=-1))
-    a = _alphas(alphas, queries.shape[0], queries.device)
+    a = score_ops.alpha_vector(alphas, queries.shape[0], queries.device)
     return tmk.blended_scores(_scan_dots_batch(X, queries), norms, lambdas, qn,
                               query_lambdas, a)
 
@@ -168,15 +164,10 @@ def _scan_dots(X, query) -> torch.Tensor:
     return mm(X, query)
 
 
-def _guarded_cosine(dots, denom):
-    """``dots/denom``, 0 where ``denom ≤ 1e-12``."""
-    return torch.where(denom > 1e-12, dots / torch.clamp(denom, min=1e-12), torch.zeros_like(dots))
-
-
 def cosine_scores(X, norms, query) -> torch.Tensor:
     """Cosine of ``query`` against every row (0 for zero norms)."""
     qn = torch.sqrt(torch.sum(query * query))
-    return _guarded_cosine(_scan_dots(X, query), norms * qn)
+    return score_ops.guarded_cosine(_scan_dots(X, query), norms * qn)
 
 
 def lambda_aware_scores(X, norms, lambdas, query, query_lambda, alpha) -> torch.Tensor:
@@ -193,9 +184,9 @@ def search_lambda_aware_hybrid(X, norms, lambdas, query, query_lambda, k: int, a
     ``(indices [k], scores [k])``, ties lowest index first."""
     n = X.shape[0]
     kk = min(k, n)
-    dots, denom = _scan_dots(X, query), norms * torch.sqrt(torch.sum(query * query))
-    cos = _guarded_cosine(dots, denom)
-    lambda_score = tmk.blend(dots, denom, lambdas, query_lambda, alpha)
+    qn = torch.sqrt(torch.sum(query * query))
+    cos = score_ops.guarded_cosine(_scan_dots(X, query), norms * qn)
+    lambda_score = score_ops.blend(cos, lambdas, query_lambda, alpha)
     _, top_idx = topk_stable(lambda_score, kk)
     in_topk = torch.zeros(n, dtype=torch.bool, device=X.device)
     in_topk[top_idx] = True
@@ -293,7 +284,7 @@ def fused_tilemax(X, norms, lambdas, queries, query_lambdas, kk: int, alphas,
     b, n = queries.shape[0], X.shape[0]
     nt0 = n // t
     n0 = nt0 * t
-    a = _alphas(alphas, b, queries.device)
+    a = score_ops.alpha_vector(alphas, b, queries.device)
     smain, submax = producer(
         X, norms, lambdas, queries, query_lambdas, a, tile=t, mask_from=mask_from
     )
@@ -323,6 +314,11 @@ def tilemax_only_supported(n: int, f: int, b: int, tile: int, subs: int = tmk.SU
     )
 
 
+def _slab_budget(kk: int, cand: int, ts: int) -> int:
+    """Slabs of ``ts`` rows the rescored selection keeps (before the corpus caps them)."""
+    return max(kk + SELECT_MARGIN, -(-cand // ts))
+
+
 def fused_rescored_path(n: int, f: int, b: int, kk: int, cand: int,
                         tile: int = DEFAULT_TILE) -> bool:
     """Routing predicate for :func:`fused_scan_rescored`: the producer's
@@ -333,7 +329,7 @@ def fused_rescored_path(n: int, f: int, b: int, kk: int, cand: int,
     rules (the slab ring's 8-query blocks, the DMA's 128-lane slices);
     kernels D and E take any B and F, so they are dropped."""
     ts = tile // RESCORE_SUBS
-    c = max(kk + SELECT_MARGIN, -(-cand // ts))
+    c = _slab_budget(kk, cand, ts)
     return (
         n >= FUSED_TILEMAX_MIN_N
         and not _tilemax_degenerate(n, kk, tile)
@@ -344,55 +340,60 @@ def fused_rescored_path(n: int, f: int, b: int, kk: int, cand: int,
 
 
 def _slab_dots_checked(X, queries, sel, ts: int):
-    """Kernel E on slab ids that :func:`fused_scan_rescored` made itself, in
+    """Kernel E on slab ids that :func:`maxfirst_slabs` made itself, in
     ``[0, ns)`` by construction: the wrapper skips its range check and so
     reads nothing back to the host (a bad id would still show, as a NaN
     slice)."""
     return rsk.slab_dots(X, queries, sel, ts, checked=True)
 
 
+def maxfirst_slabs(Xscan, X, norms, lambdas, queries, query_lambdas, alphas, kk: int,
+                   cand: int, t: int, scan_rn, mask_from, producer, slab_reader):
+    """The maxima-first slab choice of the rescored tiers
+    (:func:`fused_scan_rescored`) and of the resident sketch
+    (``index/streaming._sketch_maxfirst_topk``). ``producer`` (kernel D)
+    scans ``Xscan`` — bf16, int8 (with ``scan_rn`` its dequant multiplier)
+    or f32 (bf16x3) — and returns only the maxima ``[B, ns]`` of its
+    ``ts = t // RESCORE_SUBS``-row sub-tiles, rows ≥ ``mask_from`` at -inf;
+    the ``c = min(ns, max(kk + 4, ⌈cand/ts⌉))`` sub-tiles with the largest
+    maxima, in id order, go to ``slab_reader`` (kernel E, told the ids are
+    in range: nothing is read back) for the dots of their rows of ``X``.
+    Returns those dots, the rows' ``norms`` and ``lambdas`` (``[B, c, ts]``)
+    and ids ``[B, c·ts]``."""
+    ts = t // RESCORE_SUBS
+    ns = (Xscan.shape[0] // t) * RESCORE_SUBS
+    submax = producer(Xscan, norms, lambdas, queries, query_lambdas, alphas, tile=t,
+                      subs=RESCORE_SUBS, mask_from=mask_from, rn=scan_rn)
+    sel = torch.sort(topk_stable(submax, min(ns, _slab_budget(kk, cand, ts)))[1], dim=1).values
+    d = slab_reader(X, queries, sel, ts)
+    ids = sel[:, :, None] * ts + torch.arange(ts, device=sel.device)
+    return d, norms[:ns * ts].view(ns, ts)[sel], lambdas[:ns * ts].view(ns, ts)[sel], ids.flatten(1)
+
+
 def fused_scan_rescored(Xscan, X, norms, lambdas, queries, query_lambdas, k: int,
                         cand: int, alphas, t: int = DEFAULT_TILE, scan_rn=None,
                         mask_from: int | None = None,
                         producer=rsk.tilemax_only, slab_reader=_slab_dots_checked):
-    """Maxima-first reduced-precision scan + exact slab rescore.
-
-    Stage 1: ``producer`` (kernel D) scans ``Xscan`` — bf16, int8 (with
-    ``scan_rn`` its dequant multiplier) or f32 (bf16x3) — and returns only
-    the per-sub-tile maxima ``[B, ns]`` of ``ts = t // RESCORE_SUBS``-row
-    sub-tiles. Stage 2: the ``c = max(k + 4, ⌈cand/ts⌉)`` sub-tiles with
-    the largest maxima, sorted into id order, go to ``slab_reader``
-    (kernel E, told the ids are in range, so nothing is read back to the
-    host) for full-f32 dots of every row of the f32 corpus ``X``; the
-    ragged tail is scored exactly by :func:`_batched_scores`; the final
-    stable top-k ranks exact scores only, ties lowest index first. Rows ≥
-    ``mask_from`` score -inf at both stages. Passing the plain versions as
-    ``producer``/``slab_reader`` runs the same path without the kernels.
-    Caller checks :func:`fused_rescored_path`. Returns ``(idx [B, kk],
-    scores [B, kk])``."""
+    """Maxima-first reduced-precision scan + exact slab rescore: the slabs
+    of :func:`maxfirst_slabs`, their rows of the f32 corpus ``X`` blended at
+    full f32, the ragged tail scored exactly by :func:`_batched_scores`; the
+    final stable top-k ranks exact scores only, ties lowest index first.
+    Rows ≥ ``mask_from`` score -inf at both stages. Passing the plain
+    versions as ``producer``/``slab_reader`` runs the same path without
+    the kernels. Caller checks :func:`fused_rescored_path`. Returns
+    ``(idx [B, kk], scores [B, kk])``."""
     b, n = queries.shape[0], X.shape[0]
     kk = min(k, n)
-    nt0 = n // t
-    n0 = nt0 * t
-    ts = t // RESCORE_SUBS
-    ns = nt0 * RESCORE_SUBS
-    a = _alphas(alphas, b, queries.device)
-    submax = producer(Xscan, norms, lambdas, queries, query_lambdas, a, tile=t,
-                      subs=RESCORE_SUBS, mask_from=mask_from, rn=scan_rn)
-    c = min(ns, max(kk + SELECT_MARGIN, -(-cand // ts)))
-    _, sel = topk_stable(submax, c)
-    sel = torch.sort(sel, dim=1).values
-
-    d = slab_reader(X, queries, sel, ts)                         # [B, c, ts]
+    n0 = (n // t) * t
+    a = score_ops.alpha_vector(alphas, b, queries.device)
+    d, nrm_s, lam_s, gidx = maxfirst_slabs(Xscan, X, norms, lambdas, queries, query_lambdas, a,
+                                           kk, cand, t, scan_rn, mask_from, producer, slab_reader)
     qn = torch.sqrt(torch.sum(queries * queries, dim=-1))
-    nrm_s = norms[:n0].view(ns, ts)[sel]
-    lam_s = lambdas[:n0].view(ns, ts)[sel]
     s = tmk.blend(d, nrm_s * qn[:, None, None], lam_s, query_lambdas[:, None, None],
-                  a[:, None, None]).reshape(b, c * ts)
-    gidx = (sel[:, :, None] * ts + torch.arange(ts, device=sel.device)).reshape(b, c * ts)
+                  a[:, None, None]).flatten(1)
     if n0 < n:
         tail = _batched_scores(X[n0:], norms[n0:], lambdas[n0:], queries, query_lambdas, a)
         s = torch.cat([s, tail], dim=1)
-        gidx = torch.cat([gidx, torch.arange(n0, n, device=sel.device).expand(b, n - n0)], dim=1)
+        gidx = torch.cat([gidx, torch.arange(n0, n, device=gidx.device).expand(b, n - n0)], dim=1)
     top, pos = topk_stable(mask_rows(s, mask_from, gidx), kk)
     return torch.gather(gidx, 1, pos), top

@@ -24,6 +24,7 @@ import torch
 
 from matternet_rs_tpu_torch.core import TAUDEFAULT, TauMode, _alpha_vector, quantize_rows
 from matternet_rs_tpu_torch.graph import GraphLaplacian
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import search as so
 from matternet_rs_tpu_torch.ops import taumode as tmo
 from matternet_rs_tpu_torch.ops._mm import mm
@@ -70,7 +71,7 @@ def _normalize_sharded_lambdas(mesh: Mesh, raw: ShardedArray, n_items: int):
     mn = reduce(mesh, [e[0] for e in ext], "min")
     mx = torch.clamp(reduce(mesh, [e[1] for e in ext], "max"), min=0.0)
     rng = torch.clamp(mx - mn, min=1e-9)
-    lam = local_map(mesh, lambda _, r, a, b: torch.clamp((r - a) / b, 0.0, 1.0),
+    lam = local_map(mesh, lambda _, r, a, b: score_ops.normalised(r, a, b),
                     raw, replicate(mesh, mn), replicate(mesh, rng))
     return sharded(mesh, lam, raw.shape), float(mn), float(rng)
 

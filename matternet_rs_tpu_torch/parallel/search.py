@@ -12,7 +12,7 @@ Each slot routes as the single-card search routes a corpus of its size
 (the reference evaluates its predicates at the shard's ``n_local``, batch
 and F), through the single-card routes themselves with the slot's
 ``mask_from`` (``core._routed_batched_search``, ``core._rescored_tier``,
-``core._int8_poolcut_scan``): the exact batch takes kernel B and the
+``core._poolcut_scan``): the exact batch takes kernel B and the
 candidate stage (kernel C's chain beyond k = 16) from
 ``FUSED_TILEMAX_MIN_N`` rows a slot, the quantised tiers kernels D and E
 where :func:`..ops.search.fused_rescored_path` holds at the slot's size,
@@ -27,10 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from matternet_rs_tpu_torch.core import _int8_poolcut_scan, _rescored_tier, _routed_batched_search
+from matternet_rs_tpu_torch.core import _poolcut_scan, _rescored_tier, _routed_batched_search
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import search as so
 from matternet_rs_tpu_torch.ops import taumode as tmo
-from matternet_rs_tpu_torch.ops.kernels.tilemax import blend
 from matternet_rs_tpu_torch.parallel.mesh import (
     Mesh,
     ShardedArray,
@@ -133,8 +133,8 @@ def make_multislice_search(mesh: Mesh, n_items: int, k: int):
 
 
 def make_sharded_energy_search(mesh: Mesh, n_items: int, k: int):
-    """The distributed energy search: ascending ``|Δλ|`` with the cosine
-    tie-break at ``|Δλ| < 1e-9``, per-slot top-k and one merge. Returns
+    """The distributed energy search: ascending energy score
+    (:func:`..ops.scores.energy_score`), per-slot top-k and one merge. Returns
     ``search(X, norms, lambdas, query, q_lambda) -> (idx, distances)``."""
 
     def search(Xs, ns, ls, query, q_lambda):
@@ -144,10 +144,9 @@ def make_sharded_energy_search(mesh: Mesh, n_items: int, k: int):
 
         def body(slot, Xl, nl, ll, ql):
             row0 = slot * per
-            lam_dist = torch.abs(float(q_lambda) - ll)
             qn = torch.sqrt(torch.sum(ql * ql))
-            cos = so._scan_dots(Xl, ql) / (qn * nl + 1e-9)
-            s = lam_dist + torch.where(lam_dist < 1e-9, (1.0 - cos) * 1e-9, torch.zeros_like(cos))
+            cos = score_ops.energy_cosine(so._scan_dots(Xl, ql), qn * nl)
+            s = score_ops.energy_score(torch.abs(float(q_lambda) - ll), cos)
             s = torch.where(_valid(row0, per, n_items, Xl.device), s, float("inf"))
             neg, idx = so.topk_stable(-s, kk)
             return neg, idx + row0
@@ -229,10 +228,10 @@ def make_sharded_search_batch_quantized(mesh: Mesh, n_items: int, k: int, cand: 
             b = Ql.shape[0]
             kk = min(k, per)
             cc = max(min(cand, per), kk)
-            a = so._alphas(alphas, b, Ql.device)
+            a = score_ops.alpha_vector(alphas, b, Ql.device)
             mf = mask_from(n_items, row0, per)
             if tier == "int8":
-                idx, top = _int8_poolcut_scan(X8l, multl, Xl, nl, ll, Ql, qll, kk, cc, a, mf)
+                idx, top = _poolcut_scan(X8l, Xl, nl, ll, Ql, qll, kk, cc, a, multl, mf)
             else:
                 idx, top = _rescored_tier(X8l if int8_scan else Xl, Xl, nl, ll, Ql, qll, kk, cc,
                                           a, scan_rn=multl if int8_scan else None, mask_from=mf)
@@ -275,9 +274,8 @@ def make_sharded_hybrid_search(mesh: Mesh, n_items: int, k: int):
         def scores(slot, Xl, nl, ll, ql):
             row0 = slot * per
             qn = torch.sqrt(torch.sum(ql * ql))
-            dots = so._scan_dots(Xl, ql)
-            cos = so._guarded_cosine(dots, nl * qn)
-            lam = blend(dots, nl * qn, ll, float(q_lambda), float(alpha))
+            cos = score_ops.guarded_cosine(so._scan_dots(Xl, ql), nl * qn)
+            lam = score_ops.blend(cos, ll, float(q_lambda), float(alpha))
             gids = row0 + torch.arange(per, device=Xl.device)
             real = gids < n_items
             cos_m = torch.where(real, cos, _NEG)

@@ -20,11 +20,11 @@ import torch
 from matternet_rs_tpu_torch.index.streaming import (
     MAXFIRST_MIN_ROWS,
     StreamingIndex,
-    _alpha_param,
     _sketch_maxfirst_topk,
     scan_sketch_blocks,
     suffix_padded,
 )
+from matternet_rs_tpu_torch.ops import scores as score_ops
 from matternet_rs_tpu_torch.ops import search as so
 from matternet_rs_tpu_torch.parallel.mesh import Mesh, local_map, replicate, sharded
 from matternet_rs_tpu_torch.parallel.search import _gathered_rows, merge_topk
@@ -34,12 +34,14 @@ def make_sharded_sketch_scan(mesh: Mesh, kk: int, energy: bool = False,
                              maxfirst: bool = False, kfinal: int = 10):
     """The sharded sketch scan: ``scan(X8s, mults, lams, valids, row_info,
     Q, q_lams, alpha) -> (scores [B, kk], ids [B, kk])`` on the lead device
-    (λ already normalised; ``row_info`` each slot's first global id and
-    real-row count, on the host; ids −1 and scores −inf where a row has
-    fewer candidates). ``energy=True`` scans the energy semantics (negated
-    distances: callers flip the sign); ``maxfirst=True`` (blend only) runs
-    each slot through kernels D and E, ``kfinal`` sizing its slab budget —
-    the caller checks the envelope (:meth:`ShardedSketch._maxfirst_ok`)."""
+    (λ already normalised; ``alpha`` as :func:`..ops.scores.alpha_param`
+    leaves it, a ``[B]`` vector for ``maxfirst``; ``row_info`` each slot's
+    first global id and real-row count, on the host; ids −1 and scores
+    −inf where a row has fewer candidates). ``energy=True`` scans the
+    energy semantics (negated distances: callers flip the sign);
+    ``maxfirst=True`` (blend only) runs each slot through kernels D and E,
+    ``kfinal`` sizing its slab budget — the caller checks the envelope
+    (:meth:`ShardedSketch._maxfirst_ok`)."""
     if maxfirst and energy:
         raise ValueError("maxfirst scan is blend-mode only")
 
@@ -52,8 +54,7 @@ def make_sharded_sketch_scan(mesh: Mesh, kk: int, energy: bool = False,
                 X8l.view(n_l, f), ml.view(n_l), ll.view(n_l), Ql, qll, al,
                 rows_out=kk, kfinal=kfinal, n_items=n_valid)
             return top, torch.where(idx >= 0, idx + base, -1)
-        a = al if isinstance(al, float) else (al if al.ndim == 0 else al[:, None])
-        return scan_sketch_blocks(X8l, ml, ll, vl, Ql, qll, a, 0.0, 1.0, kk, base, energy=energy)
+        return scan_sketch_blocks(X8l, ml, ll, vl, Ql, qll, al, 0.0, 1.0, kk, base, energy=energy)
 
     def scan(X8s, mults, lams, valids, row_info, Q, q_lams, alpha):
         al = alpha if isinstance(alpha, float) else replicate(mesh, alpha)
@@ -113,7 +114,7 @@ class ShardedSketch:
         if stats is not None:
             mn, rng = stats
             lam = self._shards["lam"]
-            self._shards["lam"] = sharded(mesh, [torch.clamp((t - mn) / rng, 0.0, 1.0)
+            self._shards["lam"] = sharded(mesh, [score_ops.normalised(t, mn, rng)
                                                  for _, t in lam.local()], lam.shape)
         # Each slot's (first global id, real rows) on the host: the masks
         # take host integers, so a scan reads nothing back.
@@ -159,28 +160,18 @@ class ShardedSketch:
             return False
         return n_l % so.DEFAULT_TILE == 0 and so.fused_rescored_path(n_l, f, b_pad, kfinal, cand)
 
-    def _widths(self, k: int, candidates: int | None) -> tuple[int, int]:
-        idx = self.index
-        kk = min(k, idx.n_items)
-        C = min(candidates if candidates is not None else max(4 * k, 32), idx.n_items,
-                idx.block_rows)
-        return kk, max(C, kk)
-
     def _candidates(self, Q: torch.Tensor, q_lams: torch.Tensor, k: int,
                     candidates: int | None = None, alpha=0.7):
         """The sharded scan alone: ``(scores [B, C], ids [B, C])`` on the
         lead device (maxima-first per slot where :meth:`_maxfirst_ok`
         holds at the padded batch, else the carry scan)."""
-        kk, C = self._widths(k, candidates)
+        kk, C = self.index._candidate_width(k, candidates)
         b = Q.shape[0]
         b_pad = max(8, 1 << max(b - 1, 1).bit_length())
+        al = score_ops.alpha_param(alpha, b, Q.device)      # a vector's length checked
         if self._maxfirst_ok(b_pad, kk, C):
-            a = torch.as_tensor(alpha, dtype=torch.float32, device=Q.device).reshape(-1)
-            a = a.expand(b).contiguous()
-            return self._scan(C, maxfirst=True, kfinal=kk)(*self._args(), Q, q_lams, a)
-        al = _alpha_param(alpha, b, Q.device)
-        if isinstance(al, torch.Tensor):
-            al = al.reshape(-1) if al.ndim else al
+            return self._scan(C, maxfirst=True, kfinal=kk)(
+                *self._args(), Q, q_lams, score_ops.alpha_vector(al, b, Q.device))
         return self._scan(C)(*self._args(), Q, q_lams, al)
 
     def search_batch(self, queries, k: int, alpha=0.7, candidates: int | None = None,
@@ -192,12 +183,12 @@ class ShardedSketch:
         idx = self.index
         Q = idx._queries(queries).to(self.mesh.lead)
         q_lams = idx._query_lambdas(Q)
-        kk, _ = self._widths(k, candidates)
+        kk, _ = self.index._candidate_width(k, candidates)
         best_s, best_i = self._candidates(Q, q_lams, k, candidates, alpha)
         if not refine:
             return best_i[:, :kk].cpu().numpy().astype(np.int64), best_s[:, :kk].cpu().numpy()
         return idx.refine_candidates(best_i.cpu().numpy(), Q, q_lams,
-                                     _alpha_param(alpha, Q.shape[0], Q.device),
+                                     score_ops.alpha_param(alpha, Q.shape[0], Q.device),
                                      float(idx.min_lambdas), float(idx.range_lambdas), kk)
 
     def search(self, query, k: int, alpha: float = 0.7, candidates: int | None = None,
@@ -216,7 +207,7 @@ class ShardedSketch:
             raise ValueError("not an energy-mode index (no sub-centroid state)")
         Q = idx._queries(queries).to(self.mesh.lead)
         q_lams = idx._query_lambdas(Q)
-        kk, C = self._widths(k, candidates)
+        kk, C = self.index._candidate_width(k, candidates)
         best_s, best_i = self._scan(C, energy=True)(*self._args(), Q, q_lams, 0.0)
         if not refine:
             return best_i[:, :kk].cpu().numpy().astype(np.int64), -best_s[:, :kk].cpu().numpy()

@@ -530,3 +530,59 @@ def test_fused_fast_path_shape_form_routes_as_the_tensor_form():
     # Kernel B's sub-tile width (256 rows) binds on the card only.
     assert not tso.fused_fast_path(40_000, 128, 16, torch.float32, 10, 1_024, device="cuda")
     assert tso.fused_fast_path(40_000, 128, 16, torch.float32, 10, 1_024, device="cpu")
+
+
+# Each scoring rule of the port is written once, in ``ops/scores.py``; these
+# are their spellings in code. The CUDA epilogues (``csrc/``) are not Python.
+SCORES_FILE = PORT_DIR / "ops" / "scores.py"
+SCORE_RULE_SPELLINGS = {
+    "lambda_similarity": r"1\.0\s*-\s*torch\.clamp\(\s*torch\.abs\(",
+    "energy_tie_term": r"\(\s*1\.0\s*-\s*\w+\s*\)\s*\*\s*(?:\w+\.)?(?:TIE_EPS|1e-9)\b",
+    "dequantised_cosine": r"torch\.clamp\([^\n]*/[^\n]*,\s*-1\.0\s*,\s*1\.0\s*\)",
+    "normalised_lambda": (r"torch\.clamp\(\s*\([^()\n]*(?:\([^()\n]*\)[^()\n]*)*-[^()\n]*\)"
+                          r"\s*/\s*[\w.]+\s*,\s*0\.0\s*,\s*1\.0\s*\)"),
+}
+
+
+def _code_only(path) -> str:
+    """``path``'s source with its strings and comments blanked out, lines
+    kept in place."""
+    import io
+    import tokenize
+
+    src = path.read_text()
+    lines = src.splitlines(keepends=True)
+    blank = {tokenize.STRING, tokenize.COMMENT}
+    blank |= {getattr(tokenize, n) for n in ("FSTRING_START", "FSTRING_MIDDLE", "FSTRING_END")
+              if hasattr(tokenize, n)}
+    for tok in tokenize.generate_tokens(io.StringIO(src).readline):
+        if tok.type not in blank:
+            continue
+        (r0, c0), (r1, c1) = tok.start, tok.end
+        for r in range(r0, r1 + 1):
+            line = lines[r - 1]
+            a = c0 if r == r0 else 0
+            b = c1 if r == r1 else len(line.rstrip("\r\n"))
+            lines[r - 1] = line[:a] + " " * (b - a) + line[b:]
+    return "".join(lines)
+
+
+def _score_rule_spellings(path) -> list[str]:
+    import re
+
+    code = _code_only(path)
+    return [name for name, pat in SCORE_RULE_SPELLINGS.items() if re.search(pat, code)]
+
+
+@pytest.mark.parametrize("name", sorted(SCORE_RULE_SPELLINGS))
+def test_the_score_rule_spellings_find_the_rules_in_their_home(name):
+    assert name in _score_rule_spellings(SCORES_FILE)
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p != SCORES_FILE],
+                         ids=lambda p: p.relative_to(PORT_DIR).as_posix())
+def test_no_port_module_spells_a_score_rule_outside_its_home(path):
+    """λ-similarity, the energy tie term, the dequantised cosine and the
+    normalised λ column are called from ``ops/scores.py``, never written
+    again beside it."""
+    assert _score_rule_spellings(path) == []
