@@ -1,37 +1,45 @@
-// Full-f32 product of a [BM queries] × [256 corpus rows] tile over F, for
-// kernel B (csrc/tilemax.cu) and kernel G's scan (csrc/search_fused.cu),
-// both with BM = 64. Exact FFMA: no tensor cores, no TF32, no bf16
+// Full-f32 product of a [64 queries] × [256 corpus rows] tile over F, for
+// kernel B (csrc/tilemax.cu), kernel G's scan and the energy scan
+// (csrc/search_fused.cu). Exact FFMA: no tensor cores, no TF32, no bf16
 // splitting. Every accumulator sums its F products in ascending k, one fmaf
-// each, so the result does not depend on the tiling.
+// each starting from 0, so the result does not depend on the tiling.
 //
-//   Thread map. THREADS = 4·BM; a thread owns 8 queries × 8 corpus rows:
-//   query group qg (queries 8qg .. 8qg+7 of the block) and row group rg
-//   (rows 4rg .. 4rg+3 and 128+4rg .. 128+4rg+3 of the tile). LQ says how a
-//   warp's lanes are laid over the two: LQ = 1 gives a warp 8 queries × all
-//   256 rows (kernel G keeps each query's running list in the warp that owns
-//   it), LQ = 4 gives it 32 queries × 64 rows (kernel B: its lanes then read
-//   8 distinct row units and 4 distinct query units instead of 32 and 1).
+//   What bounds it on the H100 is the issue of instructions: an SM
+//   sub-partition issues one warp instruction a cycle and an FFMA takes a
+//   whole issue slot, so every read, copy, barrier and epilogue instruction
+//   is an FFMA not issued, and every cycle in which no warp of the
+//   sub-partition is ready is one lost. On the H100 the inner loop alone
+//   (staged data, no copies, no barriers) issues FFMAs in 75% of its
+//   cycles; kernel B as a whole, at F = 2048 where its epilogue hardly
+//   counts, in 59%.
+//
+//   Block. 128 threads (4 warps), two blocks an SM (≤ 255 registers a
+//   thread): a thread owns 8 queries × 16 corpus rows (128 accumulators),
+//   queries 8·qg .. 8·qg + 7 of the tile and rows tile_row(rg, r) =
+//   64·(r >> 2) + 4·rg + (r & 3), r = 0..15, for its query group qg = 0..7
+//   and row group rg = 0..15; a warp's lanes are 4 query groups × 8 row
+//   groups. Two blocks an SM are what lets one block's epilogue, barriers
+//   and copies run while the other block issues FFMAs.
 //
 //   Staging. Q and X are row-major with F contiguous, so a K-chunk of
 //   BK = 32 features is 128 bytes of every row: eight 16-byte units, each
-//   brought by one cp.async straight into shared memory (no register
-//   staging, no transpose). A ring of STAGES = 3 chunks keeps two chunks'
-//   loads in flight while the third is multiplied; one __syncthreads() per
-//   chunk. A caller that walks several tiles starts the next tile's first
-//   chunks (tile_prefetch) before its own epilogue. The tile is kept
-//   untransposed, [row][32 floats], and the inner product reads along K: a
-//   thread takes one float4 (4 consecutive k) of each of its 8 rows and,
-//   query by query, one float4 of the query, and does the 4 × 64 FMAs —
-//   16 FMAs per 16-byte shared-memory read, which is what bounds this
-//   design: a 16-byte read returns 512 bytes to a warp, 4 cycles of the
-//   SM's 128 bytes a cycle, against 16 cycles of FMA dispatch for the warp.
+//   brought by one cp.async straight into shared memory. A ring of
+//   STAGES = 2 chunks (80 KB) keeps the next chunk's loads in flight while
+//   one is multiplied; one __syncthreads() per chunk. The tile is kept
+//   untransposed, [row][32 floats], and the inner product reads along K: per
+//   16-byte unit (4 features) a thread reads its 8 query units, then one row
+//   unit at a time, and does 8 × 4 FMAs per row: 24 reads for 512 FMAs.
+//   After the last chunk the ring is free: a caller stages its dot tile
+//   there (store_dots) for its epilogue, then starts the next tile's first
+//   chunk (tile_prefetch).
 //
 //   Bank conflicts. Rows are 128 bytes apart, so the same unit of different
 //   rows falls into the same banks. Unit u of row r is therefore stored at
-//   unit u ^ ((r >> 2) & 7): the lanes that a 16-byte read serves together
-//   hold rows 4 apart and so read different units (conflict-free), and the
-//   8 consecutive threads that copy one row write its 8 units (conflict-
-//   free). Lanes of one query group read one address (a broadcast).
+//   unit u ^ ((r >> 2) & 7): the 8 row groups that a 16-byte read serves
+//   together hold rows 4 apart and read different units, the 4 query groups
+//   (rows 8 apart) read different units too, and the 8 consecutive threads
+//   that copy one row write its 8 units (conflict-free). Lanes of one query
+//   group or row group share an address (a broadcast).
 //
 //   Edges. Query rows ≥ b, corpus rows ≥ `row_limit` and features ≥ f are
 //   zero-filled (cp.async with a source size of 0). A row pitch or base
@@ -47,29 +55,27 @@
 
 namespace f32tile {
 
+constexpr int BM = 64;        // queries per tile
 constexpr int BN = 256;       // corpus rows per tile
 constexpr int BK = 32;        // features per K-chunk (128 bytes a row)
-constexpr int STAGES = 3;     // K-chunks in the shared-memory ring
+constexpr int STAGES = 2;     // K-chunks in the shared-memory ring
 constexpr int UNITS = BK / 4; // 16-byte units per row and chunk
+constexpr int THREADS = 128;  // a thread: 8 queries × 16 rows
+constexpr int TQ = 8, TR = 16;
+constexpr int STAGE_FLOATS = (BM + BN) * BK;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
+static_assert((BM * UNITS) % THREADS == 0 && (BN * UNITS) % THREADS == 0,
+              "every thread copies the same number of units");
+static_assert(BM * BN <= STAGES * STAGE_FLOATS, "the dot tile fits the ring");
 
-template <int BM, int LQ>
-struct Tile {
-  static constexpr int THREADS = 4 * BM;              // a thread: 8 queries × 8 rows
-  static constexpr int LR = 32 / LQ;                  // lanes along the corpus rows
-  static constexpr int WR = 32 / LR;                  // warps along the corpus rows
-  // The thread's query group (queries 8·qg .. 8·qg + 7 of the block) and row
-  // group (rows 4·rg .. 4·rg + 3 and 128 + 4·rg .. 128 + 4·rg + 3 of the tile).
-  static __device__ __forceinline__ int query_group(int tid) {
-    return ((tid >> 5) / WR) * LQ + (tid & 31) / LR;
-  }
-  static __device__ __forceinline__ int row_group(int tid) {
-    return ((tid >> 5) % WR) * LR + (tid & 31) % LR;
-  }
-  static constexpr int STAGE_FLOATS = (BM + BN) * BK;
-  static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
-  static_assert((BM * UNITS) % THREADS == 0 && (BN * UNITS) % THREADS == 0,
-                "every thread copies the same number of units");
-};
+// The thread's query group (queries 8·qg .. 8·qg + 7 of the tile) and row
+// group (rows tile_row(rg, r)): a warp's lanes are 4 query groups × 8 row
+// groups, the 4 warps 2 along the queries × 2 along the rows.
+__device__ __forceinline__ int query_group(int tid) { return (tid >> 6) * 4 + ((tid & 31) >> 3); }
+__device__ __forceinline__ int row_group(int tid) { return ((tid >> 5) & 1) * 8 + (tid & 7); }
+
+// Row r (0..15) of row group rg: 4 consecutive rows of each 64-row quarter.
+__device__ __forceinline__ int tile_row(int rg, int r) { return 64 * (r >> 2) + 4 * rg + (r & 3); }
 
 __device__ __forceinline__ int swizzled(int row, int unit) {
   return row * BK + ((unit ^ ((row >> 2) & 7)) << 2);
@@ -104,12 +110,10 @@ __device__ __forceinline__ void load_unit_generic(float* dst, const float* row, 
 
 // Bring features [k0, k0 + BK) of queries [q0, q0 + BM) and corpus rows
 // [c0, c0 + BN) into one stage: Q tile first, X tile behind it.
-template <int BM, int LQ>
 __device__ __forceinline__ void load_stage(float* stage, const float* __restrict__ Q,
                                            const float* __restrict__ X, int q0, int b,
                                            int64_t c0, int64_t row_limit, int f, int k0,
                                            bool vec, int tid) {
-  constexpr int THREADS = Tile<BM, LQ>::THREADS;
   float* Qs = stage;
   float* Xs = stage + BM * BK;
 #pragma unroll
@@ -134,72 +138,66 @@ __device__ __forceinline__ void load_stage(float* stage, const float* __restrict
   }
 }
 
-// acc[i][j] += Σ_k Q[8·tr + i][k] · X[col(j)][k] over one staged chunk,
-// col(j) = 4·tc + j (j < 4) or 128 + 4·tc + j − 4.
-template <int BM, int LQ>
-__device__ __forceinline__ void multiply_stage(const float* stage, int tr, int tc,
-                                               float (&acc)[8][8]) {
+// acc[i][r] += Σ_k Q[8·qg + i][k] · X[tile_row(rg, r)][k] over one staged
+// chunk. The loop over units stays rolled: unrolled by 2, the product ran
+// slower.
+__device__ __forceinline__ void multiply_stage(const float* stage, int qg, int rg,
+                                               float (&acc)[TQ][TR]) {
   const float* Qs = stage;
   const float* Xs = stage + BM * BK;
-  const int xkey = tc & 7;                       // ((4tc + j) >> 2) & 7, both halves
-#pragma unroll
+  const int xkey = rg & 7;                 // ((64h + 4rg + j) >> 2) & 7 for all the thread's rows
+  const int qkey = (2 * qg) & 7;           // ((8qg + i) >> 2) & 7 = (qkey + (i >> 2)) & 7
+#pragma unroll 1
   for (int u = 0; u < UNITS; ++u) {
-    float4 x[8];
+    float4 a[TQ];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4);
-      x[j] = *reinterpret_cast<const float4*>(Xs + n * BK + ((u ^ xkey) << 2));
-    }
+    for (int i = 0; i < TQ; ++i)
+      a[i] = *reinterpret_cast<const float4*>(Qs + (8 * qg + i) * BK + ((u ^ ((qkey + (i >> 2)) & 7)) << 2));
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(Qs + swizzled(tr * 8 + i, u));
+    for (int r = 0; r < TR; ++r) {
+      const float4 x = *reinterpret_cast<const float4*>(Xs + tile_row(rg, r) * BK + ((u ^ xkey) << 2));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.x, x[j].x, acc[i][j]);
+      for (int i = 0; i < TQ; ++i) acc[i][r] = fmaf(a[i].x, x.x, acc[i][r]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.y, x[j].y, acc[i][j]);
+      for (int i = 0; i < TQ; ++i) acc[i][r] = fmaf(a[i].y, x.y, acc[i][r]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.z, x[j].z, acc[i][j]);
+      for (int i = 0; i < TQ; ++i) acc[i][r] = fmaf(a[i].z, x.z, acc[i][r]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.w, x[j].w, acc[i][j]);
+      for (int i = 0; i < TQ; ++i) acc[i][r] = fmaf(a[i].w, x.w, acc[i][r]);
     }
   }
 }
 
 // Begin a tile: start the copies of its first STAGES − 1 chunks. The ring
-// must be free (tile_product ends with a barrier), so a caller that walks
-// several tiles calls this for the next tile before its own epilogue, and the
-// copies fly while it runs.
-template <int BM, int LQ>
+// must be free: tile_product ends with a barrier, and a caller that staged
+// its dot tile there has read it out behind another.
 __device__ __forceinline__ void tile_prefetch(const float* __restrict__ Q,
                                               const float* __restrict__ X, int q0, int b,
                                               int64_t c0, int64_t row_limit, int f, bool vec,
                                               float* smem) {
-  constexpr int STAGE = Tile<BM, LQ>::STAGE_FLOATS;
   const int nk = (f + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
-      load_stage<BM, LQ>(smem + s * STAGE, Q, X, q0, b, c0, row_limit, f, s * BK, vec, threadIdx.x);
+      load_stage(smem + s * STAGE_FLOATS, Q, X, q0, b, c0, row_limit, f, s * BK, vec, threadIdx.x);
     cp_async_commit();
   }
 }
 
-// acc = Q[q0 .. q0+BM) · X[c0 .. c0+256)ᵀ over all F, for the calling block
-// (Tile<BM, LQ>::THREADS threads; `smem` holds Tile<BM, LQ>::SMEM_BYTES,
-// 16-byte aligned), after tile_prefetch of the same tile. Ends with a
-// barrier, so the ring may be refilled at once.
-template <int BM, int LQ>
+// acc = Q[q0 .. q0+BM) · X[c0 .. c0+BN)ᵀ over all F, for the calling block
+// (THREADS threads; `smem` holds SMEM_BYTES, 16-byte aligned), after
+// tile_prefetch of the same tile. Ends with a barrier, so the ring may be
+// reused at once.
 __device__ __forceinline__ void tile_product(const float* __restrict__ Q,
                                              const float* __restrict__ X, int q0, int b,
                                              int64_t c0, int64_t row_limit, int f, bool vec,
-                                             float* smem, float (&acc)[8][8]) {
-  constexpr int STAGE = Tile<BM, LQ>::STAGE_FLOATS;
+                                             float* smem, float (&acc)[TQ][TR]) {
   const int tid = threadIdx.x;
-  const int tr = Tile<BM, LQ>::query_group(tid), tc = Tile<BM, LQ>::row_group(tid);
+  const int qg = query_group(tid), rg = row_group(tid);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TQ; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int r = 0; r < TR; ++r) acc[i][r] = 0.f;
 
   const int nk = (f + BK - 1) / BK;
   for (int kc = 0; kc < nk; ++kc) {
@@ -207,11 +205,27 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ Q,
     __syncthreads();                             // ... everyone's; and chunk kc-1 is read out
     const int nxt = kc + STAGES - 1;
     if (nxt < nk)
-      load_stage<BM, LQ>(smem + (nxt % STAGES) * STAGE, Q, X, q0, b, c0, row_limit, f, nxt * BK, vec, tid);
+      load_stage(smem + (nxt % STAGES) * STAGE_FLOATS, Q, X, q0, b, c0, row_limit, f, nxt * BK, vec, tid);
     cp_async_commit();
-    multiply_stage<BM, LQ>(smem + (kc % STAGES) * STAGE, tr, tc, acc);
+    multiply_stage(smem + (kc % STAGES) * STAGE_FLOATS, qg, rg, acc);
   }
   cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The dot tile, for an epilogue that any thread may run on any dot: acc
+// into `dots` [BM][BN] (the ring, free after tile_product), row 8·qg + i,
+// columns tile_row(rg, r), 16-byte writes; ends with a barrier. Staging it
+// also ends the accumulators' life before the epilogue's code begins, so
+// the two are register-allocated apart.
+__device__ __forceinline__ void store_dots(float* dots, const float (&acc)[TQ][TR]) {
+  const int qg = query_group(threadIdx.x), rg = row_group(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
+#pragma unroll
+    for (int h = 0; h < TR / 4; ++h)
+      *reinterpret_cast<float4*>(dots + (8 * qg + i) * BN + 64 * h + 4 * rg) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
   __syncthreads();
 }
 

@@ -20,23 +20,24 @@
 //   running top-16 per query in VMEM, merging a tile whenever any query of
 //   the batch beats its threshold. Blocks on this card run in any order and
 //   carry nothing, so the work is cut twice: a block owns 64 queries and
-//   one contiguous range of N (grid = query blocks × splits), streams its
-//   range in 256-row tiles through the full-f32 tile product of
-//   csrc/f32_tile_product.cuh, shared with kernel B (8 queries × 8 rows of
-//   accumulators per thread, Q and X brought 32 features at a time by
-//   16-byte cp.async into a 3-stage ring, exact FFMA, no TF32), and keeps
-//   each query's running top-16 in registers: warp w owns
-//   queries 8w..8w+7 — the same queries whose accumulators its lanes hold —
-//   and lane l < 16 holds entry l of each list. After a tile's product a
-//   lane tests its 64 scores against its queries' own thresholds θ_b (the
-//   k-th entry, broadcast by shuffle); a passing score is inserted by one
-//   ballot (its position = the number of entries that rank before it) and
-//   one shuffle (entries behind it move down a lane). Once the lists have
-//   warmed up almost nothing passes, so the selection costs a compare per
-//   score. Each block writes its lists as a partial [B, splits, 16]. The
-//   order is total, so the answer does not depend on the number of splits
-//   nor on the order in which candidates arrive. The blend uses rounded
-//   multiplies and adds (no contraction), as the plain version rounds.
+//   one contiguous range of N (grid = query blocks × splits, two blocks an
+//   SM), streams its range in 256-row tiles through the full-f32 tile
+//   product of csrc/f32_tile_product.cuh, shared with kernel B (128
+//   threads, 8 queries × 16 rows of accumulators a thread, Q and X brought
+//   32 features at a time by 16-byte cp.async into a 2-stage ring, exact
+//   FFMA, no TF32), stages each tile's dots in the ring, and keeps each
+//   query's running top-16 in shared memory: warp w owns queries
+//   16w .. 16w + 15 and takes their rows of dots one query at a time, lane
+//   l the columns l + 32m. A lane tests its 8 scores against the query's
+//   threshold θ (the k-th entry); a passing score is inserted by one ballot
+//   (its position = the number of entries that rank before it, lane e < 16
+//   holding entry e) and one shuffle (entries behind it move down a lane).
+//   Once the lists have warmed up almost nothing passes, so the selection
+//   costs a compare per score. Each block writes its lists as a partial
+//   [B, splits, 16]. The order is total, so the first k entries of a partial
+//   and the merged answer depend neither on the number of splits nor on the
+//   order in which candidates arrive. The blend uses rounded multiplies and
+//   adds (no contraction), as the plain version rounds.
 //
 //   The energy scan (energy_scan_kernel) is the same scan with another
 //   epilogue, instantiated apart so that the blended code stays as it is.
@@ -47,7 +48,9 @@
 //     d = |qλ_b − λ_j|;   s = d + (1 − cos)·1e-9 where d < 1e-9, else s = d,
 //     cos = (Q_b·X_j) / (‖Q_b‖·‖X_j‖ + 1e-9)
 //
-//   (the division runs only inside the tie band). The lists keep −s, so
+//   (the division counts only inside the tie band: csrc/div_rn.cuh's five FFMAs
+//   for every pair, __fdiv_rn itself for a row of the warp where a band
+//   pair's operands leave their range). The lists keep −s, so
 //   the order above (largest first, lowest id on ties) is ascending s,
 //   lowest id first: the plain version's stable ascending top-k. The
 //   merge below takes the lists unchanged.
@@ -73,15 +76,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "div_rn.cuh"
 #include "f32_tile_product.cuh"
 #include "warp_topk.cuh"
 
 namespace {
 
-constexpr int BM = 64;                               // queries per block
+constexpr int BM = f32tile::BM;                      // queries per block
 constexpr int BN = f32tile::BN;                      // corpus rows per tile
-constexpr int THREADS = f32tile::Tile<BM, 1>::THREADS;  // 8 warps; warp w owns queries w*8 .. w*8+7
-constexpr int SMEM_BYTES = f32tile::Tile<BM, 1>::SMEM_BYTES;
+constexpr int THREADS = f32tile::THREADS;            // 4 warps; warp w keeps the lists of queries 16w ..
+constexpr int SMEM_BYTES = f32tile::SMEM_BYTES;
+constexpr int QW = BM / (THREADS / 32);              // queries a warp keeps lists for
 constexpr int KP = 16;        // list width (the reference's K_PAD)
 constexpr float MASKED = -3.0e38f;
 constexpr float PAD_LAMBDA_CUT = 1.5f;
@@ -96,15 +101,21 @@ __device__ __forceinline__ bool before(float s, int id, float v, int vid) {
   return s > v || (s == v && id < vid);
 }
 
-// Insert (s, id) into the warp's sorted list (lane l < KP holds entry l).
-// Warp-synchronous: every lane calls it with the same (s, id).
-__device__ __forceinline__ void insert(float& lv, int& li, float s, int id, int lane) {
-  const unsigned ahead = __ballot_sync(0xffffffffu, lane < KP && before(lv, li, s, id));
+// Insert (s, id) into the sorted list lv/li in shared memory (lane l < KP
+// reads and writes entry l). Warp-synchronous: every lane calls it with the
+// same (s, id).
+__device__ __forceinline__ void insert(float* lv, int* li, float s, int id, int lane) {
+  const float v = lane < KP ? lv[lane] : -INFINITY;
+  const int vi = lane < KP ? li[lane] : EMPTY_ID;
+  const unsigned ahead = __ballot_sync(0xffffffffu, lane < KP && before(v, vi, s, id));
   const int pos = __popc(ahead);          // the list is sorted: a prefix is ahead
-  const float uv = __shfl_up_sync(0xffffffffu, lv, 1);
-  const int ui = __shfl_up_sync(0xffffffffu, li, 1);
-  if (lane == pos) { lv = s; li = id; }
-  else if (lane > pos) { lv = uv; li = ui; }
+  const float uv = __shfl_up_sync(0xffffffffu, v, 1);
+  const int ui = __shfl_up_sync(0xffffffffu, vi, 1);
+  if (lane < KP) {
+    if (lane == pos) { lv[lane] = s; li[lane] = id; }
+    else if (lane > pos) { lv[lane] = uv; li[lane] = ui; }
+  }
+  __syncwarp();
 }
 
 // Blended: norms and qn are unused. Energy: alpha and beta are unused.
@@ -117,98 +128,116 @@ __device__ __forceinline__ void scan(const float* __restrict__ X, const float* _
                                      int64_t tiles_per_split, int vec,
                                      float* __restrict__ pvals, int* __restrict__ pids) {
   extern __shared__ __align__(16) float ring[];
+  __shared__ float list_v[BM][KP];
+  __shared__ int list_i[BM][KP];
 
   const int split = blockIdx.x % splits;
   const int q0 = (blockIdx.x / splits) * BM;
-  const int tid = threadIdx.x;
-  const int tr = tid >> 5;          // query group: q0 + tr*8 + i
-  const int tc = tid & 31;          // lane; columns tc*4 + j and 128 + tc*4 + j
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t ntiles = (n + BN - 1) / BN;
   const int64_t t_begin = (int64_t)split * tiles_per_split;
   const int64_t t_end = min(ntiles, t_begin + tiles_per_split);
 
-  float lv[8];                      // entry `lane` of the list of query i
-  int li[8];
-  float qlb[8];
-  float qnb[8];                     // energy: ‖Q_b‖
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    lv[i] = -INFINITY;
-    li[i] = EMPTY_ID;
-    const int bq = q0 + tr * 8 + i;
-    qlb[i] = bq < b ? ql[bq] : 0.f;
-    if constexpr (S == Score::Energy) qnb[i] = bq < b ? qn[bq] : 0.f;
+  for (int e = tid; e < BM * KP; e += THREADS) {
+    list_v[e / KP][e % KP] = -INFINITY;
+    list_i[e / KP][e % KP] = EMPTY_ID;
   }
+  __syncthreads();
+  // Lane j < QW holds query warp·QW + j's λ (and norm); the loop takes them by shuffle.
+  const int qj = q0 + warp * QW + lane % QW;
+  const float ql_l = qj < b ? ql[qj] : 0.f;
+  float qn_l = 0.f;
+  if constexpr (S == Score::Energy) qn_l = qj < b ? qn[qj] : 0.f;
 
-  if (t_begin < t_end)
-    f32tile::tile_prefetch<BM, 1>(Q, X, q0, b, t_begin * BN, n, f, vec != 0, ring);
+  if (t_begin < t_end) f32tile::tile_prefetch(Q, X, q0, b, t_begin * BN, n, f, vec != 0, ring);
   for (int64_t tile = t_begin; tile < t_end; ++tile) {
     const int64_t c0 = tile * BN;
-    float acc[8][8];
-    f32tile::tile_product<BM, 1>(Q, X, q0, b, c0, n, f, vec != 0, ring, acc);
-    if (tile + 1 < t_end)                       // its first chunks fly during the selection
-      f32tile::tile_prefetch<BM, 1>(Q, X, q0, b, c0 + BN, n, f, vec != 0, ring);
+    float acc[f32tile::TQ][f32tile::TR];
+    f32tile::tile_product(Q, X, q0, b, c0, n, f, vec != 0, ring, acc);
+    f32tile::store_dots(ring, acc);
 
-    float lm[8];                              // λ of this lane's 8 columns
-    float nm[8];                              // energy: their norms
+    float lm[8];                                 // λ of this lane's columns lane + 32m
+    float nm[8];                                 // energy: their norms
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t col = c0 + (j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4));
-      lm[j] = col < n ? lams[col] : 0.f;
-      if constexpr (S == Score::Energy) nm[j] = col < n ? norms[col] : 0.f;
+    for (int m = 0; m < 8; ++m) {
+      const int64_t col = c0 + lane + 32 * m;
+      lm[m] = col < n ? lams[col] : 0.f;
+      if constexpr (S == Score::Energy) nm[m] = col < n ? norms[col] : 0.f;
     }
+#pragma unroll 1
+    for (int qq = 0; qq < QW; ++qq) {            // query warp·QW + qq: a whole row of dots
+      const int q = warp * QW + qq;
+      if (q0 + q >= b) break;
+      float* lvq = list_v[q];
+      int* liq = list_i[q];
+      float th = lvq[k - 1];
+      int thid = liq[k - 1];
+      const float qlb = __shfl_sync(0xffffffffu, ql_l, qq);
+      float sc[8];
+      if constexpr (S == Score::Blended) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {             // query q0 + tr*8 + i, warp-uniform
-      float th = __shfl_sync(0xffffffffu, lv[i], k - 1);
-      int thid = __shfl_sync(0xffffffffu, li[i], k - 1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int64_t col = c0 + (j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4));
-        float s;
-        if constexpr (S == Score::Blended) {
-          const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[j], qlb[i])), 1.f));
-          s = __fadd_rn(__fmul_rn(alpha, acc[i][j]), __fmul_rn(beta, lsim));
-          if (lm[j] > PAD_LAMBDA_CUT) s = MASKED;
-        } else {
-          const float d = fabsf(__fsub_rn(qlb[i], lm[j]));
-          float e = d;
-          if (d < TIE_EPS) {
-            const float cosv = __fdiv_rn(acc[i][j], __fadd_rn(__fmul_rn(qnb[i], nm[j]), TIE_EPS));
-            e = __fadd_rn(d, __fmul_rn(__fsub_rn(1.f, cosv), TIE_EPS));
-          }
-          s = -e;
+        for (int m = 0; m < 8; ++m) {
+          const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[m], qlb)), 1.f));
+          sc[m] = __fadd_rn(__fmul_rn(alpha, ring[q * BN + lane + 32 * m]), __fmul_rn(beta, lsim));
+          if (lm[m] > PAD_LAMBDA_CUT) sc[m] = MASKED;
         }
+      } else {
+        const float qnb = __shfl_sync(0xffffffffu, qn_l, qq);
+        float dv[8], den[8], cosv[8];
+        bool slow = false;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          dv[m] = ring[q * BN + lane + 32 * m];
+          den[m] = __fadd_rn(__fmul_rn(qnb, nm[m]), TIE_EPS);
+          cosv[m] = divrn::div_fast(dv[m], den[m]);
+          slow |= fabsf(__fsub_rn(qlb, lm[m])) < TIE_EPS && !divrn::div_in_range(dv[m], den[m]);
+        }
+        if (__any_sync(0xffffffffu, slow)) {     // a band pair out of div_fast's range: exactly
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            if (fabsf(__fsub_rn(qlb, lm[m])) < TIE_EPS) cosv[m] = __fdiv_rn(dv[m], den[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {          // the cosine counts inside the tie band only
+          const float d = fabsf(__fsub_rn(qlb, lm[m]));
+          sc[m] = d < TIE_EPS ? -__fadd_rn(d, __fmul_rn(__fsub_rn(1.f, cosv[m]), TIE_EPS)) : -d;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int64_t col = c0 + lane + 32 * m;
         const int id = (int)col;
-        unsigned pass = __ballot_sync(0xffffffffu, col < n && before(s, id, th, thid));
+        unsigned pass = __ballot_sync(0xffffffffu, col < n && before(sc[m], id, th, thid));
         while (pass) {
           const int src = __ffs(pass) - 1;
           pass &= pass - 1;
-          const float cs = __shfl_sync(0xffffffffu, s, src);
+          const float cs = __shfl_sync(0xffffffffu, sc[m], src);
           const int cid = __shfl_sync(0xffffffffu, id, src);
           if (before(cs, cid, th, thid)) {      // θ may have risen since the ballot
-            insert(lv[i], li[i], cs, cid, tc);
-            th = __shfl_sync(0xffffffffu, lv[i], k - 1);
-            thid = __shfl_sync(0xffffffffu, li[i], k - 1);
+            insert(lvq, liq, cs, cid, lane);
+            th = lvq[k - 1];
+            thid = liq[k - 1];
           }
         }
       }
     }
+    __syncthreads();                             // the dot tile is read out: the ring is free
+    if (tile + 1 < t_end) f32tile::tile_prefetch(Q, X, q0, b, c0 + BN, n, f, vec != 0, ring);
   }
 
-  if (tc < KP) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int bq = q0 + tr * 8 + i;
-      if (bq < b) {
-        const int64_t o = ((int64_t)bq * splits + split) * KP + tc;
-        pvals[o] = lv[i];
-        pids[o] = li[i];
-      }
+  if (lane < KP) {
+#pragma unroll 1
+    for (int qq = 0; qq < QW; ++qq) {
+      const int q = warp * QW + qq;
+      if (q0 + q >= b) break;
+      const int64_t o = ((int64_t)(q0 + q) * splits + split) * KP + lane;
+      pvals[o] = list_v[q][lane];
+      pids[o] = list_i[q][lane];
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ lams,
                          const float* __restrict__ Q, const float* __restrict__ ql,
                          float alpha, float beta, int64_t n, int f, int b, int k,
@@ -218,7 +247,7 @@ search_fused_scan_kernel(const float* __restrict__ X, const float* __restrict__ 
                        tiles_per_split, vec, pvals, pids);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 energy_scan_kernel(const float* __restrict__ X, const float* __restrict__ norms,
                    const float* __restrict__ lams, const float* __restrict__ Q,
                    const float* __restrict__ qn, const float* __restrict__ ql, int64_t n, int f,

@@ -10,32 +10,32 @@
 //   What bounds it on the H100: operations. At B = 256, N = 1M, F = 128 it
 //   does 2·B·n0·F = 65.5 GFLOP of f32 FFMA (0.98 ms at 67 TFLOP/s) against
 //   ≈1.5 GB moved (the corpus read once, the scores written once: 0.46 ms
-//   at 3.35 TB/s). The yardstick is cuBLAS's time for the product alone.
+//   at 3.35 TB/s), and FFMAs take whole issue slots, so what the kernel
+//   loses is issue: the product's reads and copies, the epilogue, and the
+//   cycles in which no warp of a sub-partition can issue.
 //
-//   Design. A block of 256 threads owns a [64 × 256] output tile at a
+//   Design. A block of 128 threads owns a [64 × 256] output tile at a
 //   time: 64 queries by one sub-tile of ts = tile/SUBS = 2048/8 = 256
-//   corpus rows. The grid is persistent (one block per SM); a block walks
+//   corpus rows; two blocks an SM. The grid is persistent; a block walks
 //   items blockIdx.x, + grid, ..., an item being (corpus tile, query block)
 //   with the query block fastest, so the query blocks of one corpus tile run
 //   side by side and its second and later reads come from L2. The product
-//   is csrc/f32_tile_product.cuh, shared with kernel G's scan: 32-feature
-//   chunks of Q and X arrive by 16-byte cp.async in a 3-stage ring of
-//   dynamic shared memory (120 KB, one barrier per chunk), stay
-//   untransposed under an XOR swizzle that makes both the copies and the
-//   float4 reads conflict-free, and each thread multiplies along K into
-//   8 queries × 8 rows of accumulators (exact FFMA, ascending k); the next
-//   item's first chunks are started before the epilogue and fly while it
-//   runs. A wider block (128 queries, 512 threads at 128 registers, or 16
-//   queries a thread) halves the corpus re-read but measured slower: the
-//   inner loop is bound by shared-memory reads per FMA, not by L2. The
-//   epilogue applies the cosine/blend/mask on the accumulators, stores the
-//   scores with 16-byte writes, and reduces the sub-tile's maxima within
-//   the thread, across the 8 lanes that share a query (shuffles), and
-//   across the 4 warps along the rows through shared memory — one maximum
-//   per query and 256 rows, no atomic, so the scores are never read back
-//   for the selection. The epilogue uses rounded multiplies and adds (no
-//   contraction) so it rounds as the plain version does, leaving only the
-//   dot's summation order as a difference.
+//   is csrc/f32_tile_product.cuh, shared with kernel G's scan and the
+//   energy scan (8 queries × 16 rows of accumulators a thread, exact FFMA,
+//   ascending k, 32-feature chunks by 16-byte cp.async in a 2-stage ring).
+//   The epilogue does not run on the accumulators: they go to a dot tile in
+//   the ring (free after the product), and each warp then blends 16 whole
+//   query rows of it: 16-byte loads of the dots, the guarded cosine (the
+//   division by csrc/div_rn.cuh: __fdiv_rn's five FFMAs, with one
+//   warp-uniform branch a row to __fdiv_rn itself where an operand is out
+//   of their range), the blend and the mask, 16-byte stores of the scores,
+//   and the sub-tile's maximum by five shuffles — no atomic, no barrier
+//   across warps for it. Staging the dots ends the accumulators' life before
+//   the epilogue's code, so each is register-allocated alone; the epilogue
+//   of one block runs while the other block of the SM multiplies. The
+//   epilogue uses rounded multiplies and adds (no contraction) so it rounds
+//   as the plain version does, leaving only the dot's summation order as a
+//   difference.
 //
 //   Limits: the sub-tile width is fixed at 256 corpus rows (tile 2048 with
 //   SUBS = 8) and n0 must be a multiple of it; any B, any F. F or a base
@@ -103,19 +103,85 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "div_rn.cuh"
 #include "f32_tile_product.cuh"
 #include "warp_topk.cuh"
 
 namespace {
 
-constexpr int BM = 64;                               // queries per block
-constexpr int LQ = 4;                                // a warp's lanes: 4 query groups × 8 row groups
-using Tile = f32tile::Tile<BM, LQ>;
+constexpr int BM = f32tile::BM;                      // queries per block
 constexpr int BN = f32tile::BN;                      // corpus rows per block = one sub-tile
-constexpr int THREADS = Tile::THREADS;               // 8 warps: 2 along the queries × 4 along the rows
-constexpr int SMEM_BYTES = Tile::SMEM_BYTES;
+constexpr int THREADS = f32tile::THREADS;            // 4 warps: 2 along the queries × 2 along the rows
+constexpr int SMEM_BYTES = f32tile::SMEM_BYTES;
+constexpr int QW = BM / (THREADS / 32);              // queries a warp blends
 
-__global__ void __launch_bounds__(THREADS, 1)
+// The epilogue of one item from its dot tile: warp w takes queries
+// w·QW .. w·QW + QW − 1, lane l columns 4l .. 4l + 3 and 128 + 4l ..
+// 128 + 4l + 3: the guarded cosine, the blend and the mask, 16-byte stores
+// of the scores, the sub-tile's maximum by shuffles. Lane j < QW loads
+// query j's norm, λ and α once; the loop takes them by shuffle.
+__device__ __forceinline__ void blend_tile(const float* dots, const float* __restrict__ norms,
+                                           const float* __restrict__ lams, const float* __restrict__ qn,
+                                           const float* __restrict__ ql, const float* __restrict__ alpha,
+                                           int64_t mask_from, int q0, int b, int64_t tile, int64_t n0,
+                                           int64_t ns, float* __restrict__ scores,
+                                           float* __restrict__ submax, int warp, int lane) {
+  const int64_t c0 = tile * BN;
+  float nrm[8], lm[8];
+  bool masked[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int64_t col = c0 + (j < 4 ? 4 * lane + j : 128 + 4 * lane + (j - 4));
+    nrm[j] = norms[col];
+    lm[j] = lams[col];
+    masked[j] = col >= mask_from;
+  }
+  const int qj = q0 + warp * QW + lane % QW;
+  const bool okj = qj < b;
+  const float qn_l = okj ? qn[qj] : 0.f, ql_l = okj ? ql[qj] : 0.f, al_l = okj ? alpha[qj] : 0.f;
+#pragma unroll 1                                 // unrolled by 2, 4 or 16: slower
+  for (int qq = 0; qq < QW; ++qq) {
+    const int q = warp * QW + qq;
+    const int bq = q0 + q;
+    if (bq >= b) break;
+    const float qnb = __shfl_sync(0xffffffffu, qn_l, qq), qlb = __shfl_sync(0xffffffffu, ql_l, qq);
+    const float ab = __shfl_sync(0xffffffffu, al_l, qq);
+    const float4 d0 = *reinterpret_cast<const float4*>(dots + q * BN + 4 * lane);
+    const float4 d1 = *reinterpret_cast<const float4*>(dots + q * BN + 128 + 4 * lane);
+    const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    float den[8], cosv[8];
+    bool slow = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float denom = __fmul_rn(qnb, nrm[j]);
+      den[j] = fmaxf(denom, 1e-12f);
+      cosv[j] = denom > 1e-12f ? divrn::div_fast(d[j], den[j]) : 0.f;
+      slow |= denom > 1e-12f && !divrn::div_in_range(d[j], den[j]);
+    }
+    if (__any_sync(0xffffffffu, slow)) {         // a pair out of div_fast's range: the row exactly
+#pragma unroll
+      for (int j = 0; j < 8; ++j) cosv[j] = den[j] > 1e-12f ? __fdiv_rn(d[j], den[j]) : 0.f;
+    }
+    float s[8];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[j], qlb)), 1.f));
+      float v = __fadd_rn(__fmul_rn(ab, cosv[j]), __fmul_rn(__fsub_rn(1.f, ab), lsim));
+      if (masked[j]) v = -INFINITY;
+      s[j] = v;
+      m = fmaxf(m, v);
+    }
+    float* row = scores + (int64_t)bq * n0 + c0;
+    *reinterpret_cast<float4*>(row + 4 * lane) = make_float4(s[0], s[1], s[2], s[3]);
+    *reinterpret_cast<float4*>(row + 128 + 4 * lane) = make_float4(s[4], s[5], s[6], s[7]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) submax[(int64_t)bq * ns + tile] = m;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 scores_tilemax_kernel(const float* __restrict__ X, const float* __restrict__ norms,
                       const float* __restrict__ lams, const float* __restrict__ Q,
                       const float* __restrict__ qn, const float* __restrict__ ql,
@@ -123,77 +189,27 @@ scores_tilemax_kernel(const float* __restrict__ X, const float* __restrict__ nor
                       int64_t n0, int f, int b, int qblocks, int vec,
                       float* __restrict__ scores, float* __restrict__ submax) {
   extern __shared__ __align__(16) float ring[];
-  __shared__ float part[Tile::WR][BM];  // the sub-tile maxima of the warps along the rows
-
   const int tid = threadIdx.x;
-  const int tr = Tile::query_group(tid);  // queries q0 + tr*8 + i
-  const int tc = Tile::row_group(tid);    // columns tc*4 + j and 128 + tc*4 + j
-  const int wr = (tid >> 5) % Tile::WR;   // this warp's place along the rows
   const int64_t ns = n0 / BN;
   const int64_t items = ns * qblocks;     // item = (corpus tile, query block), query block fastest
 
   int64_t item = blockIdx.x;
   if (item < items)
-    f32tile::tile_prefetch<BM, LQ>(Q, X, (int)(item % qblocks) * BM, b, (item / qblocks) * BN, n0,
-                                   f, vec != 0, ring);
+    f32tile::tile_prefetch(Q, X, (int)(item % qblocks) * BM, b, (item / qblocks) * BN, n0, f, vec != 0,
+                           ring);
   for (; item < items; item += gridDim.x) {
     const int q0 = (int)(item % qblocks) * BM;
     const int64_t tile = item / qblocks;
-    const int64_t c0 = tile * BN;
-
-    float acc[8][8];
-    f32tile::tile_product<BM, LQ>(Q, X, q0, b, c0, n0, f, vec != 0, ring, acc);
-    const int64_t next = item + gridDim.x;  // its first chunks fly during the epilogue
+    float acc[f32tile::TQ][f32tile::TR];
+    f32tile::tile_product(Q, X, q0, b, tile * BN, n0, f, vec != 0, ring, acc);
+    f32tile::store_dots(ring, acc);
+    blend_tile(ring, norms, lams, qn, ql, alpha, mask_from, q0, b, tile, n0, ns, scores, submax,
+               tid >> 5, tid & 31);
+    __syncthreads();                             // the dot tile is read out: the ring is free
+    const int64_t next = item + gridDim.x;
     if (next < items)
-      f32tile::tile_prefetch<BM, LQ>(Q, X, (int)(next % qblocks) * BM, b, (next / qblocks) * BN,
-                                     n0, f, vec != 0, ring);
-
-    float nrm[8], lm[8];
-    int64_t col[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      col[j] = c0 + (j < 4 ? tc * 4 + j : 128 + tc * 4 + (j - 4));
-      nrm[j] = norms[col[j]];
-      lm[j] = lams[col[j]];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int bq = q0 + tr * 8 + i;
-      const bool valid = bq < b;
-      const float qnb = valid ? qn[bq] : 0.f;
-      const float qlb = valid ? ql[bq] : 0.f;
-      const float ab = valid ? alpha[bq] : 0.f;
-      float s[8];
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float denom = __fmul_rn(qnb, nrm[j]);
-        const float cosv = denom > 1e-12f ? __fdiv_rn(acc[i][j], fmaxf(denom, 1e-12f)) : 0.f;
-        const float lsim = __fsub_rn(1.f, fminf(fabsf(__fsub_rn(lm[j], qlb)), 1.f));
-        float v = __fadd_rn(__fmul_rn(ab, cosv), __fmul_rn(__fsub_rn(1.f, ab), lsim));
-        if (col[j] >= mask_from) v = -INFINITY;
-        s[j] = v;
-        m = fmaxf(m, v);
-      }
-      // The 8 lanes along the rows share this query: their 64 columns' maximum.
-#pragma unroll
-      for (int o = Tile::LR / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if ((tid & 31) % Tile::LR == 0) part[wr][tr * 8 + i] = m;
-      if (valid) {
-        float* row = scores + (int64_t)bq * n0 + c0;
-        *reinterpret_cast<float4*>(row + tc * 4) = make_float4(s[0], s[1], s[2], s[3]);
-        *reinterpret_cast<float4*>(row + 128 + tc * 4) = make_float4(s[4], s[5], s[6], s[7]);
-      }
-    }
-    __syncthreads();
-    // One maximum per query and 256 rows, across the warps through shared
-    // memory (`part` is next written behind the next tile's barriers).
-    if (tid < BM && q0 + tid < b) {
-      float m = part[0][tid];
-#pragma unroll
-      for (int r = 1; r < Tile::WR; ++r) m = fmaxf(m, part[r][tid]);
-      submax[(int64_t)(q0 + tid) * ns + tile] = m;
-    }
+      f32tile::tile_prefetch(Q, X, (int)(next % qblocks) * BM, b, (next / qblocks) * BN, n0, f,
+                             vec != 0, ring);
   }
 }
 
@@ -688,15 +704,17 @@ int mrs_scores_tilemax(const float* X, const float* norms, const float* lams,
   const int qblocks = (b + BM - 1) / BM;
   int64_t blocks = (n0 / BN) * qblocks;
   if (blocks == 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
+  cudaError_t rc = cudaFuncSetAttribute(scores_tilemax_kernel,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scores_tilemax_kernel, THREADS, SMEM_BYTES);
   if (rc != cudaSuccess) return (int)rc;
-  if (blocks > sms) blocks = sms;               // persistent: a block walks items blockIdx.x, +grid, ...
+  // Persistent: a block walks items blockIdx.x, + grid, ...; two blocks an SM.
+  if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
   const int vec = vec_copies(X, Q, f);
-  rc = cudaFuncSetAttribute(scores_tilemax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                            SMEM_BYTES);
-  if (rc != cudaSuccess) return (int)rc;
   scores_tilemax_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       X, norms, lams, Q, qn, ql, alpha, mask_from, n0, f, b, qblocks, vec, scores, submax);
   return (int)cudaGetLastError();

@@ -92,8 +92,8 @@ SIGNATURES = {
 # library → headers under csrc/ that its source includes (they enter the
 # build's hash; nvcc is given the .cu alone).
 HEADERS = {
-    "tilemax": ("f32_tile_product.cuh", "warp_topk.cuh"),
-    "search_fused": ("f32_tile_product.cuh", "warp_topk.cuh"),
+    "tilemax": ("div_rn.cuh", "f32_tile_product.cuh", "warp_topk.cuh"),
+    "search_fused": ("div_rn.cuh", "f32_tile_product.cuh", "warp_topk.cuh"),
     "rescored": ("wgmma_bf16_rs.cuh",),
 }
 

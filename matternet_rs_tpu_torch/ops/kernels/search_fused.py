@@ -30,6 +30,7 @@ from matternet_rs_tpu_torch.ops.kernels import _cuda
 K_PAD = 16                    # widest list the kernel keeps (the reference's)
 TILE_ROWS = 256               # corpus rows per tile of the scan kernel
 _QUERY_BLOCK = 64             # queries per block of the scan kernel
+_BLOCKS_PER_SM = 2            # its blocks resident on one multiprocessor
 _NEG = -3.0e38                # score of a masked row
 _PAD_LAMBDA_CUT = 1.5         # λ above this marks a padded row (real λ ∈ [0, 1])
 EMPTY_ID = 2**31 - 1          # id of an unfilled list entry (score −inf)
@@ -68,13 +69,14 @@ def _split_rows(n: int, splits: int) -> int:
 
 
 def default_splits(n: int, b: int, device: torch.device) -> int:
-    """Ranges of N per query block: about four blocks per multiprocessor
-    over the whole grid, at most one range per tile."""
+    """Ranges of N per query block: one wave of the scan's blocks, two per
+    multiprocessor (each block holds a range's lists to its end, so a
+    second wave only re-reads the queries), at most one range per tile."""
     tiles = -(-n // TILE_ROWS)
     qblocks = -(-b // _QUERY_BLOCK)
     sms = torch.cuda.get_device_properties(device).multi_processor_count \
         if device.type == "cuda" else 1
-    return max(1, min(tiles, (4 * sms) // qblocks))
+    return max(1, min(tiles, (_BLOCKS_PER_SM * sms) // qblocks))
 
 
 def scan_partials_plain(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits: int):

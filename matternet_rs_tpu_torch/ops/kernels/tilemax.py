@@ -45,8 +45,8 @@ _TOPK_MAX_C, _TOPK_MAX_C_WIDE, _TOPK_MAX_TAIL = 20, TOPK_MAX_K_WIDE + 4, 2048
 # let through before its radix select takes over.
 WIDE_THREADS, WIDE_CAP = 512, 512
 # Kernel B's block: 64 queries × 256 corpus rows, 32 features a chunk, a
-# ring of 3 chunks in dynamic shared memory (``csrc/f32_tile_product.cuh``).
-_BLOCK_QUERIES, _CHUNK_FEATURES, _RING = 64, 32, 3
+# ring of 2 chunks in dynamic shared memory (``csrc/f32_tile_product.cuh``).
+_BLOCK_QUERIES, _CHUNK_FEATURES, _RING = 64, 32, 2
 
 
 def scores_tilemax_plan(b: int, f: int, aligned: bool = True) -> dict:

@@ -202,6 +202,35 @@ def test_energy_scan_kernel_matches_plain(b, n, f, k, kind, misalign):
         assert np.array_equal((-sneg).cpu().numpy().view(np.int32), gd.view(np.int32))
 
 
+
+@pytest.mark.parametrize("f,misalign", [(128, False), (96, False), (130, True)])
+def test_energy_scan_bits_do_not_depend_on_splits_or_batch_tiling(f, misalign):
+    """The energy scan and its merge: one query's distances and ids are the
+    same bits for 1 range, 7 ranges and the default number, wherever the
+    query sits in the batch (alone, rows 63, 64 and 65, inside batches of
+    256 and 1024), with pairs in the tie band (the cosine's division)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    X, norms, lam, Q, ql = _scan_case(30_000, f, 1024, "groups", 31, misalign)
+    qn = esk.query_norms(Q)
+    ref = None
+    for b, at in [(1, 0), (66, 63), (66, 64), (66, 65), (256, 200), (1024, 1000)]:
+        def rows(t):
+            batch = t[:b].clone()
+            batch[at] = t[9]
+            return batch.contiguous()
+        for splits in (1, 7, tsf.default_splits(30_000, b, X.device)):
+            ids, neg = tsf.merge_partials(*esk.scan_partials(X, norms, lam, rows(Q), rows(qn), rows(ql),
+                                                             K, splits), K)
+            got = (ids[at].clone(), neg[at].contiguous().view(torch.int32))
+            if ref is None:
+                ref = got
+                band = float((-neg[at]).max()) < 1e-9   # the whole top-K ranked by the cosine
+                assert band
+            else:
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (b, at, splits)
+
+
 def test_energy_scan_kernel_refuses_k_above_16():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -77,12 +77,12 @@ def test_tilemax_only_plan_narrows_the_query_block_for_wide_rows():
 def test_scores_tilemax_plan(f):
     for b in BATCHES:
         plan = ttmk.scores_tilemax_plan(b, f)
-        assert plan["smem_bytes"] == 122_880 <= rsk.MAX_DYNAMIC_SMEM
+        assert plan["smem_bytes"] == 81_920 <= rsk.MAX_DYNAMIC_SMEM
         assert plan["loader"] == ("cp.async" if f % 4 == 0 else "elementwise")
         assert plan["blocks_per_tile"] == -(-b // 64)
         assert ttmk.scores_tilemax_plan(b, f, aligned=False)["loader"] == "elementwise"
     assert ttmk.scores_tilemax_plan(256, 128) == dict(
-        loader="cp.async", smem_bytes=122_880, blocks_per_tile=4)
+        loader="cp.async", smem_bytes=81_920, blocks_per_tile=4)
 
 
 def _fixture(n, f, b, seed):

@@ -484,6 +484,70 @@ def _search_fused_fixture(n, f, b, seed, device, ties=False):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
 
+
+# Where a query sits in a batch: alone, at rows 63, 64 and 65 (the last row
+# of a query block, the first of the next, the one after), and inside
+# batches of 256 and 1024. Each accumulator is one fmaf chain in ascending
+# k, so none of these may change a bit of its scores, maxima or lists.
+_BATCH_PLACES = [(1, 0), (66, 63), (66, 64), (66, 65), (256, 200), (1024, 1000)]
+
+
+def _placed(pool, probe, b, at):
+    """Rows ``pool[:b]`` with row ``at`` replaced by ``probe`` (on the card)."""
+    batch = pool[:b].clone()
+    batch[at] = probe
+    return batch.contiguous()
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("f", [1, 3, 96, 128, 130])
+def test_tilemax_kernel_bits_do_not_depend_on_the_batch_tiling(cuda_device, f, misalign):
+    """Kernel B: the scores and sub-tile maxima of one query are the same
+    bits wherever the query sits in the batch and whatever the batch size,
+    with 16-byte copies and with the element-wise loader."""
+    X, norms, lams, Q, ql, alphas = _fixture(4700, f, 1024, 11, cuda_device)
+    if misalign:
+        X = _misaligned(X)
+    assert ttmk.scores_tilemax_plan_chosen(X, Q)["loader"] == (
+        "cp.async" if f % 4 == 0 and not misalign else "elementwise")
+    ref = None
+    for b, at in _BATCH_PLACES:
+        rows = lambda t: _placed(t, t[5], b, at)    # query 5 of the pool, moved to row `at`
+        s, m = ttmk.scores_and_tilemax(X, norms, lams, rows(Q), rows(ql), rows(alphas), tile=2048)
+        got = (_bits(s[at]), _bits(m[at]))
+        if ref is None:
+            ref = got
+            ps, pm = ttmk.scores_and_tilemax_plain(X, norms, lams, Q[5:6], ql[5:6], alphas[5:6], tile=2048)
+            assert float((s[at] - ps[0]).abs().max()) <= 1e-5
+            assert float((m[at] - pm[0]).abs().max()) <= 1e-5
+        else:
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (b, at)
+
+
+@pytest.mark.parametrize("f,misalign", [(128, False), (130, False), (96, True)])
+def test_search_fused_bits_do_not_depend_on_splits_or_batch_tiling(cuda_device, f, misalign):
+    """Kernel G: the merged values and ids of one query are the same bits
+    for 1 range, 7 ranges and the default number, wherever the query sits
+    in the batch and whatever the batch size."""
+    Xn, lam, Qn, qlam = _search_fused_fixture(40_000, f, 1024, 21, cuda_device, ties=True)
+    if misalign:
+        Xn = _misaligned(Xn)
+    ref = None
+    for b, at in _BATCH_PLACES:
+        rows = lambda t: _placed(t, t[7], b, at)
+        for splits in (1, 7, None):
+            idx, val = tsf.search_fused(Xn, lam, rows(Qn), rows(qlam), 10, splits=splits)
+            got = (idx[at].clone(), _bits(val[at]))
+            if ref is None:
+                ref = got
+            else:
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (b, at, splits)
+
+
 @pytest.mark.parametrize("n,f,b,k,ties", [(3000, 64, 8, 10, False), (2777, 100, 70, 16, True),
                                           (40_000, 128, 256, 10, False), (12, 8, 3, 16, False)])
 def test_search_fused_kernel_matches_plain_for_any_split_count(cuda_device, n, f, b, k, ties):
