@@ -541,6 +541,13 @@ class ArrowSpace:
             self._sc_lams_cache = cache
         return cache[1]
 
+    def _project_queries(self, Q: torch.Tensor) -> torch.Tensor:
+        """``Q [B, F]`` through the space's projection, recorded as the span
+        ``search.project`` (attrs ``f_in``, ``f_out``)."""
+        p = self.projection
+        with profiling.span("search.project", f_in=p.original_dim, f_out=p.reduced_dim):
+            return p.project(Q)
+
     def _energy_query(self, Q: torch.Tensor) -> torch.Tensor:
         """Queries in the sub-centroids' space: projected when the space
         was built with the extra reduction, or when they have the original
@@ -551,7 +558,7 @@ class ArrowSpace:
         if self.extra_reduced_dim or (
                 p is not None and Q.shape[-1] == p.original_dim
                 and self.sub_centroids.shape[-1] == p.reduced_dim):
-            Qe = p.project(Q)
+            Qe = self._project_queries(Q)
         if Qe.shape[-1] != self.sub_centroids.shape[-1]:
             raise ValueError(
                 f"Query dimension {Q.shape[-1]} doesn't match "
@@ -711,7 +718,9 @@ class ArrowSpace:
         (:func:`..utils.profiling.span`) ``search.batch`` (attrs ``mode``,
         ``tier``, ``b``, ``b_pad``, ``k``) and within it ``search.input``,
         ``search.query_lambda`` (eigen mode: attr ``route``, the query λ's
-        route as :func:`..ops.taumode.query_lambdas` took it), ``search.scan`` and
+        route as :func:`..ops.taumode.query_lambdas` took it; with a JL
+        projection its child ``search.project``, attrs ``f_in`` and
+        ``f_out``, the queries' projection), ``search.scan`` and
         ``search.fetch``; each host–device sync counts against the span it
         falls in."""
         with profiling.span("search.batch", mode="energy" if self._energy else "eigen",
@@ -773,7 +782,7 @@ class ArrowSpace:
                 else:
                     # λ of the projected batch when the graph is r × r; the
                     # scores below stay on the F-wide rows.
-                    Qw = self.projection.project(Q) if projects else Q
+                    Qw = self._project_queries(Q) if projects else Q
                     raw, q_lams, route = taumode_ops.query_lambdas(
                         Qw, graph, self.taumode.mode, self.taumode.param,
                         self.min_lambdas, self.range_lambdas)

@@ -52,7 +52,8 @@ def test_compute_jl_dimension_reaches_every_buffer_factor():
     assert factors == {1.2, 1.5, 2.0}
 
 
-@pytest.mark.parametrize("seed,f,r", [(42, 768, 384), (5, 200, 100), (0, 64, 33), (2**32 + 5, 40, 32)])
+@pytest.mark.parametrize("seed,f,r", [(42, 768, 384), (5, 200, 100), (0, 64, 33), (2**32 + 5, 40, 32),
+                                    (42, 1536, 491)])
 def test_projection_matrix_within_the_ulp_bound(seed, f, r):
     ref = np.asarray(jred.ImplicitProjection(f, r, seed).matrix())
     got = tred.ImplicitProjection(f, r, seed).matrix("cpu").numpy()

@@ -115,6 +115,27 @@ def test_results_are_bit_identical_with_spans_on_and_off(indexes, index, how, ti
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_a_projected_batch_records_its_projection_inside_the_query_lambda():
+    """With a JL projection (F = 128 → r = 64) the queries' projection is
+    the span ``search.project`` inside ``search.query_lambda``, with the two
+    widths; the results equal those of an untraced call."""
+    data = make_energy_test_dataset(600, 128, seed=5).astype(np.float32)
+    aspace, gl = (_builder().with_cluster_params(max_clusters=8).with_dims_reduction(True)
+                  .build(data))
+    assert aspace.reduced_dim == 64
+    Q = data[:12] + np.float32(0.01)
+    off = aspace.search_batch(Q, gl, K)
+    on, recs, prof = _traced(lambda: aspace.search_batch(Q, gl, K))
+    assert all(np.array_equal(a, b) for a, b in zip(off, on))
+    assert [s.name for s in recs] == ["search.input", "search.project", "search.query_lambda",
+                                      "search.scan", "search.fetch", "search.batch"]
+    proj, qlam = recs[1], recs[2]
+    assert proj.parent == qlam.id and proj.root == recs[-1].id
+    assert proj.attrs == {"f_in": 128, "f_out": 64}
+    assert qlam.start_ns <= proj.start_ns <= proj.end_ns <= qlam.end_ns
+    assert "search.project" in {e.name for e in prof.events()}
+
+
 def test_raw_lambdas_come_back_inside_the_fetch(indexes):
     aspace, gl = indexes["eigen"]
     off = aspace.search_batch(indexes["Q"], gl, K, return_raw=True)

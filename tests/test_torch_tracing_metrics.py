@@ -2,9 +2,10 @@
 (``portbench/metrics/entry.*.py``): each gives the median it names from a
 hand-built span list, reads only the window's spans, gives nothing without
 a ``search.batch`` root (an untraced run, or a program that records no
-spans), and is listed for the three accepted cells and the streaming
-sketch's cell after them, each of which reports ``search_qps``, the metric
-they move."""
+spans), and is listed for the three accepted cells, the streaming sketch's
+cell and the JL cell after them, each of which reports ``search_qps``, the
+metric they move; ``entry.lambda_ms`` (the query λ's span) for the JL cell
+and the exact cell, its point of comparison."""
 
 import types
 
@@ -14,8 +15,10 @@ from matternet_rs_tpu_torch.utils import profiling
 from portbench.harness.manifest import ROOT, Manifest
 
 CELLS = ["eigen-blobs1m.exact-b256", "energy-blobs1m.scan-b256", "eigen-blobs1m.bf16x3-b1024",
-         "stream-centres10m.sketch-b1024"]
+         "stream-centres10m.sketch-b1024", "eigen-jl1536-centres1m.exact1536-b256"]
 METRICS = ["entry.host_ms", "entry.fetch_ms", "entry.syncs"]
+READERS = METRICS + ["entry.lambda_ms"]
+LAMBDA_CELLS = ["eigen-jl1536-centres1m.exact1536-b256", "eigen-blobs1m.exact-b256"]
 MS = 1_000_000
 OPENED_S = 10.0                         # the window opens at 10 s on perf_counter
 
@@ -45,12 +48,13 @@ def _read(name, recs, monkeypatch, opened=OPENED_S):
     return Manifest(ROOT).reader(name)(ctx)
 
 
-# Three calls: (root ms, fetch ms, syncs) — medians 3.0 host, 2.5 fetch, 7 syncs.
+# Three calls: (root ms, fetch ms, syncs) — medians 3.0 host, 2.5 fetch, 7 syncs; each
+# query λ span a third of the call less its fetch, 1.0 ms.
 CALLS = [(5.0, 2.0, 7), (6.0, 3.0, 9), (5.5, 2.5, 7)]
-EXPECTED = {"entry.host_ms": 3.0, "entry.fetch_ms": 2.5, "entry.syncs": 7}
+EXPECTED = {"entry.host_ms": 3.0, "entry.fetch_ms": 2.5, "entry.syncs": 7, "entry.lambda_ms": 1.0}
 
 
-@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("name", READERS)
 def test_reader_gives_the_median_it_names(monkeypatch, name):
     recs = []
     for i, (root_ms, fetch_ms, syncs) in enumerate(CALLS):
@@ -58,7 +62,7 @@ def test_reader_gives_the_median_it_names(monkeypatch, name):
     assert _read(name, recs, monkeypatch) == pytest.approx(EXPECTED[name], abs=1e-6)
 
 
-@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("name", READERS)
 def test_reader_reads_only_the_windows_spans(monkeypatch, name):
     before = _call(1, -5000, 50.0, 40.0, 30)          # a call 5 s before the window opened
     recs = list(before)
@@ -73,7 +77,7 @@ def test_sync_count_is_a_whole_number_per_call(monkeypatch):
     assert got == 6 and isinstance(got, int)
 
 
-@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("name", READERS)
 @pytest.mark.parametrize("case", ["empty", "children_only", "other_spans"])
 def test_reader_gives_nothing_without_a_root(monkeypatch, name, case):
     recs = {"empty": [],
@@ -83,7 +87,7 @@ def test_reader_gives_nothing_without_a_root(monkeypatch, name, case):
     assert _read(name, recs, monkeypatch) is None
 
 
-@pytest.mark.parametrize("name", METRICS)
+@pytest.mark.parametrize("name", READERS)
 def test_reader_gives_nothing_from_a_program_without_spans(monkeypatch, name):
     monkeypatch.delattr(profiling, "spans")
     ctx = {"window": types.SimpleNamespace(setup_end=OPENED_S)}
@@ -100,3 +104,12 @@ def test_metric_is_listed_for_the_three_accepted_cells(name):
         man.workload(cell)
         assert "search_qps" in {x["name"] for x in man.metrics_of(cell, "end_to_end")}
         assert name in {x["name"] for x in man.metrics_of(cell, "per_layer")}
+
+
+def test_lambda_metric_is_listed_for_the_jl_cell_and_the_exact_cell():
+    man = Manifest(ROOT)
+    (m,) = [m for m in man.data["per_layer"] if m["name"] == "entry.lambda_ms"]
+    assert m["workloads"] == LAMBDA_CELLS and m["source"] == "program_span"
+    assert m["layer"] == "entry" and m["moves"] == "search_qps" and m["better"] == "lower"
+    for cell in LAMBDA_CELLS:
+        assert "search_qps" in {x["name"] for x in man.metrics_of(cell, "end_to_end")}
