@@ -152,8 +152,9 @@ Phases, one output line each (JSON):
    B = 8, 16 serial ``search_energy`` calls; every route against the full
    scan under the same-k rule at 1e-14 (``ENERGY_TIE_TOL``: the tie-break
    term 1e-9·(1 − cos) at a cosine tolerance of 1e-5); each full-scan
-   batch launches ``energy_scan`` and ``search_fused_merge`` once, a
-   banded one neither (counted around each route). The same on the
+   batch launches ``energy_window`` once (the window route: both indexes
+   keep their sorted λ on the card) and neither ``energy_scan`` nor
+   ``search_fused_merge``, a banded one none (counted around each route). The same on the
    reference's banded benchmark index (``bench_energy_banded_1m``: 1M
    normal rows, 2,048 sorted sub-centroid λ at random), where ``auto``
    must take the full scan at B = 256 and band at B = 8 and the forced
@@ -762,16 +763,18 @@ def energy_phase(dev, card):
     scan_bad_counts = []
 
     def routed(fn, items):
-        """Times ``fn`` over ``items``; its route; one ``energy_scan`` and
-        one merge a full-scan batch, none a banded one."""
+        """Times ``fn`` over ``items``; its route; one ``energy_window`` a
+        full-scan batch (both indexes keep a sorted view on the card), no
+        ``energy_scan`` and no merge, none of them a banded one."""
         before, launched = banded_calls[0], kernels.launch_counts()
         ms, outs = over(fn, items)
         route = "banded" if banded_calls[0] > before else "full scan"
         now = kernels.launch_counts()
         d = {k: now[k] - launched[k] for k in now}
         want = len(items) if route == "full scan" else 0
-        if d["energy_scan"] != want or d["search_fused_merge"] != want:
-            scan_bad_counts.append((route, len(items), d["energy_scan"], d["search_fused_merge"]))
+        if d["energy_window"] != want or d["energy_scan"] or d["search_fused_merge"]:
+            scan_bad_counts.append((route, len(items), d["energy_window"], d["energy_scan"],
+                                    d["search_fused_merge"]))
         for k in scan_counts:
             scan_counts[k] += d[k]
         return ms, outs, route
@@ -828,7 +831,8 @@ def energy_phase(dev, card):
         Q1 = torch.from_numpy(X[batches[1]]).to(dev)
         ql1 = em._batch_query_lambdas(aspace.sub_centroids, aspace._subcentroid_lambdas_dev(),
                                       aspace._energy_query(Q1))
-        scan_inputs = (aspace.data, aspace.item_norms, aspace.lambdas, Q1, ql1)
+        scan_inputs = (aspace.data, aspace.item_norms, aspace.lambdas, Q1, ql1,
+                       *em._window_view(aspace))
         check(not any(scan_bad.values()), f"energy: routes disagree: { {k: v[:2] for k, v in scan_bad.items()} }")
 
         # The reference's banded benchmark index (bench.py bench_energy_banded_1m):
@@ -859,9 +863,9 @@ def energy_phase(dev, card):
               f"auto B=8 {s_a8_route}")
         check(not any(spread_bad.values()),
               f"energy: banded vs full scan on the spread index: { {k: v[:2] for k, v in spread_bad.items()} }")
-        check(not scan_bad_counts and scan_counts["energy_scan"] > 0,
-              f"energy: (route, batches, energy_scan, search_fused_merge) launched otherwise "
-              f"than once a full-scan batch: {scan_bad_counts}")
+        check(not scan_bad_counts and scan_counts["energy_window"] > 0,
+              f"energy: (route, batches, energy_window, energy_scan, search_fused_merge) launched "
+              f"otherwise than one window a full-scan batch: {scan_bad_counts}")
 
         # -- energy-mode search_batch through the kernels -------------------
         alphas = torch.full((BATCH,), ALPHA, dtype=torch.float32, device=dev)
@@ -1838,10 +1842,11 @@ def serve_energy_step(dev, card, aspace, gl, X):
             counts[f"search_energy_{cand}"] = kernels.launch_counts()
             check(all(code == 200 for code, _ in answers), f"serve energy ({cand}): non-200 answers")
             c = counts[f"search_energy_{cand}"]
-            check(c["energy_scan"] == c["search_fused_merge"]
-                  and (cand is not None or c["energy_scan"] == svc.n_batches),
-                  f"serve energy ({cand}): {c['energy_scan']} energy scans, "
-                  f"{c['search_fused_merge']} merges, {svc.n_batches} batches")
+            check(c["energy_scan"] == c["search_fused_merge"] == 0
+                  and (cand is not None or c["energy_window"] == svc.n_batches),
+                  f"serve energy ({cand}): {c['energy_window']} energy windows, "
+                  f"{c['energy_scan']} energy scans, {c['search_fused_merge']} merges, "
+                  f"{svc.n_batches} batches")
             idx, dist = em.search_energy_batch(aspace, X[rows], gl, K, candidates=cand)
             bad = []
             for j, (_, body) in enumerate(answers):
@@ -4575,7 +4580,7 @@ def main() -> int:
     # The energy scan (kernel G's scan with the energy epilogue) on phase
     # energy's index and one of its batches, against the path it replaced:
     # the [B, N] scores and a stable sort.
-    eX, en, el, eQ, eql = energy_scan_inputs
+    eX, en, el, eQ, eql, es_lam, es_idx = energy_scan_inputs
     e_splits = sfk.default_splits(eX.shape[0], BATCH, dev)
     record_resources("energy_scan", "search_fused", "energy_scan_kernel",
                      sfk.scan_plan(eX, eQ, e_splits), sfk.scan_plan_chosen(eX, eQ, K, e_splits))
@@ -4594,6 +4599,7 @@ def main() -> int:
                     + 8 * BATCH * e_splits * sfk.K_PAD,
                     2 * band_pairs * eX.shape[1] + 3 * BATCH * eX.shape[0])
     e_by_path = {p: c["energy_scan"] for p, c in path_counts.items() if c["energy_scan"]}
+    w_by_path = {p: c["energy_window"] for p, c in path_counts.items() if c["energy_window"]}
     rows_out.append(dict(
         name="energy_scan", route="cuda", source="matternet_rs_tpu_torch/csrc/search_fused.cu",
         replaces="matternet_rs_tpu/energymaps.py search_energy_batch's full scan (no TPU kernel: "
@@ -4611,8 +4617,41 @@ def main() -> int:
         plain="energymaps' full scan before the kernel: the [B, N] scores, then topk_stable",
     ))
     check(not e_bad, f"energy_scan: kernel vs plain: {e_bad[:3]}")
-    check(sum(e_by_path.values()) > 0, "energy_scan: never launched on a search path")
-    del eX, en, el, eQ, eql, energy_scan_inputs
+    # The window route on the same batch: the scan's answer bit for bit, its
+    # tally, and its launch alone beside energy_scan's; then both on one λ
+    # for every row and query (the window's degenerate case: one band of N).
+    def window_row(label, lam_s, idx_s, lam_i, ql_w):
+        esk.reset_window_tally(dev)
+        wi, wd = esk.energy_topk_window(eX, en, lam_s, idx_s, eQ, ql_w, K)
+        si, sd = esk.energy_topk(eX, en, lam_i, eQ, ql_w, K)
+        same = bool(torch.equal(wi, si) and torch.equal(wd.view(torch.int32), sd.view(torch.int32)))
+        tally = esk.window_tally(dev)
+        scan_ms = cuda_ms(lambda: esk.scan_partials(eX, en, lam_i, eQ, eqn, ql_w, K, e_splits))
+        window_ms = cuda_ms(lambda: esk.energy_topk_window(eX, en, lam_s, idx_s, eQ, ql_w, K))
+        check(same, f"{label}: window vs energy_scan + merge not bit for bit")
+        return dict(bit_equal=same, tally_one_batch=tally, launch_ms=window_ms,
+                    energy_scan_launch_ms=scan_ms,
+                    energy_scan_and_merge_ms=cuda_ms(lambda: esk.energy_topk(eX, en, lam_i, eQ, ql_w, K)))
+
+    w_cell = window_row("energy_window", es_lam, es_idx, el, eql)
+    one = torch.full_like(el, 0.4)
+    s_one, i_one = torch.sort(one, stable=True)
+    w_one = window_row("energy_window (one λ)", s_one, i_one, one, torch.full_like(eql, 0.4))
+    del one, s_one, i_one
+    rows_out.append(dict(
+        name="energy_window", route="cuda", source="matternet_rs_tpu_torch/csrc/energy_window.cu",
+        replaces="matternet_rs_tpu/energymaps.py search_energy_batch's full scan (no TPU kernel), "
+                 "in place of energy_scan + G's merge where the sorted λ view is on the card",
+        launches=sum(w_by_path.values()), launches_by_path=w_by_path,
+        ms=w_cell["launch_ms"], launch_ms=w_cell["launch_ms"], cell_law=w_cell, one_lambda=w_one,
+        bound_ms=bms, bound_by=by,
+        shape=f"B={BATCH} N={eX.shape[0]} F={eX.shape[1]} k={K}",
+        plain="energy_scan + G's merge on the same inputs (bit for bit)",
+    ))
+    resources["energy_window"] = dict(
+        ptxas=ptxas_resources(buildcache.BUILD_LOG.get("energy_window"), "energy_window_kernel"))
+    check(sum(w_by_path.values()) > 0, "energy_window: never launched on a search path")
+    del eX, en, el, eQ, eql, es_lam, es_idx, energy_scan_inputs
     # Kernels B and D at edge shapes, each against its plain version.
     def edge_arrays(f, b, seed):
         rng = np.random.default_rng(seed)

@@ -1,6 +1,7 @@
 // Full-f32 product of a [64 queries] × [256 corpus rows] tile over F, for
 // kernel B (csrc/tilemax.cu), kernel G's scan and the energy scan
-// (csrc/search_fused.cu). Exact FFMA: no tensor cores, no TF32, no bf16
+// (csrc/search_fused.cu), and, through row lists (tile_product_rows), the
+// energy window's band scan (csrc/energy_window.cu). Exact FFMA: no tensor cores, no TF32, no bf16
 // splitting. Every accumulator sums its F products in ascending k, one fmaf
 // each starting from 0, so the result does not depend on the tiling.
 //
@@ -206,6 +207,80 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ Q,
     const int nxt = kc + STAGES - 1;
     if (nxt < nk)
       load_stage(smem + (nxt % STAGES) * STAGE_FLOATS, Q, X, q0, b, c0, row_limit, f, nxt * BK, vec, tid);
+    cp_async_commit();
+    multiply_stage(smem + (kc % STAGES) * STAGE_FLOATS, qg, rg, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// -- The same product through row lists --------------------------------------
+// For a tile whose queries and corpus rows are not contiguous runs: query
+// m of the tile is Q row qrows[m], corpus row n is X row xrows[n] (both
+// lists in shared memory; a negative entry is a zero row). The layout, the
+// swizzle, the copies and the FFMA chains are load_stage's, tile_prefetch's
+// and tile_product's; only the row addresses differ. Those three are left
+// as they are, so kernel B and G's scan compile as before.
+
+__device__ __forceinline__ void load_stage_rows(float* stage, const float* __restrict__ Q,
+                                                const int* qrows, const float* __restrict__ X,
+                                                const int* xrows, int f, int k0, bool vec,
+                                                int tid) {
+  float* Qs = stage;
+  float* Xs = stage + BM * BK;
+#pragma unroll
+  for (int it = 0; it < BM * UNITS / THREADS; ++it) {
+    const int e = tid + it * THREADS;
+    const int m = e / UNITS, u = e % UNITS;
+    const int k = k0 + u * 4;
+    const int r = qrows[m];
+    const bool row_ok = r >= 0;
+    const float* row = Q + (int64_t)(row_ok ? r : 0) * f;
+    if (vec) cp_async16(Qs + swizzled(m, u), row + (k < f ? k : 0), row_ok && k < f);
+    else load_unit_generic(Qs + swizzled(m, u), row, row_ok, k, f);
+  }
+#pragma unroll
+  for (int it = 0; it < BN * UNITS / THREADS; ++it) {
+    const int e = tid + it * THREADS;
+    const int n = e / UNITS, u = e % UNITS;
+    const int k = k0 + u * 4;
+    const int r = xrows[n];
+    const bool row_ok = r >= 0;
+    const float* row = X + (int64_t)(row_ok ? r : 0) * f;
+    if (vec) cp_async16(Xs + swizzled(n, u), row + (k < f ? k : 0), row_ok && k < f);
+    else load_unit_generic(Xs + swizzled(n, u), row, row_ok, k, f);
+  }
+}
+
+__device__ __forceinline__ void tile_prefetch_rows(const float* __restrict__ Q, const int* qrows,
+                                                   const float* __restrict__ X, const int* xrows,
+                                                   int f, bool vec, float* smem) {
+  const int nk = (f + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage_rows(smem + s * STAGE_FLOATS, Q, qrows, X, xrows, f, s * BK, vec, threadIdx.x);
+    cp_async_commit();
+  }
+}
+
+__device__ __forceinline__ void tile_product_rows(const float* __restrict__ Q, const int* qrows,
+                                                  const float* __restrict__ X, const int* xrows,
+                                                  int f, bool vec, float* smem,
+                                                  float (&acc)[TQ][TR]) {
+  const int tid = threadIdx.x;
+  const int qg = query_group(tid), rg = row_group(tid);
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
+#pragma unroll
+    for (int r = 0; r < TR; ++r) acc[i][r] = 0.f;
+
+  const int nk = (f + BK - 1) / BK;
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = kc + STAGES - 1;
+    if (nxt < nk)
+      load_stage_rows(smem + (nxt % STAGES) * STAGE_FLOATS, Q, qrows, X, xrows, f, nxt * BK, vec, tid);
     cp_async_commit();
     multiply_stage(smem + (kc % STAGES) * STAGE_FLOATS, qg, rg, acc);
   }

@@ -20,8 +20,18 @@
    sorted λ.
 
 The energy score is not the blend. On the card the batched full scan
-for k ≤ 16 is one streamed kernel and G's merge
-(:mod:`.ops.kernels.energy_scan`): no ``[B, N]`` plane and no sort.
+for k ≤ 16 takes the window route (:func:`.ops.kernels.energy_scan.
+energy_topk_window`, ``csrc/energy_window.cu``) where the index's sorted-λ
+view lies on the card and was sorted from its current λ: each query's tie
+band ``|Δλ| < 1e-9`` is one run of the sorted λ, found on the card, and
+only the band's dots are taken, by queries grouped by band; a row outside
+the band scores exactly ``|Δλ|``, so a walk out of the band on each side,
+stopped at the first row that cannot rank before the k-th, settles the
+answer, bit for bit ``energy_scan``'s (the proof is the kernel's header).
+Launches are counted under ``energy_window``; ``window_tally`` reads the
+band pairs, dot pairs and walks from a tally the search never reads.
+Without such a view the route is ``energy_scan`` and G's merge, one
+streamed pass over all rows. Neither writes a ``[B, N]`` plane or sorts.
 Elsewhere (the CPU, k > 16, the banded window, the single-query scans) it
 is a full-f32 ``torch.matmul`` followed by the stable top-k
 (``lax.top_k``'s order: ties lowest index first). Energy-mode
@@ -483,13 +493,30 @@ def search_energy_batch(aspace: ArrowSpace, queries, gl_energy: GraphLaplacian, 
                 idx, dist = _banded_search(aspace.data, aspace.item_norms, s_lam, s_idx, Q,
                                            q_lams, kk, cand)
             else:
-                route = esk.route(Q.device, kk)
+                view = _window_view(aspace)
+                route = esk.route(Q.device, kk, window=view is not None)
                 scan.set(route=route)
-                topk = esk.energy_topk if route == "kernel" else esk.energy_topk_plain
-                idx, dist = topk(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams, kk)
+                if route == "window":
+                    idx, dist = esk.energy_topk_window(aspace.data, aspace.item_norms, *view, Q,
+                                                       q_lams, kk)
+                else:
+                    topk = esk.energy_topk if route == "kernel" else esk.energy_topk_plain
+                    idx, dist = topk(aspace.data, aspace.item_norms, aspace.lambdas, Q, q_lams, kk)
 
         with profiling.span("search.fetch"):
             return profiling.to_host(idx).numpy(), profiling.to_host(dist).numpy()
+
+
+def _window_view(aspace: ArrowSpace):
+    """``(sorted λ, item per position)`` of the space's sorted-λ view when
+    it lies on a CUDA device and was sorted from the space's current λ
+    tensor (mutation and append build it anew; λ tensors are replaced,
+    never changed in place), else ``None``: the window route's operands."""
+    sl = aspace.lambdas_sorted
+    if (isinstance(sl, DeviceSortedLambdas) and sl.source is aspace.lambdas
+            and sl.sorted_lambdas_dev.is_cuda):
+        return sl.sorted_lambdas_dev, sl.sorted_indices_dev
+    return None
 
 
 def _sorted_lambda_arrays(aspace: ArrowSpace):

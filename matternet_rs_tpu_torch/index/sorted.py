@@ -84,13 +84,16 @@ class SortedLambdas:
 
 class DeviceSortedLambdas:
     """Device-resident sorted λ: a stable ``torch.sort`` at build, band
-    queries with ``torch.searchsorted``; only results cross to the host."""
+    queries with ``torch.searchsorted``; only results cross to the host.
+    ``source`` is the λ tensor the view was sorted from: a reader checks
+    it against the index's λ before taking the view for them."""
 
     def __init__(self, sorted_lambdas: torch.Tensor, sorted_indices: torch.Tensor,
-                 std_dev: float):
+                 std_dev: float, source: torch.Tensor | None = None):
         self.sorted_lambdas_dev = sorted_lambdas
         self.sorted_indices_dev = sorted_indices
         self.std_dev = std_dev
+        self.source = source
         self._host: SortedLambdas | None = None
 
     @classmethod
@@ -101,7 +104,7 @@ class DeviceSortedLambdas:
         sl, order = torch.sort(lam, stable=True)
         mean = lam.mean()
         std = torch.sqrt(torch.mean((mean - lam) ** 2))
-        return cls(sl, order, float(std))
+        return cls(sl, order, float(std), source=lambdas)
 
     def range_bylambda(self, lambda_q: float, k: int, p: float) -> list[tuple[int, float]]:
         band = self.std_dev / (2.0 ** p)

@@ -16,6 +16,7 @@ LAUNCHES: dict[str, int] = {
     "taumode": 0, "taumode_query": 0, "scores_tilemax": 0, "gather_subtiles": 0, "subtile_topk": 0,
     "tilemax_only": 0, "slab_dots": 0,
     "spmv_ell": 0, "search_fused": 0, "search_fused_merge": 0, "energy_scan": 0,
+    "energy_window": 0,
 }
 _LOCK = threading.Lock()
 

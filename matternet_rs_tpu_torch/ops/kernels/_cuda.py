@@ -87,6 +87,14 @@ SIGNATURES = {
         # stream: an empty kernel (what one launch costs)
         "mrs_search_fused_empty": [_P],
     },
+    "energy_window": {
+        # X, norms, sorted λ, sorted ids, Q, qn, ql, n, f, b, k, grid, ws,
+        # pvals, pids, vals, ids, tally, stream
+        "mrs_energy_window": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P, _P,
+                              _P, _P, _P],
+        # queries a launch takes (out), workspace words (out)
+        "mrs_energy_window_sizes": [_P, _P],
+    },
 }
 
 # library → headers under csrc/ that its source includes (they enter the
@@ -94,6 +102,7 @@ SIGNATURES = {
 HEADERS = {
     "tilemax": ("div_rn.cuh", "f32_tile_product.cuh", "warp_topk.cuh"),
     "search_fused": ("div_rn.cuh", "f32_tile_product.cuh", "warp_topk.cuh"),
+    "energy_window": ("div_rn.cuh", "f32_tile_product.cuh"),
     "rescored": ("wgmma_bf16_rs.cuh",),
 }
 

@@ -18,9 +18,32 @@ plane and no sort. The kernel rounds every step of the score as the plain
 version does; only the dot's summation order differs (ascending features,
 one FMA each), so the two agree under ``utils/parity.same_k_mismatches``
 at ``ENERGY_TIE_TOL``.
+
+The window route (:func:`energy_topk_window`, ``csrc/energy_window.cu``)
+gives ``energy_topk``'s answer bit for bit, ids and distances, with the
+dots taken only inside each query's tie band. It reads the index's sorted
+λ (``index/sorted.DeviceSortedLambdas``): since ``d = |qλ − λ|`` is
+rounded monotonically, it falls then rises along the sorted λ, so a
+query's band ``d < TIE_EPS`` is one run of sorted positions, found by
+binary search on the card. The band's rows, read through the sorted ids,
+are scored exactly as the scan scores them (the same FMA chain and
+epilogue) by queries grouped by band, 64 to a tile; a row outside the band
+scores exactly ``d``, so each query then walks out of its band on both
+sides, taking rows while one could still rank before its k-th, and stops
+at the first row that cannot (every row farther out has a larger ``d``).
+The proof is in the kernel's header. :func:`energy_topk_window_plain` is
+the same rule in plain PyTorch and Python. ``LAUNCHES["energy_window"]``
+counts the route's launches (the plan, the band's scan and the walks, one
+C call per 1,024 queries); :func:`window_tally` reads a tally kept on the
+card (band pairs, dot pairs taken, queries whose walk took a row, rows
+walked), which the search never reads.
 """
 
 from __future__ import annotations
+
+import bisect
+import ctypes
+import threading
 
 import torch
 
@@ -52,10 +75,14 @@ def energy_topk_plain(X, norms, lambdas, Q, q_lams, k: int):
     return idx, -neg
 
 
-def route(device, k: int) -> str:
-    """Which way a full scan of ``k`` goes: ``"kernel"`` on a CUDA device
-    for ``1 ≤ k ≤ 16``, ``"plain"`` otherwise."""
-    return "kernel" if torch.device(device).type == "cuda" and 1 <= k <= K_MAX else "plain"
+def route(device, k: int, window: bool = False) -> str:
+    """Which way a full scan of ``k`` goes: on a CUDA device for
+    ``1 ≤ k ≤ 16`` ``"window"`` where the caller has a current sorted-λ
+    view on the card (``window``), else ``"kernel"``; ``"plain"``
+    otherwise."""
+    if torch.device(device).type != "cuda" or not 1 <= k <= K_MAX:
+        return "plain"
+    return "window" if window else "kernel"
 
 
 def scan_partials(X, norms, lambdas, Q, qn, q_lams, k: int, splits: int):
@@ -99,3 +126,145 @@ def energy_topk(X, norms, lambdas, Q, q_lams, k: int):
     vals, ids = scan_partials(X, norms, lambdas, Q, query_norms(Q), q_lams, k, splits)
     idx, neg = sfk.merge_partials(vals, ids, k)
     return idx.long(), -neg
+
+
+# -- the window route (csrc/energy_window.cu) ---------------------------------
+
+# The window route's tally, one per card, made at first use under a lock
+# (serving launches from two dispatch threads), as kernels.LAUNCHES is one
+# per process.
+_TALLY: dict[torch.device, torch.Tensor] = {}
+_TALLY_LOCK = threading.Lock()
+TALLY_NAMES = ("band_pairs", "dot_pairs", "queries_past_band", "rows_walked")
+
+
+def _tally(device: torch.device) -> torch.Tensor:
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _TALLY_LOCK:
+        t = _TALLY.get(device)
+        if t is None:
+            t = _TALLY[device] = torch.zeros(len(TALLY_NAMES), dtype=torch.int64, device=device)
+    return t
+
+
+def window_tally(device) -> dict[str, int]:
+    """The window route's tally on ``device`` since the last reset: band
+    pairs scored, dot pairs the tiles took (64 query slots a tile), queries
+    whose walk took a row outside the band, rows the walks read. Reading it
+    waits for the card; the search never does."""
+    return dict(zip(TALLY_NAMES, _tally(torch.device(device)).tolist()))
+
+
+def reset_window_tally(device) -> None:
+    _tally(torch.device(device)).zero_()
+
+
+def _window_sizes(lib) -> tuple[int, int]:
+    qmax, ws_len = ctypes.c_int(), ctypes.c_int()
+    lib.mrs_energy_window_sizes(ctypes.byref(qmax), ctypes.byref(ws_len))
+    return qmax.value, ws_len.value
+
+
+def energy_topk_window(X, norms, s_lam, s_idx, Q, q_lams, k: int):
+    """:func:`energy_topk`'s answer through the tie bands: ``X [N, F]``,
+    ``norms [N]``, the index's ascending λ ``s_lam [N]`` (float32, NaN
+    last) and the item at each position ``s_idx [N]`` (int64), queries
+    ``Q [B, F]`` and ``q_lams [B]``. Returns ``(indices [B, k] int64,
+    distances [B, k] float32)``. CPU tensors take
+    :func:`energy_topk_window_plain`; CUDA tensors launch the window
+    kernels, 1,024 queries at a time, with no read-back (``1 ≤ k ≤
+    min(16, N)``, else ``ValueError``)."""
+    if X.device.type == "cpu":
+        return energy_topk_window_plain(X, norms, s_lam, s_idx, Q, q_lams, k)
+    n, f = X.shape
+    b = Q.shape[0]
+    if (Q.shape != (b, f) or norms.shape != (n,) or s_lam.shape != (n,) or s_idx.shape != (n,)
+            or q_lams.shape != (b,)):
+        raise ValueError("energy window: inconsistent shapes")
+    if not 1 <= k <= min(K_MAX, n) or n >= sfk.EMPTY_ID:
+        raise ValueError(f"energy window kernel: k={k} outside [1, min(16, N={n})]")
+    lib = _cuda.library("energy_window")
+    for name, t in dict(X=X, norms=norms, s_lam=s_lam, Q=Q, q_lams=q_lams).items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"energy window kernel: {name} must be float32, got {t.dtype}")
+    if s_idx.dtype != torch.int64:
+        raise ValueError(f"energy window kernel: s_idx must be int64, got {s_idx.dtype}")
+    dev = _cuda.require_cuda("energy window kernel", X=X, norms=norms, s_lam=s_lam, s_idx=s_idx,
+                             Q=Q, q_lams=q_lams)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return ids.long(), -vals
+    qmax, ws_len = _window_sizes(lib)
+    grid = sfk.blocks_per_wave(dev)
+    qn = query_norms(Q)
+    ws = torch.empty(ws_len, dtype=torch.int64, device=dev)
+    pv = torch.empty((min(b, qmax), grid, k), dtype=torch.float32, device=dev)
+    pi = torch.empty((min(b, qmax), grid, k), dtype=torch.int32, device=dev)
+    tally = _tally(dev)
+    for c0 in range(0, b, qmax):
+        c1 = min(b, c0 + qmax)
+        rc = lib.mrs_energy_window(
+            X.data_ptr(), norms.data_ptr(), s_lam.data_ptr(), s_idx.data_ptr(),
+            Q[c0:c1].data_ptr(), qn[c0:c1].data_ptr(), q_lams[c0:c1].data_ptr(), n, f, c1 - c0,
+            k, grid, ws.data_ptr(), pv.data_ptr(), pi.data_ptr(), vals[c0:c1].data_ptr(),
+            ids[c0:c1].data_ptr(), tally.data_ptr(), _cuda.stream_ptr(dev),
+        )
+        _cuda.check(lib, rc, "energy window kernel")
+        kernels.count("energy_window")
+    return ids.long(), -vals
+
+
+def _band(sl, ql):
+    """``[lo, hi)``: the positions of the ascending λ ``sl`` whose
+    ``|ql − λ|`` is below ``TIE_EPS``, by the kernel's two predicates."""
+    d = torch.abs(ql - sl)
+    lo = int(torch.sum(~((sl >= ql) | (d < TIE_EPS))))
+    hi = sl.shape[0] - int(torch.sum((sl > ql) & ~(d < TIE_EPS)))
+    return lo, hi, (-d).tolist()
+
+
+def energy_topk_window_plain(X, norms, s_lam, s_idx, Q, q_lams, k: int):
+    """The window rule in plain PyTorch and Python, as the kernels apply
+    it: per query the k first of its band's rows under (−s descending, id
+    ascending), then the walks out of the band on both sides, a row at a
+    time, each side stopping at the first row that ranks after the k-th.
+    The scores are :func:`energy_scores_plain`'s, read only in the band;
+    a row outside it is taken at ``−|Δλ|``. Rows with a NaN score are never
+    taken; where fewer than k can be, the rest is ``(2^31 − 1, inf)``, as
+    the kernel leaves it. Returns ``(indices [B, k] int64, distances
+    [B, k] float32)``."""
+    b = Q.shape[0]
+    lam = torch.empty_like(s_lam)
+    lam[s_idx] = s_lam
+    neg = (-energy_scores_plain(X, norms, lam, Q, q_lams)).tolist()
+    nv = int(torch.sum(~torch.isnan(s_lam)))
+    sl, items = s_lam[:nv], s_idx[:nv].tolist()
+    out_i = torch.full((b, k), sfk.EMPTY_ID, dtype=torch.int64)
+    out_v = torch.full((b, k), -float("inf"), dtype=torch.float32)
+    for q in range(b):
+        if torch.isnan(q_lams[q]):
+            continue
+        lo, hi, negd = _band(sl, q_lams[q])
+        best: list[tuple[float, int]] = []      # (−v, id) ascending: the list, best first
+
+        def take(v: float, i: int) -> None:
+            key = (-v, i)
+            if v == v and (len(best) < k or key < best[-1]):
+                bisect.insort(best, key)
+                del best[k:]
+
+        for p in range(lo, hi):
+            take(neg[q][items[p]], items[p])
+        left, right = lo - 1, hi
+        while left >= 0 or right < nv:
+            if left >= 0:
+                take(negd[left], items[left])
+                left = -1 if len(best) == k and negd[left] < -best[-1][0] else left - 1
+            if right < nv:
+                take(negd[right], items[right])
+                right = nv if len(best) == k and negd[right] < -best[-1][0] else right + 1
+        for e, (mv, i) in enumerate(best):
+            out_v[q, e], out_i[q, e] = -mv, i
+    return out_i.to(Q.device), (-out_v).to(Q.device)

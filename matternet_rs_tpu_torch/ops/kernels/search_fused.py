@@ -68,15 +68,21 @@ def _split_rows(n: int, splits: int) -> int:
     return -(-tiles // splits) * TILE_ROWS
 
 
-def default_splits(n: int, b: int, device: torch.device) -> int:
-    """Ranges of N per query block: one wave of the scan's blocks, two per
-    multiprocessor (each block holds a range's lists to its end, so a
-    second wave only re-reads the queries), at most one range per tile."""
-    tiles = -(-n // TILE_ROWS)
-    qblocks = -(-b // _QUERY_BLOCK)
+def blocks_per_wave(device: torch.device) -> int:
+    """Blocks of the full-f32 scans that one wave holds: two per
+    multiprocessor (one multiprocessor off a card)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count \
         if device.type == "cuda" else 1
-    return max(1, min(tiles, (_BLOCKS_PER_SM * sms) // qblocks))
+    return _BLOCKS_PER_SM * sms
+
+
+def default_splits(n: int, b: int, device: torch.device) -> int:
+    """Ranges of N per query block: one wave of the scan's blocks (each
+    block holds a range's lists to its end, so a second wave only re-reads
+    the queries), at most one range per tile."""
+    tiles = -(-n // TILE_ROWS)
+    qblocks = -(-b // _QUERY_BLOCK)
+    return max(1, min(tiles, blocks_per_wave(device) // qblocks))
 
 
 def scan_partials_plain(Xn, lambdas, Qn, q_lambdas, k: int, alpha: float, splits: int):

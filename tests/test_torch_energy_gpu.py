@@ -130,7 +130,15 @@ def _scan_case(n, f, b, kind, seed, misalign):
     whole group); ``one_lambda``: every row and query on one λ;
     ``duplicates``: groups, with forty copies of row 7 (and its λ) and
     query 0 on it; ``edge``: λ at and around 1e-9 from the queries'.
-    ``misalign`` puts X 4 bytes off a 16-byte boundary."""
+    ``misalign`` puts X 4 bytes off a 16-byte boundary. For the window
+    route (as ``test_torch_energy_scan._corpus``): ``small_band`` (each
+    query's λ on three rows), ``near_zero`` (distinct λ within 1e-9 near
+    0), ``under_kth`` (rows 1.1–5e-9 off the band, band rows pointing away
+    from the queries), ``both_sides`` (λ at 0.25 ± j·2⁻²⁴, queries at
+    0.25), ``absent`` (queries between the five λ values), ``merged_d``
+    (distinct λ below 3e-7 that ``1 − λ`` rounds to few distances, queries
+    at 1) and ``nan``
+    (groups, with NaN λ on some rows and NaN query λ on some queries)."""
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n, f), dtype=np.float32)
     Q = rng.standard_normal((b, f), dtype=np.float32)
@@ -145,6 +153,32 @@ def _scan_case(n, f, b, kind, seed, misalign):
         eps = np.float32(1e-9)
         steps = np.float32([0, eps, np.nextafter(eps, 0), np.nextafter(eps, 1), 2 * eps, eps / 2])
         lam, ql[:] = steps[rng.integers(0, len(steps), n)], 0.0
+    elif kind == "small_band":
+        ql = lam[rng.choice(n, b, replace=False)]
+        for r, v in enumerate(ql):
+            lam[[(3 * r + 11) % n, (3 * r + 12) % n]] = v
+    elif kind == "near_zero":
+        lam = (rng.integers(0, 30, n) * 1e-10).astype(np.float32)
+        ql = (rng.integers(0, 30, b) * 1e-10).astype(np.float32)
+    elif kind == "under_kth":
+        off = np.float32([0, 0, 0, 0, 1.1e-9, -1.5e-9, 2.5e-9, -5e-9])
+        pick = rng.integers(0, len(off), n)
+        lam, ql[:] = np.float32(1e-8) + off[pick], 1e-8
+        base = rng.standard_normal(f, dtype=np.float32)
+        Q = (base + 0.1 * Q).astype(np.float32)
+        X[pick < 4] = -base + 0.1 * X[pick < 4]
+    elif kind == "both_sides":
+        lam = (0.25 + rng.choice([-3, -2, -1, 1, 2, 3], n) * 2.0**-24).astype(np.float32)
+        ql[:] = 0.25
+    elif kind == "absent":
+        levels = np.float32([0.0, 0.125, 0.3, 0.55, 1.0])
+        lam = levels[rng.integers(0, 5, n)]
+        ql = np.float32([0.0625, 0.2, 0.4, 0.7])[rng.integers(0, 4, b)]
+    elif kind == "merged_d":
+        lam, ql[:] = (rng.random(n, dtype=np.float32) * 3e-7).astype(np.float32), 1.0
+    elif kind == "nan":
+        levels = np.float32([0.0, 0.125, 0.3, np.nan])
+        lam, ql = levels[rng.integers(0, 4, n)], levels[rng.integers(0, 4, b)]
     if kind == "duplicates":
         X[100:140], lam[100:140] = X[7], lam[7]
         Q[0], ql[0] = X[7], lam[7]
@@ -242,16 +276,17 @@ def test_energy_scan_kernel_refuses_k_above_16():
 @pytest.mark.parametrize("k", [K, 17])
 def test_energy_full_scan_is_one_scan_and_one_merge_with_no_sync_and_no_sort(energy_index,
                                                                              monkeypatch, k):
-    """``search_energy_batch``'s full scan at k ≤ 16: one ``energy_scan``
-    and one ``search_fused_merge`` launch a batch and nothing else
-    counted, no call that waits for the card inside the kernel route
-    (``set_sync_debug_mode("error")``), no sort kernel on the card, and
-    ``route="kernel"`` on the ``search.scan`` span. At k = 17 the plain
-    version, and no launch."""
+    """``search_energy_batch``'s full scan at k ≤ 16 on an index built on
+    the card: the window route, one ``energy_window`` launch a batch and
+    nothing else counted (its plan, band scan and walks are one C call; G's
+    merge is not needed), no call that waits for the card inside the
+    route (``set_sync_debug_mode("error")``), no sort kernel on the card,
+    and ``route="window"`` on the ``search.scan`` span. At k = 17 the
+    plain version, and no launch."""
 
     _, aspace, gl, Q = energy_index
     want_i, want_d = tem.search_energy_batch(aspace, Q, gl, k)       # first use's copies
-    topk = esk.energy_topk
+    topk = esk.energy_topk_window
 
     def without_sync(*a, **kw):
         torch.cuda.set_sync_debug_mode("error")
@@ -260,7 +295,7 @@ def test_energy_full_scan_is_one_scan_and_one_merge_with_no_sync_and_no_sort(ene
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    monkeypatch.setattr(esk, "energy_topk", without_sync)
+    monkeypatch.setattr(esk, "energy_topk_window", without_sync)
     torch.cuda.synchronize()
     kernels.reset_launches()
     profiling.clear_spans()
@@ -268,12 +303,158 @@ def test_energy_full_scan_is_one_scan_and_one_merge_with_no_sync_and_no_sort(ene
         gi, gd = tem.search_energy_batch(aspace, Q, gl, k)
     counts = kernels.launch_counts()
     kernel = k <= esk.K_MAX
-    assert counts == {name: int(kernel and name in ("energy_scan", "search_fused_merge"))
+    assert counts == {name: int(kernel and name == "energy_window")
                       for name in kernels.LAUNCHES}, counts
     route = [s.attrs for s in profiling.spans() if s.name == "search.scan"]
-    assert route == [{"route": "kernel" if kernel else "plain"}]
+    assert route == [{"route": "window" if kernel else "plain"}]
     device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert device_ops
     sorts = [name for name in device_ops if "sort" in name.lower()]
     assert (not sorts) if kernel else sorts, sorts[:3]
     assert np.array_equal(gi, want_i) and np.array_equal(gd.view(np.int32), want_d.view(np.int32))
+
+
+# -- the window route (csrc/energy_window.cu) -----------------------------------
+
+LAW_N = 100_000
+
+
+@pytest.fixture(scope="module")
+def law_index():
+    """The energy cell's law and builder (``portbench``'s ``blobs5`` is
+    ``make_energy_test_dataset``'s law; ``bench_energy``'s settings) at
+    100,000 rows, and held-out queries of the same law."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if backend.nvcc_path() is None:
+        pytest.skip("needs nvcc to build the kernels")
+    data = make_energy_test_dataset(LAW_N, F, seed=45).astype(np.float32)
+    b = (ArrowSpaceBuilder().with_lambda_graph(1.0, 6).with_sparsity_check(False)
+         .with_cluster_params(max_clusters=250, radius=25.0).with_sampling(None)
+         .with_expected_items(LAW_N).with_dims_reduction(True))
+    aspace, gl = b.build_energy(data)
+    held_out = make_energy_test_dataset(5000, F, seed=46).astype(np.float32)
+    return data, aspace, gl, held_out
+
+
+def _same_bits(a, b):
+    (ai, ad), (bi, bd) = a, b
+    assert ai.dtype == bi.dtype == torch.int64 and ad.dtype == bd.dtype == torch.float32
+    assert torch.equal(ai, bi)
+    assert torch.equal(ad.contiguous().view(torch.int32), bd.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 256, 1000])
+def test_window_route_is_the_scan_on_the_cells_law(law_index, b):
+    """On the cell's law the window route gives ``energy_scan`` + G's merge
+    bit for bit, ids and distances, at k 1, 10 and 16; it launches once,
+    scores every band pair, and never takes more dot pairs than the full
+    scan's tiles (at B = 256 fewer than half)."""
+    _, aspace, gl, held_out = law_index
+    dev = aspace.device
+    Q = torch.from_numpy(held_out[np.random.default_rng(b).choice(len(held_out), b,
+                                                                  replace=False)]).to(dev)
+    ql = tem._batch_query_lambdas(aspace.sub_centroids, aspace._subcentroid_lambdas_dev(),
+                                  aspace._energy_query(Q))
+    view = tem._window_view(aspace)
+    assert view is not None
+    arrs = (aspace.data, aspace.item_norms)
+    band = int((torch.abs(ql[:, None] - aspace.lambdas[None, :]) < esk.TIE_EPS).sum())
+    for k in (1, 10, 16):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        esk.reset_window_tally(dev)
+        got = esk.energy_topk_window(*arrs, *view, Q, ql, k)
+        assert kernels.launch_counts()["energy_window"] == 1
+        _same_bits(got, esk.energy_topk(*arrs, aspace.lambdas, Q, ql, k))
+        tally = esk.window_tally(dev)
+        full = -(-b // 64) * 64 * -(-LAW_N // 256) * 256
+        assert tally["band_pairs"] == band and tally["dot_pairs"] <= full, tally
+        if b == 256:
+            assert tally["dot_pairs"] < full // 2, tally
+
+
+WINDOW_CASES = [
+    (1, 1, 128, "random", False),
+    (7, 3001, 96, "groups", False),
+    (1000, 70_001, 128, "groups", False),
+    (7, 2777, 130, "one_lambda", False),
+    (256, 40_000, 1, "duplicates", False),
+    (7, 5000, 128, "duplicates", True),
+    (64, 70_001, 96, "edge", False),
+    (256, 65_536, 128, "random", False),
+    (7, 9000, 130, "small_band", True),
+    (64, 9000, 128, "near_zero", False),
+    (256, 20_000, 64, "under_kth", False),
+    (7, 5000, 32, "both_sides", False),
+    (1000, 30_000, 128, "absent", False),
+    (64, 3001, 16, "nan", False),
+    (7, 20_000, 128, "merged_d", False),
+    (1300, 20_000, 64, "groups", False),
+]
+
+
+@pytest.mark.parametrize("b,n,f,kind,misalign", WINDOW_CASES)
+def test_window_route_is_the_scan_on_every_corpus(b, n, f, kind, misalign):
+    """The window route against ``energy_scan`` + G's merge, bit for bit,
+    at k 1, 10 and 16 (up to N): tied groups, one λ for all (the full scan
+    in another form), duplicate rows, the band's edge, bands of fewer than
+    k, distinct λ within 1e-9 near 0, rows outside the band under its k-th
+    score, equal distances on both sides, query λ that no row has, NaN λ
+    and query λ, N not a multiple of 256, B up to 1300 (two launches of
+    at most 1024 queries), X off 16 bytes.
+    The walks take rows past the band where the corpus puts them there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    X, norms, lam, Q, ql = _scan_case(n, f, b, kind, n + b, misalign)
+    s_lam, s_idx = torch.sort(lam, stable=True)
+    esk.reset_window_tally(X.device)
+    for k in (1, 10, 16):
+        if k <= n:
+            _same_bits(esk.energy_topk_window(X, norms, s_lam, s_idx, Q, ql, k),
+                       esk.energy_topk(X, norms, lam, Q, ql, k))
+    if kind in ("small_band", "under_kth", "both_sides", "absent", "merged_d"):
+        assert esk.window_tally(X.device)["queries_past_band"] > 0
+
+
+def test_window_route_follows_append_mutation_and_replaced_lambdas(law_index):
+    """On a copy of the law's index: the route is the window, equal to the
+    scan, before and after ``add_items``, ``set_item`` (rows change, λ do
+    not) and ``scale_item`` (λ recomputed, the view sorted anew); λ replaced
+    without a new view send the search to ``energy_scan``."""
+    data, aspace, gl, held_out = law_index
+    p = aspace.projection
+    space, sgl = convert.arrowspace_from_arrays(
+        aspace.data.cpu().numpy(), aspace.lambdas.cpu().numpy(), gl.matrix.cpu().numpy(),
+        min_lambdas=aspace.min_lambdas, max_lambdas=aspace.max_lambdas,
+        range_lambdas=aspace.range_lambdas,
+        projection=None if p is None else (p.original_dim, p.reduced_dim, p.seed),
+        sub_centroids=aspace.sub_centroids.cpu().numpy(),
+        subcentroid_lambdas=aspace.subcentroid_lambdas, centroid_map=aspace.centroid_map,
+        item_norms=aspace.item_norms.cpu().numpy(), device=aspace.device)
+    Qh = held_out[:64]
+
+    def check(route):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        gi, gd = tem.search_energy_batch(space, Qh, sgl, K)
+        counts = kernels.launch_counts()
+        assert counts["energy_window" if route == "window" else "energy_scan"] == 1, counts
+        Q = torch.from_numpy(Qh).to(space.device)
+        ql = tem._batch_query_lambdas(space.sub_centroids, space._subcentroid_lambdas_dev(),
+                                      space._energy_query(Q))
+        wi, wd = esk.energy_topk(space.data, space.item_norms, space.lambdas, Q, ql, K)
+        assert np.array_equal(gi, wi.cpu().numpy())
+        assert np.array_equal(gd.view(np.int32), wd.cpu().numpy().view(np.int32))
+
+    check("window")
+    space.add_items(held_out[100:400], sgl)
+    check("window")
+    space.set_item(5, held_out[500])
+    check("window")
+    space.scale_item(7, 2.0, sgl)
+    assert tem._window_view(space) is not None
+    check("window")
+    space.lambdas = space.lambdas.clone()
+    assert tem._window_view(space) is None
+    check("kernel")

@@ -1,11 +1,14 @@
 """The energy full scan's kernel route (``ops/kernels/energy_scan.py``), on
 the CPU: the plain version is the scan as ``energymaps`` wrote it before
 the kernel (the ``[B, N]`` scores, then ``topk_stable``) bit for bit; the
+window rule (the band's k first, then the walks) is the full scan bit for
+bit on every corpus, and each corpus reaches its case; the
 merge kernel's 64-bit keys of −s (``search_fused.order_keys``), taken per
 N-range and merged as the kernels take them, give ``topk_stable``'s order
 on tied λ groups, duplicate rows, ``|Δλ|`` exactly 0, the tie band's edge
-and ±0.0; the route is the kernel on a CUDA device for 1 ≤ k ≤ 16 only;
-without a card the kernel is refused and nothing is counted. The card's
+and ±0.0; the route is the kernel on a CUDA device for 1 ≤ k ≤ 16 only,
+the window where a current sorted view lies on the card; without a card
+both kernels are refused and nothing is counted. The card's
 side is ``test_torch_energy_gpu.py``."""
 
 import numpy as np
@@ -34,7 +37,16 @@ def _corpus(n, f, b, seed, kind="random"):
     λ values, each query on one of them (|Δλ| exactly 0 for a whole
     group); ``one_lambda``: every row and query on one λ; ``duplicates``:
     groups, with forty copies of row 7 and of its λ where N > 140; ``edge``: λ at and
-    around 1e-9 from the queries' (the tie band's edge)."""
+    around 1e-9 from the queries' (the tie band's edge). For the window
+    rule: ``small_band``: distinct λ, each query's shared by three rows
+    (a band of fewer than k); ``near_zero``: distinct λ within 1e-9 of each
+    other near 0, every query its own band; ``under_kth``: half the rows on
+    the queries' λ and pointing away from them, the rest 1.1–5e-9 from
+    it, under the band's k-th score; ``both_sides``: λ at 0.25 ± j·2⁻²⁴, equal distances on both
+    sides of the queries' 0.25, which no row has; ``absent``: five λ
+    values, the queries between them (an empty band); ``merged_d``: distinct
+    λ below 3e-7 and queries at 1, so that ``1 − λ`` rounds many λ to one
+    distance, their ids out of order along the sorted λ."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, f)).astype(np.float32)
     Q = rng.normal(size=(b, f)).astype(np.float32)
@@ -53,6 +65,31 @@ def _corpus(n, f, b, seed, kind="random"):
                             eps / 2])
         ql[:] = 0.0
         lam = steps[rng.integers(0, len(steps), n)]
+    elif kind == "small_band":
+        ql = lam[rng.choice(n, b, replace=False)]
+        for r, v in enumerate(ql):
+            lam[[(3 * r + 11) % n, (3 * r + 12) % n]] = v
+    elif kind == "near_zero":
+        lam = (rng.integers(0, 30, n) * 1e-10).astype(np.float32)
+        ql = (rng.integers(0, 30, b) * 1e-10).astype(np.float32)
+    elif kind == "under_kth":
+        ql[:] = 1e-8
+        off = np.float32([0, 0, 0, 0, 1.1e-9, -1.5e-9, 2.5e-9, -5e-9])
+        pick = rng.integers(0, len(off), n)
+        lam = np.float32(1e-8) + off[pick]
+        base = rng.normal(size=f).astype(np.float32)    # band rows point away from every query
+        Q = (base + 0.1 * Q).astype(np.float32)
+        X[pick < 4] = -base + 0.1 * X[pick < 4]
+    elif kind == "both_sides":
+        ql[:] = 0.25
+        lam = (0.25 + rng.choice([-3, -2, -1, 1, 2, 3], n) * 2.0**-24).astype(np.float32)
+    elif kind == "absent":
+        levels = np.float32([0.0, 0.125, 0.3, 0.55, 1.0])
+        lam = levels[rng.integers(0, 5, n)]
+        ql = np.float32([0.0625, 0.2, 0.4, 0.7])[rng.integers(0, 4, b)]
+    elif kind == "merged_d":
+        lam = (rng.random(n) * 3e-7).astype(np.float32)
+        ql[:] = 1.0
     if kind == "duplicates" and n > 140:
         X[100:140] = X[7]
         lam[100:140] = lam[7]
@@ -117,6 +154,106 @@ def test_keys_hold_plus_and_minus_zero_equal():
         assert torch.equal(_by_keys(neg, k, 2), want)
 
 
+WINDOW_KINDS = KINDS + ["small_band", "near_zero", "under_kth", "both_sides", "absent",
+                       "merged_d"]
+
+
+def _sorted(lam):
+    return torch.sort(lam, stable=True)
+
+
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+@pytest.mark.parametrize("n,f,b", [(1000, 16, 7), (2777, 24, 5)])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_window_rule_is_the_full_scan(n, f, b, k, kind):
+    """The window rule (the band's k first, then the walks out of it) gives
+    the full scan's ids and distances bit for bit; on the CPU the wrapper
+    takes the plain rule. N is not a multiple of 256."""
+    X, norms, lam, Q, ql = _corpus(n, f, b, n + f + k, kind)
+    want_i, want_d = esk.energy_topk_plain(X, norms, lam, Q, ql, k)
+    for fn in (esk.energy_topk_window_plain, esk.energy_topk_window):
+        got_i, got_d = fn(X, norms, *_sorted(lam), Q, ql, k)
+        assert got_i.dtype == torch.int64 and got_d.dtype == torch.float32
+        assert torch.equal(got_i, want_i)
+        assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind,case", [
+    ("small_band", "band under k"), ("near_zero", "bands differ"), ("under_kth", "past the band"),
+    ("both_sides", "equal d both sides"), ("absent", "empty band"), ("edge", "the band's edge"),
+    ("merged_d", "one d, several λ"),
+])
+def test_window_corpora_reach_their_case(kind, case):
+    """Each corpus of the window tests reaches what it is there for, at k =
+    10: a band of fewer than k rows, bands that differ from query to
+    query, rows outside the band in the answer, an answer that holds equal
+    distances from both sides of the query's λ, an empty band, a band
+    whose last row lies one float below 1e-9 with a row at 1e-9 beside it,
+    an answer whose equal distances come from distinct λ with ids out of
+    their sorted order."""
+    k = 10
+    X, norms, lam, Q, ql = _corpus(1000, 16, 7, 7, kind)
+    s_lam, s_idx = _sorted(lam)
+    bands = [esk._band(s_lam, ql[q])[:2] for q in range(len(ql))]
+    idx, _ = esk.energy_topk_plain(X, norms, lam, Q, ql, k)
+    outside = [set(idx[q].tolist()) - set(s_idx[lo:hi].tolist()) for q, (lo, hi) in enumerate(bands)]
+    if case == "band under k":
+        assert all(0 < hi - lo < k for lo, hi in bands)
+    elif case == "bands differ":
+        assert len(set(bands)) > 1 and all(hi > lo for lo, hi in bands)
+    elif case == "past the band":
+        assert all(hi - lo >= k for lo, hi in bands) and any(outside)
+    elif case == "equal d both sides":
+        d = torch.abs(ql[0] - lam[idx[0]])
+        assert bool(torch.any((lam[idx[0]] < ql[0]) & (d == d.max())))
+        assert bool(torch.any((lam[idx[0]] > ql[0]) & (d == d.max())))
+    elif case == "empty band":
+        assert all(hi == lo for lo, hi in bands)
+    elif case == "one d, several λ":
+        d = torch.abs(ql[0] - lam[idx[0]])
+        tied = idx[0][d == d[0]]
+        assert len(set(lam[tied].tolist())) > 1 and all(hi == lo for lo, hi in bands)
+        pos = torch.argsort(s_idx)[tied]             # sorted positions of the tied answer
+        assert not bool(torch.all(pos[1:] > pos[:-1]))
+    else:
+        eps = np.float32(1e-9)
+        lo, hi = bands[0]
+        assert float(s_lam[hi - 1]) == np.nextafter(eps, np.float32(0)) and float(s_lam[hi]) == eps
+
+
+@pytest.mark.parametrize("k,device,window,route", [
+    (1, "cuda", True, "window"), (10, "cuda", True, "window"), (16, "cuda", True, "window"),
+    (10, "cuda", False, "kernel"), (17, "cuda", True, "plain"), (0, "cuda", True, "plain"),
+    (10, "cpu", True, "plain"),
+])
+def test_window_route_needs_a_card_and_a_view(k, device, window, route):
+    assert esk.route(torch.device(device), k, window=window) == route
+
+
+def test_window_view_is_the_current_lambdas_on_a_card():
+    """The route takes the sorted view only where it was sorted from the
+    space's current λ tensor and lies on a card; a host index, a view on
+    the CPU and a view of replaced λ give none."""
+    from types import SimpleNamespace
+
+    from matternet_rs_tpu_torch import energymaps as tem
+    from matternet_rs_tpu_torch.index.sorted import DeviceSortedLambdas, SortedLambdas
+
+    lam = torch.rand(300)
+    view = DeviceSortedLambdas.build_from(lam)
+    assert view.source is lam
+    assert torch.equal(view.sorted_indices_dev, torch.sort(lam, stable=True)[1])
+    space = SimpleNamespace(lambdas=lam, lambdas_sorted=view)
+    assert tem._window_view(space) is None                       # on the CPU
+    space.lambdas_sorted = SortedLambdas.build_from(lam.numpy())
+    assert tem._window_view(space) is None
+    space.lambdas_sorted = DeviceSortedLambdas(view.sorted_lambdas_dev.to("meta"),
+                                               view.sorted_indices_dev.to("meta"), 0.0, source=lam)
+    assert tem._window_view(space) is None                       # not a CUDA device
+    space.lambdas = lam.clone()
+    assert tem._window_view(space) is None                       # λ replaced
+
+
 @pytest.mark.parametrize("k,device,route", [
     (1, "cuda", "kernel"), (10, "cuda", "kernel"), (16, "cuda", "kernel"),
     (17, "cuda", "plain"), (0, "cuda", "plain"), (10, "cpu", "plain"), (16, "cpu", "plain"),
@@ -148,4 +285,9 @@ def test_kernel_is_refused_without_a_card():
             esk.scan_partials(*arrs[:4], torch.empty(4, **m), arrs[4], 10, splits)
     with pytest.raises(ValueError, match="k=17"):
         esk.energy_topk(*arrs, 17)
+    s_idx = torch.empty(4096, device="meta", dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        esk.energy_topk_window(arrs[0], arrs[1], arrs[2], s_idx, arrs[3], arrs[4], 10)
+    with pytest.raises(ValueError, match="k=17"):
+        esk.energy_topk_window(arrs[0], arrs[1], arrs[2], s_idx, arrs[3], arrs[4], 17)
     assert kernels.launch_counts() == {name: 0 for name in kernels.LAUNCHES}
