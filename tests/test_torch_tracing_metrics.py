@@ -3,9 +3,13 @@
 hand-built span list, reads only the window's spans, gives nothing without
 a ``search.batch`` root (an untraced run, or a program that records no
 spans), and is listed for the three accepted cells, the streaming sketch's
-cell and the JL cell after them, each of which reports ``search_qps``, the
-metric they move; ``entry.lambda_ms`` (the query λ's span) for the JL cell
-and the exact cell, its point of comparison."""
+cell, the JL cell and the JL energy cell after them, each of which reports
+``search_qps``, the metric they move; ``entry.lambda_ms`` (the query λ's
+span) for the JL cell, the exact cell, its point of comparison, and the
+JL energy cell. ``scan.window_fill`` (``portbench/metrics/scan.window_fill.py``)
+gives band pairs over dot pairs of the energy window route's tally, nothing
+without a card, without the tally or at no dot pair, and is listed for the
+two energy cells."""
 
 import types
 
@@ -15,10 +19,13 @@ from matternet_rs_tpu_torch.utils import profiling
 from portbench.harness.manifest import ROOT, Manifest
 
 CELLS = ["eigen-blobs1m.exact-b256", "energy-blobs1m.scan-b256", "eigen-blobs1m.bf16x3-b1024",
-         "stream-centres10m.sketch-b1024", "eigen-jl1536-centres1m.exact1536-b256"]
+         "stream-centres10m.sketch-b1024", "eigen-jl1536-centres1m.exact1536-b256",
+         "energy-jl1536-centres1m.scan1536-b256"]
 METRICS = ["entry.host_ms", "entry.fetch_ms", "entry.syncs"]
 READERS = METRICS + ["entry.lambda_ms"]
-LAMBDA_CELLS = ["eigen-jl1536-centres1m.exact1536-b256", "eigen-blobs1m.exact-b256"]
+LAMBDA_CELLS = ["eigen-jl1536-centres1m.exact1536-b256", "eigen-blobs1m.exact-b256",
+                "energy-jl1536-centres1m.scan1536-b256"]
+FILL_CELLS = ["energy-jl1536-centres1m.scan1536-b256", "energy-blobs1m.scan-b256"]
 MS = 1_000_000
 OPENED_S = 10.0                         # the window opens at 10 s on perf_counter
 
@@ -112,4 +119,44 @@ def test_lambda_metric_is_listed_for_the_jl_cell_and_the_exact_cell():
     assert m["workloads"] == LAMBDA_CELLS and m["source"] == "program_span"
     assert m["layer"] == "entry" and m["moves"] == "search_qps" and m["better"] == "lower"
     for cell in LAMBDA_CELLS:
+        assert "search_qps" in {x["name"] for x in man.metrics_of(cell, "end_to_end")}
+
+
+def _fill(monkeypatch, tally, card=True):
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: card)
+    monkeypatch.setattr(energy_scan, "window_tally", lambda device: dict(tally))
+    return Manifest(ROOT).reader("scan.window_fill")({})
+
+
+def test_window_fill_is_band_pairs_over_dot_pairs(monkeypatch):
+    tally = {"band_pairs": 1_024_000, "dot_pairs": 40_960_000, "queries_past_band": 3,
+             "rows_walked": 90}
+    assert _fill(monkeypatch, tally) == pytest.approx(2.5, abs=1e-12)
+
+
+@pytest.mark.parametrize("tally,card", [
+    ({"band_pairs": 0, "dot_pairs": 0, "queries_past_band": 0, "rows_walked": 0}, True),
+    ({"band_pairs": 5, "dot_pairs": 64, "queries_past_band": 0, "rows_walked": 0}, False),
+], ids=["no_dot_pair", "no_card"])
+def test_window_fill_gives_nothing_without_a_dot_pair_or_a_card(monkeypatch, tally, card):
+    assert _fill(monkeypatch, tally, card) is None
+
+
+def test_window_fill_gives_nothing_from_a_program_without_the_tally(monkeypatch):
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: True)
+    monkeypatch.delattr(energy_scan, "window_tally")
+    assert Manifest(ROOT).reader("scan.window_fill")({}) is None
+
+
+def test_window_fill_is_listed_for_the_two_energy_cells():
+    man = Manifest(ROOT)
+    (m,) = [m for m in man.data["per_layer"] if m["name"] == "scan.window_fill"]
+    assert m["workloads"] == FILL_CELLS and m["source"] == "program_counter"
+    assert m["layer"] == "kernels" and m["moves"] == "search_qps" and m["better"] == "higher"
+    assert m["unit"] == "%"
+    for cell in FILL_CELLS:
         assert "search_qps" in {x["name"] for x in man.metrics_of(cell, "end_to_end")}
