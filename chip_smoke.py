@@ -443,6 +443,15 @@ Phases, one output line each (JSON):
    has a row at each (B, F) in {256, 1024} × {128, 96}, median τ: its
    wrapper, its C entry alone, 200 launches back to back, the plain chain
    it replaced, its launch plan and ptxas report.
+   The energy window route's designs (``window_designs``, a
+   ``window_designs`` line): its C entry alone, cold L2, B = 256, k = 10,
+   on the energy cell's law (phase 12's index and batch) and the energy JL
+   cell's (``jl_window_law``: 1M × 1536 rows of ``centres256``, each on its
+   centre's λ), in the design the port builds and in variants compiled
+   from the same source (``_cuda.variant``): no narrow tile (the design
+   before them) and narrow tiles of 4 and 16 queries, in turns; each
+   variant's ids and distances bit for bit ``energy_scan`` + G's merge's,
+   its tally (band pairs, dot pairs, the narrow tiles' share).
 
 Every phase line carries ``at_seconds``, the time since the script
 started; a ``total`` line gives the whole run's seconds. Then the
@@ -1046,6 +1055,107 @@ def energy_phase(dev, card):
     del aspace, gl, X
     torch.cuda.empty_cache()
     return {**tier_counts, "scans": scan_counts}, serve_counts, scan_inputs
+
+
+WINDOW_VARIANTS = (0, 4, 8, 16)   # narrow widths timed (0: no narrow tile, the earlier design)
+
+
+def jl_window_law(dev, n=1_000_000, f=1536, b=BATCH, seed=2**31 + 27):
+    """The energy JL cell's λ layout at its size, for the window route:
+    rows of the ``centres256`` law, each on its centre's λ (256 distinct
+    values, groups of ≈ 3,900 rows, as the cell's items carry their
+    sub-centroid's), and ``b`` held-out rows of the law on their centres'
+    λ, so that a batch of 256 falls into ≈ 160 bands of 1–6 queries.
+    Returns (X, norms, λ, sorted λ, sorted ids, Q, query λ) on ``dev``."""
+    import torch
+
+    from portbench.corpora import centres256
+
+    c = centres256.centres(f, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    levels = torch.sort(torch.rand(centres256.N_CENTRES, generator=g, device=dev))[0]
+
+    def law(m, chunk=1 << 18):
+        lab = torch.randint(0, centres256.N_CENTRES, (m,), generator=g, device=dev)
+        out = torch.empty((m, f), device=dev)
+        for s0 in range(0, m, chunk):
+            s1 = min(m, s0 + chunk)
+            out[s0:s1] = torch.randn((s1 - s0, f), generator=g, device=dev)
+            out[s0:s1] += c[lab[s0:s1]]
+        return out, levels[lab]
+
+    X, lam = law(n)
+    Q, ql = law(b)
+    return (X, torch.sqrt(torch.sum(X * X, dim=1)), lam, *torch.sort(lam, stable=True), Q, ql)
+
+
+def window_designs(dev, flush, laws, rounds=7):
+    """Phase ``kernels``'s window designs (module docstring): per law
+    (label → ``jl_window_law``'s tuple), per narrow width of
+    ``WINDOW_VARIANTS``, the C entry's median ms over ``rounds`` cold-L2
+    launches taken in turns, bit equality with ``energy_scan`` + G's merge
+    and one launch's tally."""
+    import torch
+
+    from matternet_rs_tpu_torch.ops.kernels import _cuda
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan as esk
+    from matternet_rs_tpu_torch.ops.kernels import search_fused as sfk
+
+    built = esk.narrow_width()
+    libs = {w: _cuda.library("energy_window") if w == built
+            else _cuda.variant("energy_window", f"WINDOW_NARROW_W={w}") for w in WINDOW_VARIANTS}
+    grid = sfk.blocks_per_wave(dev)
+    out = dict(built_narrow_w=built)
+    for label, (X, norms, lam, s_lam, s_idx, Q, ql) in laws.items():
+        (n, f), b = X.shape, Q.shape[0]
+        want_i, want_d = esk.energy_topk(X, norms, lam, Q, ql, K)
+        _, ws_len, _ = esk._window_sizes(libs[built])
+        qn = esk.query_norms(Q)
+        ws = torch.empty(ws_len, dtype=torch.int64, device=dev)
+        pv = torch.empty((b, grid, K), dtype=torch.float32, device=dev)
+        pi = torch.empty((b, grid, K), dtype=torch.int32, device=dev)
+        vals = torch.empty((b, K), dtype=torch.float32, device=dev)
+        ids = torch.empty((b, K), dtype=torch.int32, device=dev)
+        tally = torch.zeros(len(esk.TALLY_NAMES), dtype=torch.int64, device=dev)
+
+        def launch(lib):
+            rc = lib.mrs_energy_window(
+                X.data_ptr(), norms.data_ptr(), s_lam.data_ptr(), s_idx.data_ptr(), Q.data_ptr(),
+                qn.data_ptr(), ql.data_ptr(), n, f, b, K, grid, ws.data_ptr(), pv.data_ptr(),
+                pi.data_ptr(), vals.data_ptr(), ids.data_ptr(), tally.data_ptr(),
+                _cuda.stream_ptr(dev))
+            _cuda.check(lib, rc, "energy window kernel")
+
+        rows = {}
+        for w, lib in libs.items():
+            tally.zero_()
+            launch(lib)
+            t = dict(zip(esk.TALLY_NAMES, tally.tolist()))
+            same = bool(torch.equal(ids.long(), want_i)
+                        and torch.equal((-vals).view(torch.int32), want_d.view(torch.int32)))
+            check(same, f"window designs, {label}: narrow width {w} not bit for bit energy_scan's")
+            check(t["narrow_dot_pairs"] == 0 if w == 0 else t["narrow_dot_pairs"] <= t["dot_pairs"],
+                  f"window designs, {label}, W={w}: tally {t}")
+            rows[w] = dict(bit_equal=same, band_pairs=t["band_pairs"], dot_pairs=t["dot_pairs"],
+                           narrow_dot_pairs=t["narrow_dot_pairs"],
+                           fill_pct=100.0 * t["band_pairs"] / max(1, t["dot_pairs"]),
+                           narrow_share_pct=100.0 * t["narrow_dot_pairs"] / max(1, t["dot_pairs"]),
+                           ms=[])
+        for _ in range(rounds):
+            for w, lib in libs.items():
+                launch(lib)
+                flush.zero_()
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                launch(lib)
+                e.record()
+                e.synchronize()
+                rows[w]["ms"].append(s.elapsed_time(e))
+        for r in rows.values():
+            r["launch_ms"] = statistics.median(r["ms"])
+        out[label] = dict(shape=f"B={b} N={n} F={f} k={K}", **{f"W={w}": r for w, r in rows.items()})
+    return out
 
 
 def _timed_call(fn):
@@ -4638,6 +4748,12 @@ def main() -> int:
     s_one, i_one = torch.sort(one, stable=True)
     w_one = window_row("energy_window (one λ)", s_one, i_one, one, torch.full_like(eql, 0.4))
     del one, s_one, i_one
+    designs = window_designs(dev, flush, {
+        "energy": (eX, en, el, es_lam, es_idx, eQ, eql),
+        "energy_jl": jl_window_law(dev),
+    })
+    emit(phase="window_designs", card=card, **designs)
+    torch.cuda.empty_cache()
     rows_out.append(dict(
         name="energy_window", route="cuda", source="matternet_rs_tpu_torch/csrc/energy_window.cu",
         replaces="matternet_rs_tpu/energymaps.py search_energy_batch's full scan (no TPU kernel), "

@@ -24,12 +24,14 @@ for k ≤ 16 takes the window route (:func:`.ops.kernels.energy_scan.
 energy_topk_window`, ``csrc/energy_window.cu``) where the index's sorted-λ
 view lies on the card and was sorted from its current λ: each query's tie
 band ``|Δλ| < 1e-9`` is one run of the sorted λ, found on the card, and
-only the band's dots are taken, by queries grouped by band; a row outside
+only the band's dots are taken, by queries grouped by band (a band of a
+few queries on a narrow tile that streams its rows once); a row outside
 the band scores exactly ``|Δλ|``, so a walk out of the band on each side,
 stopped at the first row that cannot rank before the k-th, settles the
 answer, bit for bit ``energy_scan``'s (the proof is the kernel's header).
 Launches are counted under ``energy_window``; ``window_tally`` reads the
-band pairs, dot pairs and walks from a tally the search never reads.
+band pairs, dot pairs (and the narrow tiles' share) and walks from a
+tally the search never reads.
 Without such a view the route is ``energy_scan`` and G's merge, one
 streamed pass over all rows. Neither writes a ``[B, N]`` plane or sorts.
 Elsewhere (the CPU, k > 16, the banded window, the single-query scans) it

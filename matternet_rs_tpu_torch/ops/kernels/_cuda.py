@@ -11,6 +11,7 @@ after its launch and :func:`check` raises on a non-zero code.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import pathlib
 import threading
 
@@ -92,8 +93,9 @@ SIGNATURES = {
         # pvals, pids, vals, ids, tally, stream
         "mrs_energy_window": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P, _P, _P,
                               _P, _P, _P],
-        # queries a launch takes (out), workspace words (out)
-        "mrs_energy_window_sizes": [_P, _P],
+        # queries a launch takes (out), workspace words (out), queries a
+        # narrow tile holds (out)
+        "mrs_energy_window_sizes": [_P, _P, _P],
     },
 }
 
@@ -121,19 +123,35 @@ def specs() -> list[buildcache.Spec]:
     ]
 
 
+def _load(name: str, path: pathlib.Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.mrs_cuda_strerror.argtypes = [ctypes.c_int]
+    lib.mrs_cuda_strerror.restype = ctypes.c_char_p
+    return lib
+
+
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile (in parallel) and load every kernel library."""
     with _lock:
         if len(_libs) < len(SIGNATURES):
             for name, path in zip(SIGNATURES, buildcache.build(specs())):
-                lib = ctypes.CDLL(str(path))
-                for fn, argtypes in SIGNATURES[name].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                lib.mrs_cuda_strerror.argtypes = [ctypes.c_int]
-                lib.mrs_cuda_strerror.restype = ctypes.c_char_p
-                _libs[name] = lib
+                _libs[name] = _load(name, path)
         return dict(_libs)
+
+
+def variant(name: str, *defines: str) -> ctypes.CDLL:
+    """Library ``name`` compiled with ``-D`` switches (``"WINDOW_NARROW_W=0"``)
+    beside the one the wrappers load, for timing one design of a kernel
+    against another through its C entry points."""
+    (base,) = [s for s in specs() if s.name == name]
+    tag = "_".join(d.replace("=", "") for d in defines)
+    spec = dataclasses.replace(base, name=f"{name}_{tag}",
+                               cmd=(*base.cmd, *(f"-D{d}" for d in defines)))
+    (path,) = buildcache.build([spec])
+    return _load(name, path)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -27,21 +27,25 @@ rounded monotonically, it falls then rises along the sorted λ, so a
 query's band ``d < TIE_EPS`` is one run of sorted positions, found by
 binary search on the card. The band's rows, read through the sorted ids,
 are scored exactly as the scan scores them (the same FMA chain and
-epilogue) by queries grouped by band, 64 to a tile; a row outside the band
-scores exactly ``d``, so each query then walks out of its band on both
-sides, taking rows while one could still rank before its k-th, and stops
-at the first row that cannot (every row farther out has a larger ``d``).
+epilogue) by queries grouped by band: a band of at most
+:func:`narrow_width` queries (8) on a narrow tile that streams its rows
+once, a larger one 64 queries to a tile (:func:`window_plan_plain`
+mirrors the cut); a row outside the band scores exactly ``d``, so each
+query then walks out of its band on both sides, taking rows while one
+could still rank before its k-th, and stops at the first row that cannot
+(every row farther out has a larger ``d``).
 The proof is in the kernel's header. :func:`energy_topk_window_plain` is
 the same rule in plain PyTorch and Python. ``LAUNCHES["energy_window"]``
-counts the route's launches (the plan, the band's scan and the walks, one
-C call per 1,024 queries); :func:`window_tally` reads a tally kept on the
+counts the route's launches (the plan, the wide and narrow band scans and
+the walks, one C call per 1,024 queries); :func:`window_tally` reads a tally kept on the
 card (band pairs, dot pairs taken, queries whose walk took a row, rows
-walked), which the search never reads.
+walked, dot pairs taken by narrow tiles), which the search never reads.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import ctypes
 import threading
 
@@ -135,7 +139,9 @@ def energy_topk(X, norms, lambdas, Q, q_lams, k: int):
 # per process.
 _TALLY: dict[torch.device, torch.Tensor] = {}
 _TALLY_LOCK = threading.Lock()
-TALLY_NAMES = ("band_pairs", "dot_pairs", "queries_past_band", "rows_walked")
+TALLY_NAMES = ("band_pairs", "dot_pairs", "queries_past_band", "rows_walked", "narrow_dot_pairs")
+WINDOW_QUERIES = 1024         # queries one C call of the window route takes
+TILE_QUERIES, TILE_ROWS = 64, 256   # a wide tile's query slots and a tile's rows
 
 
 def _tally(device: torch.device) -> torch.Tensor:
@@ -150,9 +156,10 @@ def _tally(device: torch.device) -> torch.Tensor:
 
 def window_tally(device) -> dict[str, int]:
     """The window route's tally on ``device`` since the last reset: band
-    pairs scored, dot pairs the tiles took (64 query slots a tile), queries
-    whose walk took a row outside the band, rows the walks read. Reading it
-    waits for the card; the search never does."""
+    pairs scored, dot pairs the tiles took (query slots × rows of every
+    tile, 64 or ``narrow_width`` slots), queries whose walk took a row
+    outside the band, rows the walks read, dot pairs of the narrow tiles.
+    Reading it waits for the card; the search never does."""
     return dict(zip(TALLY_NAMES, _tally(torch.device(device)).tolist()))
 
 
@@ -160,10 +167,53 @@ def reset_window_tally(device) -> None:
     _tally(torch.device(device)).zero_()
 
 
-def _window_sizes(lib) -> tuple[int, int]:
-    qmax, ws_len = ctypes.c_int(), ctypes.c_int()
-    lib.mrs_energy_window_sizes(ctypes.byref(qmax), ctypes.byref(ws_len))
-    return qmax.value, ws_len.value
+def _window_sizes(lib) -> tuple[int, int, int]:
+    qmax, ws_len, narrow = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.mrs_energy_window_sizes(ctypes.byref(qmax), ctypes.byref(ws_len), ctypes.byref(narrow))
+    return qmax.value, ws_len.value, narrow.value
+
+
+def narrow_width() -> int:
+    """The queries a narrow tile of the loaded window kernels holds (a band
+    of at most that many takes one); 0 where they have no narrow tile."""
+    return _window_sizes(_cuda.library("energy_window"))[2]
+
+
+def window_plan_plain(s_lam, q_lams, narrow_w: int) -> dict[str, int]:
+    """What the window kernels' plan adds to the tally, in plain Python:
+    ``band_pairs``, ``dot_pairs`` and ``narrow_dot_pairs``, summed over the
+    C calls of 1,024 queries that :func:`energy_topk_window` makes. In one
+    call: each query's band (:func:`_band_edges`; none for a NaN λ or an
+    empty band), the banded queries sorted by (band, index), then two cuts,
+    the one with fewer 256-row tiles taken (the band cut on a tie): each
+    band its own groups, one narrow group of ``narrow_w`` slots where it
+    holds at most ``narrow_w`` queries, else groups of 64; or consecutive
+    64s of the sorted queries over the union of their bands."""
+    if len(q_lams) > WINDOW_QUERIES:
+        calls = [window_plan_plain(s_lam, q_lams[c:c + WINDOW_QUERIES], narrow_w)
+                 for c in range(0, len(q_lams), WINDOW_QUERIES)]
+        return {name: sum(c[name] for c in calls) for name in calls[0]}
+    nv = int(torch.sum(~torch.isnan(s_lam)))
+    bands = sorted((*_band_edges(s_lam[:nv], q)[:2], i) for i, q in enumerate(q_lams.tolist())
+                   if q == q)
+    bands = [(lo, hi) for lo, hi, _ in bands if lo < hi]
+
+    def tiles(lo, hi):
+        return -(-(hi - lo) // TILE_ROWS)
+
+    wide_b = narrow_b = 0
+    for (lo, hi), n in collections.Counter(bands).items():
+        if n <= narrow_w:
+            narrow_b += tiles(lo, hi)
+        else:
+            wide_b += -(-n // TILE_QUERIES) * tiles(lo, hi)
+    wide_u = sum(tiles(bands[c][0], max(hi for _, hi in bands[c:c + TILE_QUERIES]))
+                 for c in range(0, len(bands), TILE_QUERIES))
+    if wide_u < wide_b + narrow_b:
+        wide_b, narrow_b = wide_u, 0
+    narrow = narrow_b * narrow_w * TILE_ROWS
+    return dict(band_pairs=sum(hi - lo for lo, hi in bands),
+                dot_pairs=wide_b * TILE_QUERIES * TILE_ROWS + narrow, narrow_dot_pairs=narrow)
 
 
 def energy_topk_window(X, norms, s_lam, s_idx, Q, q_lams, k: int):
@@ -196,7 +246,7 @@ def energy_topk_window(X, norms, s_lam, s_idx, Q, q_lams, k: int):
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return ids.long(), -vals
-    qmax, ws_len = _window_sizes(lib)
+    qmax, ws_len, _ = _window_sizes(lib)
     grid = sfk.blocks_per_wave(dev)
     qn = query_norms(Q)
     ws = torch.empty(ws_len, dtype=torch.int64, device=dev)
@@ -216,12 +266,19 @@ def energy_topk_window(X, norms, s_lam, s_idx, Q, q_lams, k: int):
     return ids.long(), -vals
 
 
-def _band(sl, ql):
+def _band_edges(sl, ql):
     """``[lo, hi)``: the positions of the ascending λ ``sl`` whose
-    ``|ql − λ|`` is below ``TIE_EPS``, by the kernel's two predicates."""
+    ``|ql − λ|`` is below ``TIE_EPS``, by the kernel's two predicates; and
+    every position's ``|ql − λ|``."""
     d = torch.abs(ql - sl)
     lo = int(torch.sum(~((sl >= ql) | (d < TIE_EPS))))
     hi = sl.shape[0] - int(torch.sum((sl > ql) & ~(d < TIE_EPS)))
+    return lo, hi, d
+
+
+def _band(sl, ql):
+    """:func:`_band_edges` with the distances negated, as a list."""
+    lo, hi, d = _band_edges(sl, ql)
     return lo, hi, (-d).tolist()
 
 

@@ -5,7 +5,9 @@ same routes through the kernels' plain versions, and the energy scan
 against the same index on the CPU. The full scan's kernel
 (``ops/kernels/energy_scan.py``) against its plain version over B, N, F,
 k, alignment, one λ for all, duplicate rows and the tie band's edge, and
-the full scan's launches, syncs and device operations. Every test needs
+the full scan's launches, syncs and device operations. The window route
+against the scan bit for bit on narrow (≤ 8 queries a band), wide and
+mixed groups, its tally held to the plan's plain mirror. Every test needs
 a CUDA card and ``nvcc`` (marker ``gpu``) and skips without them. This
 file imports no JAX:
 
@@ -403,18 +405,114 @@ def test_window_route_is_the_scan_on_every_corpus(b, n, f, kind, misalign):
     score, equal distances on both sides, query λ that no row has, NaN λ
     and query λ, N not a multiple of 256, B up to 1300 (two launches of
     at most 1024 queries), X off 16 bytes.
-    The walks take rows past the band where the corpus puts them there."""
+    The walks take rows past the band where the corpus puts them there;
+    the tally is the plan's plain mirror's, once a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     X, norms, lam, Q, ql = _scan_case(n, f, b, kind, n + b, misalign)
     s_lam, s_idx = torch.sort(lam, stable=True)
     esk.reset_window_tally(X.device)
-    for k in (1, 10, 16):
-        if k <= n:
-            _same_bits(esk.energy_topk_window(X, norms, s_lam, s_idx, Q, ql, k),
-                       esk.energy_topk(X, norms, lam, Q, ql, k))
+    ks = [k for k in (1, 10, 16) if k <= n]
+    for k in ks:
+        _same_bits(esk.energy_topk_window(X, norms, s_lam, s_idx, Q, ql, k),
+                   esk.energy_topk(X, norms, lam, Q, ql, k))
+    tally = esk.window_tally(X.device)
+    plan = _tally_of_plan(s_lam, ql)
+    assert {name: tally[name] for name in plan} == {name: len(ks) * v for name, v in plan.items()}
     if kind in ("small_band", "under_kth", "both_sides", "absent", "merged_d"):
-        assert esk.window_tally(X.device)["queries_past_band"] > 0
+        assert tally["queries_past_band"] > 0
+
+
+def _tally_of_plan(s_lam, ql):
+    """The tally the plan counts, from its plain mirror."""
+    return esk.window_plan_plain(s_lam.cpu(), ql.cpu(), esk.narrow_width())
+
+
+# Queries a band of each case holds, as a function of the narrow width W;
+# levels without queries hold 1,500 rows, so the union of consecutive
+# queries' bands spans them and the plan keeps each band's own groups.
+BAND_CASES = {
+    "exactly_w": lambda w: [w, 0, 1, 0],
+    "w_plus_1": lambda w: [w + 1, 0],
+    "sixty_five": lambda w: [65, 0],
+    "mixed": lambda w: [1, 0, 2, w, 0, w + 1, 65, 0, 3, 1, 0, w - 1, 1, 0, 130],
+    "singles": lambda w: [1, 0] * 220,
+    "one_band": lambda w: [300],
+}
+
+
+def _band_lambdas(counts, seed):
+    """λ of the rows and of the queries: levels in (0.5, 1), ``counts[i]``
+    queries on level i, the level's rows (5, 300, 700 or 1,800 in turn
+    where it has queries, 1,500 where it has none); beside every level
+    three rows one float step (2⁻²⁴, outside the 1e-9 band) above and three
+    below, two rows two steps either side, so equal distances run across
+    both edges of every band (the first band's 5 rows take them at k = 10
+    and 16); 50 rows of NaN λ and one query of NaN λ. Rows and queries in
+    shuffled order."""
+    rng = np.random.default_rng(seed)
+    g = len(counts)
+    levels = (0.5 + (np.arange(g) + 1) / (2 * (g + 1))).astype(np.float32)
+    has = np.asarray(counts) > 0
+    sizes = np.where(has, np.resize([5, 300, 700, 1800], g)[np.cumsum(has) - 1], 1500)
+    step = np.float32(2.0**-24)
+    edge = np.float32([1, 1, 1, -1, -1, -1, 2, 2, -2, -2]) * step
+    lam = np.concatenate([np.repeat(levels, sizes), (levels[:, None] + edge).ravel(),
+                          np.full(50, np.nan, np.float32)]).astype(np.float32)
+    ql = np.concatenate([np.repeat(levels, counts), np.float32([np.nan])]).astype(np.float32)
+    return lam[rng.permutation(len(lam))], ql[rng.permutation(len(ql))]
+
+
+def _bands_case(counts, f, seed, misalign=False):
+    """:func:`_band_lambdas`' λ with normal rows and queries, on the card
+    (X 4 bytes off a 16-byte boundary with ``misalign``)."""
+    lam, ql = _band_lambdas(counts, seed)
+    n, b = len(lam), len(ql)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    X = torch.randn((n, f), generator=gen, device="cuda")
+    Q = torch.randn((b, f), generator=gen, device="cuda")
+    if misalign:
+        X = torch.empty(n * f + 1, device="cuda")[1:].view(n, f).copy_(X)
+    return (X, torch.sqrt(torch.sum(X * X, dim=1)), torch.from_numpy(lam).cuda(), Q,
+            torch.from_numpy(ql).cuda())
+
+
+@pytest.mark.parametrize("case", list(BAND_CASES))
+@pytest.mark.parametrize("f,misalign", [(128, False), (130, False), (96, True), (1536, False)])
+def test_window_route_on_narrow_and_wide_groups(case, f, misalign):
+    """Bands of W, W + 1 and 65 queries, a batch mixing narrow and wide
+    groups, 220 single-query bands, one band for the batch: the window route
+    gives ``energy_scan`` + G's merge's ids and distances bit for bit at k
+    1, 10 and 16, F 128 and 1536, and without 16-byte copies (F = 130, X
+    off 16 bytes); one launch a call; its tally is the plan's plain mirror's,
+    every dot pair on narrow tiles where no band holds more than W queries
+    and none where one band holds the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    w = esk.narrow_width()
+    counts = BAND_CASES[case](w)
+    X, norms, lam, Q, ql = _bands_case(counts, f, len(counts) + f, misalign)
+    s_lam, s_idx = torch.sort(lam, stable=True)
+    want = _tally_of_plan(s_lam, ql)
+    for k in (1, 10, 16):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        esk.reset_window_tally(X.device)
+        got = esk.energy_topk_window(X, norms, s_lam, s_idx, Q, ql, k)
+        assert kernels.launch_counts()["energy_window"] == 1
+        tally = esk.window_tally(X.device)
+        _same_bits(got, esk.energy_topk(X, norms, lam, Q, ql, k))
+        assert {name: tally[name] for name in want} == want, (tally, want)
+    narrow = want["narrow_dot_pairs"]
+    if max(counts) <= w:
+        assert narrow == want["dot_pairs"] > 0
+    elif case == "mixed":
+        assert 0 < narrow < want["dot_pairs"]
+    else:
+        assert narrow == 0
+    if case == "exactly_w":                 # the band of 5 rows walks out on both sides
+        assert tally["queries_past_band"] > 0
 
 
 def test_window_route_follows_append_mutation_and_replaced_lambdas(law_index):

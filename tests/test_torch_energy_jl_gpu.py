@@ -7,8 +7,12 @@
    batches of 256 and 1,024 queries on random groups' λ, so that most
    bands hold one to three of a batch's queries. Ids and distances are
    ``energy_scan`` + G's merge's bit for bit at k 1, 10 and 16; the tally
-   counts every band pair, and the 64-query tiles take many times more
-   dot pairs than that.
+   counts every band pair and is the plan's plain mirror's
+   (``energy_scan.window_plan_plain``): at B = 256 every band holds at most
+   the narrow width's queries and every dot pair lies on narrow tiles; at
+   B = 1,024, every λ group a band of about three queries, the union of
+   consecutive 64 queries' bands takes fewer tiles and the plan takes it,
+   all 64-query tiles.
 2. The cell ``energy-jl1536-centres1m.scan1536-b256`` cut to 100,000
    rows (250 clusters, the λ space projected to 491, ``build_energy``):
    two 256-query batches of ``search_energy_batch``'s full scan against
@@ -89,6 +93,8 @@ def test_window_route_is_the_scan_over_many_small_bands(bands, b):
     n_bands = len(torch.unique(ql))
     assert n_bands > b // 4
     band = int(sum(int((lam == v).sum()) for v in ql.tolist()))
+    w = esk.narrow_width()
+    want = esk.window_plan_plain(s_lam.cpu(), ql.cpu(), w)
     for k in (1, 10, 16):
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -100,7 +106,12 @@ def test_window_route_is_the_scan_over_many_small_bands(bands, b):
         assert torch.equal(gi, wi)
         assert torch.equal(gd.contiguous().view(torch.int32), wd.contiguous().view(torch.int32))
         assert tally["band_pairs"] == band, tally
-        assert tally["dot_pairs"] >= 4 * band, tally        # most of a 64-query tile is empty
+        assert {name: tally[name] for name in want} == want, (tally, want)
+        if b == 256:
+            assert max(collections.Counter(ql.tolist()).values()) <= w
+            assert tally["narrow_dot_pairs"] == tally["dot_pairs"], tally
+        else:
+            assert tally["narrow_dot_pairs"] == 0, tally
 
 
 @pytest.fixture(scope="module")

@@ -291,3 +291,70 @@ def test_kernel_is_refused_without_a_card():
     with pytest.raises(ValueError, match="k=17"):
         esk.energy_topk_window(arrs[0], arrs[1], arrs[2], s_idx, arrs[3], arrs[4], 17)
     assert kernels.launch_counts() == {name: 0 for name in kernels.LAUNCHES}
+
+
+def test_tally_keeps_its_four_words_and_adds_the_narrow_dot_pairs():
+    """The tally's order is the C kernels' word order: the first four words
+    as before, the narrow tiles' dot pairs appended."""
+    assert esk.TALLY_NAMES[:4] == ("band_pairs", "dot_pairs", "queries_past_band", "rows_walked")
+    assert esk.TALLY_NAMES[4:] == ("narrow_dot_pairs",)
+
+
+def _levels_plan(per_level, rows, narrow_w, extra=()):
+    """The plan's mirror on λ in levels 1, 2, ... with ``rows[i]`` rows on
+    level i + 1 and ``per_level[i]`` queries on it, then ``extra`` query λ."""
+    lam = torch.cat([torch.full((r,), float(i + 1)) for i, r in enumerate(rows)])
+    ql = torch.tensor([float(i + 1) for i, c in enumerate(per_level) for _ in range(c)]
+                      + list(extra))
+    return esk.window_plan_plain(torch.sort(lam, stable=True)[0], ql, narrow_w)
+
+
+@pytest.mark.parametrize("narrow_w", [4, 8, 16])
+@pytest.mark.parametrize("extra", [0, 1, 57])
+def test_window_plan_takes_a_band_of_at_most_w_queries_narrow(narrow_w, extra):
+    """A band of W queries is one narrow group (W slots × its tiles), one
+    of W + 1 or more queries groups of 64 (64 slots × its tiles each)."""
+    n = narrow_w + extra
+    rows = [700, 1500, 300]                   # 3, 6 and 2 tiles
+    plan = _levels_plan([n, 0, 1], rows, narrow_w)
+    band = n * 700 + 300
+    narrow = 2 * narrow_w * 256 + (3 * narrow_w * 256 if extra == 0 else 0)
+    wide = 0 if extra == 0 else -(-n // 64) * 3 * 64 * 256
+    assert plan == dict(band_pairs=band, dot_pairs=narrow + wide, narrow_dot_pairs=narrow)
+
+
+def test_window_plan_without_narrow_tiles_is_the_earlier_design():
+    """At a narrow width of 0 every group is 64 wide, as before narrow tiles."""
+    plan = _levels_plan([1, 0, 2], [700, 1500, 300], 0)
+    assert plan == dict(band_pairs=700 + 600, dot_pairs=(3 + 2) * 64 * 256, narrow_dot_pairs=0)
+
+
+def test_window_plan_puts_many_single_query_bands_on_narrow_tiles():
+    """220 bands of one query each, levels between them with no query: the
+    band cut (220 narrow groups) has fewer tiles than the union of
+    consecutive 64s, which spans the empty levels."""
+    per_level = [1, 0] * 220
+    rows = [300 if c else 1500 for c in per_level]
+    plan = _levels_plan(per_level, rows, 8)
+    assert plan == dict(band_pairs=220 * 300, dot_pairs=220 * 2 * 8 * 256,
+                        narrow_dot_pairs=220 * 2 * 8 * 256)
+
+
+def test_window_plan_takes_the_union_cut_where_it_has_fewer_tiles():
+    """Bands of 100 rows, one query each and side by side: 64 of them are
+    64 tiles on their own and 25 as one union, which the plan takes (all
+    wide); NaN query λ and empty bands count nothing."""
+    plan = _levels_plan([1] * 64, [100] * 64, 8, extra=(float("nan"), 0.5, 99.0))
+    assert plan == dict(band_pairs=6400, dot_pairs=25 * 64 * 256, narrow_dot_pairs=0)
+
+
+def test_window_plan_sums_the_calls_of_1024_queries():
+    """Past 1,024 queries the route makes one call per 1,024, each with its
+    own plan: 1,030 queries on one band are 16 full groups of 64 and, in
+    the second call, one narrow group of 6."""
+    lam = torch.sort(torch.cat([torch.full((700,), 1.0), torch.full((300,), 2.0)]))[0]
+    plan = esk.window_plan_plain(lam, torch.ones(1030), 8)
+    assert plan == dict(band_pairs=1030 * 700, dot_pairs=16 * 3 * 64 * 256 + 3 * 8 * 256,
+                        narrow_dot_pairs=3 * 8 * 256)
+    parts = [esk.window_plan_plain(lam, q, 8) for q in (torch.ones(1024), torch.ones(6))]
+    assert plan == {name: sum(p[name] for p in parts) for name in plan}

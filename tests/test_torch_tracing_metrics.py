@@ -136,9 +136,33 @@ def test_window_fill_is_band_pairs_over_dot_pairs(monkeypatch):
     assert _fill(monkeypatch, tally) == pytest.approx(2.5, abs=1e-12)
 
 
+@pytest.mark.parametrize("narrow", [0, 5_120_000, 40_960_000],
+                         ids=["none_narrow", "some_narrow", "all_narrow"])
+def test_window_fill_reads_a_tally_with_the_narrow_word(monkeypatch, narrow):
+    """With the narrow tiles' dot pairs appended as a fifth word, the share
+    still reads band pairs over dot pairs, whatever that word says."""
+    tally = {"band_pairs": 1_024_000, "dot_pairs": 40_960_000, "queries_past_band": 3,
+             "rows_walked": 90, "narrow_dot_pairs": narrow}
+    assert _fill(monkeypatch, tally) == pytest.approx(2.5, abs=1e-12)
+
+
+def test_window_fill_reads_the_programs_tally_names(monkeypatch):
+    """A tally laid out by the program's ``TALLY_NAMES`` (five words, the
+    four the share was defined on first) reads as the share."""
+    from matternet_rs_tpu_torch.ops.kernels import energy_scan
+
+    words = dict(band_pairs=300, dot_pairs=1200, queries_past_band=1, rows_walked=5,
+                 narrow_dot_pairs=1200)
+    tally = {name: words[name] for name in energy_scan.TALLY_NAMES}
+    assert list(tally) == list(words)
+    assert _fill(monkeypatch, tally) == pytest.approx(25.0, abs=1e-12)
+
+
 @pytest.mark.parametrize("tally,card", [
-    ({"band_pairs": 0, "dot_pairs": 0, "queries_past_band": 0, "rows_walked": 0}, True),
-    ({"band_pairs": 5, "dot_pairs": 64, "queries_past_band": 0, "rows_walked": 0}, False),
+    ({"band_pairs": 0, "dot_pairs": 0, "queries_past_band": 0, "rows_walked": 0,
+      "narrow_dot_pairs": 0}, True),
+    ({"band_pairs": 5, "dot_pairs": 64, "queries_past_band": 0, "rows_walked": 0,
+      "narrow_dot_pairs": 8}, False),
 ], ids=["no_dot_pair", "no_card"])
 def test_window_fill_gives_nothing_without_a_dot_pair_or_a_card(monkeypatch, tally, card):
     assert _fill(monkeypatch, tally, card) is None
